@@ -1,0 +1,152 @@
+"""abc_tpu_torch NTT: the plain torch transforms against the reference
+(Pallas kernels in interpret mode, the jx32 stage loop, the np64 oracle), the
+CPU routing of the kernel wrappers, and — on a CUDA device — the
+hand-written kernels against their plain versions.
+
+Inputs are drawn with numpy from a seed; residues are integers, so the
+tolerance is exact equality.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from abc_tpu.crypto.ntt import NttContext as RefNttContext
+from abc_tpu.crypto.numthy import gen_ntt_primes
+from abc_tpu_torch.crypto.ntt import NttContext
+from abc_tpu_torch.ops import ntt_kernels as nk
+from abc_tpu_torch.ops.modarith import as_residues, to_host
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rand(moduli, n, batch=(), seed=0):
+    L = len(moduli)
+    rng = np.random.default_rng(seed)
+    hi = np.asarray(moduli, dtype=np.uint64).reshape(L, 1)
+    return rng.integers(0, hi, size=batch + (L, n),
+                        dtype=np.uint64).astype(np.uint32)
+
+
+def _plain(ctx, which, x):
+    if which == "fwd":
+        return nk.fwd_ntt_plain(x, ctx.q, ctx.fwd_tw)
+    return nk.inv_ntt_plain(x, ctx.q, ctx.inv_tw, ctx.n_inv)
+
+
+@pytest.mark.parametrize("which", ["fwd", "inv"])
+@pytest.mark.parametrize("n", [256, 2048])
+def test_plain_matches_pallas_interpret(n, which):
+    """The TPU kernels (pallas_fwd_ntt / pallas_inv_ntt) run through the
+    Pallas interpreter, as tests/test_pallas_ntt.py runs them."""
+    jnp = pytest.importorskip("jax.numpy")
+    from abc_tpu.ops import pallas_ntt as pn
+    moduli = gen_ntt_primes(30, 2, n)
+    ref = RefNttContext(n, moduli, engine="jx32")
+    (fpw, fps, flw, fls, ipw, ips, ilw, ils, ninv, ninv_sh) = \
+        [jnp.asarray(t) for t in pn.get_tables(ref)]
+    q = jnp.asarray(np.asarray(moduli, dtype=np.uint32))
+    a = _rand(moduli, n, batch=(2,), seed=n)
+    if which == "fwd":
+        want = pn.pallas_fwd_ntt(jnp.asarray(a), q, fpw, fps, flw, fls, n=n,
+                                 interpret=True)
+    else:
+        want = pn.pallas_inv_ntt(jnp.asarray(a), q, ipw, ips, ilw, ils, ninv,
+                                 ninv_sh, n=n, interpret=True)
+    got = _plain(NttContext(n, moduli, "cpu"), which, as_residues(a, "cpu"))
+    np.testing.assert_array_equal(to_host(got), np.asarray(want))
+
+
+def test_plain_matches_jx32_stage_loop():
+    jnp = pytest.importorskip("jax.numpy")
+    n = 1024
+    moduli = gen_ntt_primes(30, 3, n)
+    ref = RefNttContext(n, moduli, engine="jx32")
+    ctx = NttContext(n, moduli, "cpu")
+    a = _rand(moduli, n, batch=(3,), seed=1)
+    at = as_residues(a, "cpu")
+    np.testing.assert_array_equal(to_host(ctx.fwd(at)),
+                                  np.asarray(ref.fwd(jnp.asarray(a))))
+    np.testing.assert_array_equal(to_host(ctx.inv(at)),
+                                  np.asarray(ref.inv(jnp.asarray(a))))
+
+
+@pytest.mark.parametrize("n,L,batch", [(1024, 5, (2, 3)), (8192, 7, (3,)),
+                                       (16384, 14, (2,))])
+def test_plain_matches_np64_with_batch_dims(n, L, batch):
+    moduli = gen_ntt_primes(30, L, n)
+    ref = RefNttContext(n, moduli, engine="np64")
+    ctx = NttContext(n, moduli, "cpu")
+    a = _rand(moduli, n, batch=batch, seed=L)
+    at = as_residues(a, "cpu")
+    f = ctx.fwd(at)
+    np.testing.assert_array_equal(to_host(f), ref.fwd(a))
+    np.testing.assert_array_equal(to_host(ctx.inv(at)), ref.inv(a))
+    np.testing.assert_array_equal(to_host(ctx.inv(f)), a)
+    b = as_residues(_rand(moduli, n, seed=L + 1), "cpu")
+    np.testing.assert_array_equal(
+        to_host(ctx.negacyclic_mul(at[(0,) * len(batch)], b)),
+        ref.negacyclic_mul(a[(0,) * len(batch)], to_host(b)))
+
+
+def test_wrapper_routes_cpu_tensors_to_plain_without_launching():
+    n = 1024
+    ctx = NttContext(n, gen_ntt_primes(30, 2, n), "cpu")
+    a = as_residues(_rand(ctx.moduli, n, seed=4), "cpu")
+    before = dict(nk.launches)
+    got = nk.ntt_fwd(a, ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
+    back = nk.ntt_inv(got, ctx.q, ctx.inv_tw, ctx.inv_tw_sh, ctx.n_inv,
+                      ctx.n_inv_sh)
+    assert torch.equal(got, _plain(ctx, "fwd", a))
+    assert torch.equal(back, a)
+    assert nk.launches == before
+
+
+def test_wrapper_refuses_other_devices():
+    """No silent fallback: a tensor that is neither on the CPU nor on a
+    CUDA device is refused, not computed by the plain version."""
+    n = 1024
+    ctx = NttContext(n, gen_ntt_primes(30, 2, n), "cpu")
+    a = torch.empty((2, n), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        nk.ntt_fwd(a, ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
+
+
+# ---------------------------------------------------------------- on the card
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,L,batch", [(8192, 6, 1), (8192, 7, 6),
+                                       (16384, 14, 8), (32768, 2, 1)])
+def test_kernels_match_plain_on_cuda(cuda, n, L, batch):
+    moduli = gen_ntt_primes(30, L, n)
+    ctx = NttContext(n, moduli, cuda)
+    a = as_residues(_rand(moduli, n, batch=(batch,), seed=n + L), cuda)
+    before = dict(nk.launches)
+    f = ctx.fwd(a)
+    back = ctx.inv(f)
+    torch.cuda.synchronize()
+    assert nk.launches["ntt_fwd"] == before["ntt_fwd"] + 1
+    assert nk.launches["ntt_inv"] == before["ntt_inv"] + 1
+    assert torch.equal(f, _plain(ctx, "fwd", a))
+    assert torch.equal(ctx.inv(a), _plain(ctx, "inv", a))
+    assert torch.equal(back, a)
+    ref = RefNttContext(n, moduli, engine="np64")
+    np.testing.assert_array_equal(to_host(f), ref.fwd(to_host(a)))
+
+
+@pytest.mark.gpu
+def test_kernel_wrapper_checks_operands_on_cuda(cuda):
+    n = 1024
+    ctx = NttContext(n, gen_ntt_primes(30, 2, n), cuda)
+    a = as_residues(_rand(ctx.moduli, n, seed=5), cuda)
+    with pytest.raises(TypeError):
+        nk.ntt_fwd(a.to(torch.int64), ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
+    with pytest.raises(ValueError):
+        nk.ntt_fwd(a.t().contiguous().t(), ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
+    with pytest.raises(ValueError):
+        nk.ntt_fwd(a[:1], ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
