@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of this package (csrc/*.cu).
 
-The sources are compiled at first use with `nvcc` for Hopper
-(`-gencode arch=compute_90a,code=sm_90a`) into a shared library with a plain
-C interface under `abc_tpu_torch/_build/`, and loaded with ctypes: no
-PyTorch headers are compiled, so a build takes seconds. A missing `nvcc` or
-a failed compile raises; there is no fallback. The in-repo model for this
-pattern is abc_tpu/ops/native.py.
+Each source is compiled at first use with `nvcc` for Hopper
+(`-gencode arch=compute_90a,code=sm_90a`), all sources at once in parallel,
+and linked into one shared library with a plain C interface under
+`abc_tpu_torch/_build/`, loaded with ctypes: no PyTorch headers are
+compiled, so a build takes seconds. A missing `nvcc` or a failed compile
+raises; there is no fallback. The in-repo model for this pattern is
+abc_tpu/ops/native.py.
 """
 
 from __future__ import annotations
@@ -17,11 +18,14 @@ import subprocess
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = [os.path.join(_PKG, "csrc", "ntt.cu")]
+_CSRC = os.path.join(_PKG, "csrc")
+SOURCES = [os.path.join(_CSRC, f) for f in ("ntt.cu", "ntt_ablation.cu")]
+HEADERS = [os.path.join(_CSRC, "ntt_common.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SO = os.path.join(BUILD_DIR, "libabc_ntt.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v"]
 
 _LIB = None
 # what the last build in this process printed and how long it took
@@ -45,23 +49,44 @@ def _stale() -> bool:
     if not os.path.exists(_SO):
         return True
     built = os.path.getmtime(_SO)
-    return any(os.path.getmtime(src) > built for src in SOURCES)
+    return any(os.path.getmtime(src) > built for src in SOURCES + HEADERS)
 
 
 def build() -> None:
-    """Compile SOURCES into the shared library (atomically replaced, so
-    concurrent processes never load a half-written file)."""
+    """Compile SOURCES (one nvcc each, started together) and link them into
+    the shared library (atomically replaced, so concurrent processes never
+    load a half-written file)."""
     global build_log, build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + SOURCES
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in SOURCES]
+    tmp = f"{_SO}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        build_log = "".join(logs)
+        bad = [(src, p.returncode) for src, p in zip(SOURCES, procs)
+               if p.returncode != 0]
+        if bad:
+            raise RuntimeError(f"nvcc failed on {bad}:\n{build_log}")
+        link = subprocess.run([nvcc] + ARCH + ["-shared", "-o", tmp] + objs,
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, _SO)
+    finally:
+        for path in objs:
+            if os.path.exists(path):
+                os.remove(path)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, _SO)
 
 
 def load() -> ctypes.CDLL:
@@ -72,12 +97,26 @@ def load() -> ctypes.CDLL:
     if _stale():
         build()
     lib = ctypes.CDLL(_SO)
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_uint32)
     lib.abc_ntt_fwd.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.abc_ntt_fwd.restype = i32
     lib.abc_ntt_inv.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.abc_ntt_inv.restype = i32
+    lib.abc_ablate_ntt.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+    lib.abc_ablate_ntt.restype = i32
+    lib.abc_alu_chain.argtypes = [vp, vp, i64, i32, u32, u32, u32, i32, vp]
+    lib.abc_alu_chain.restype = i32
     lib.abc_cuda_error_string.argtypes = [i32]
     lib.abc_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib
     return lib
+
+
+def sass() -> str:
+    """The library's SASS as `cuobjdump -sass` prints it (built first if
+    needed)."""
+    load()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", _SO], capture_output=True,
+                          text=True, check=True).stdout

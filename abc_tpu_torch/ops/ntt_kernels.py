@@ -71,7 +71,9 @@ def inv_ntt_plain(a: torch.Tensor, q: torch.Tensor, tw: torch.Tensor,
     return out.to(torch.int32)
 
 
-def _check(a, q, tables):
+def check_operands(a, q, tables):
+    """Raise unless a CUDA tensor a and its int32 tables fit the NTT kernels
+    (n a power of two in [MIN_N, MAX_N], contiguous, on a's device)."""
     if a.device.type != "cuda":
         raise ValueError(f"NTT kernels take CPU or CUDA tensors, got "
                          f"{a.device}")
@@ -123,7 +125,7 @@ def ntt_fwd(a: torch.Tensor, q: torch.Tensor, tw: torch.Tensor,
     crypto/ntt.NttContext: q [L], tw/tw_sh [L, n])."""
     if a.device.type == "cpu":
         return fwd_ntt_plain(a, q, tw)
-    _check(a, q, {"tw": tw, "tw_sh": tw_sh})
+    check_operands(a, q, {"tw": tw, "tw_sh": tw_sh})
     return _launch("ntt_fwd", a, (q, tw, tw_sh))
 
 
@@ -133,5 +135,6 @@ def ntt_inv(a: torch.Tensor, q: torch.Tensor, tw: torch.Tensor,
     """Inverse NTT of [..., L, n] int32 residues, including the n⁻¹ scale."""
     if a.device.type == "cpu":
         return inv_ntt_plain(a, q, tw, ninv)
-    _check(a, q, {"tw": tw, "tw_sh": tw_sh, "ninv": ninv, "ninv_sh": ninv_sh})
+    check_operands(a, q, {"tw": tw, "tw_sh": tw_sh, "ninv": ninv,
+                          "ninv_sh": ninv_sh})
     return _launch("ntt_inv", a, (q, tw, tw_sh, ninv, ninv_sh))

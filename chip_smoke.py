@@ -21,6 +21,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
 5. LaplaceSharpening at the reference's parameters (n=16384, 13 data
    primes): decrypts equal to the plain oracle, rotations share one hoisted
    decomposition, both kernels launched; phase times.
+6. NTT ablation and ALU calibration: every mode of ablate_ntt torch.equal to
+   its plain version at (n, L, B) = (16384, 14, 1) and (8192, 6, 3), the
+   four NTT modes also equal to ntt_fwd; both alu_chain kinds at
+   [14, 128, 128] x 512 iterations equal to their plain versions. Then the
+   path itself: `python -m abc_tpu_torch.scripts.ntt_ablation --quick`'s
+   measurement, with the ablation module's launch counts taken over it
+   alone, the SASS check that the ALU chains were not folded, and its JSON
+   on one line.
 
 Needs one CUDA device; exits nonzero at once without one. Imports nothing of
 JAX. Prints the card's name and power limit, a {"kernels": [...]} JSON line,
@@ -75,7 +83,19 @@ REPLACES = {
                "pallas_fwd_ntt :416, pallas_fwd_ntt_fp :439)",
     "ntt_inv": "abc_tpu/ops/pallas_ntt.py:309 (_inv_kernel via "
                "pallas_inv_ntt :468, pallas_inv_ntt_fp :495)",
+    "ablate_ntt": "scripts/ntt_ablation.py:85 (_ablate_kernel via "
+                  "ablate_ntt :177)",
+    "alu_chain": "scripts/ntt_ablation.py:201 (_alu_mac_kernel), :210 "
+                 "(_alu_shoup_kernel) via alu_chain :220",
 }
+SOURCE = {"ntt_fwd": "abc_tpu_torch/csrc/ntt.cu",
+          "ntt_inv": "abc_tpu_torch/csrc/ntt.cu",
+          "ablate_ntt": "abc_tpu_torch/csrc/ntt_ablation.cu",
+          "alu_chain": "abc_tpu_torch/csrc/ntt_ablation.cu"}
+ABLATION_SHAPES = [(16384, 14, 1), (8192, 6, 3)]
+ALU_SHAPE, ALU_ITERS = (14, 128, 128), 512
+# where the kernels line times the ablation kernels: mode / kind
+ABLATION_TIMED = {"ablate_ntt": "full", "alu_chain": "shoup"}
 
 
 def cuda_ms(fn, reps=10):
@@ -344,6 +364,98 @@ def phase_laplace(dev):
           f"decryption {t_dec:.1f}", flush=True)
 
 
+def _timed(stats, kern, plain, at):
+    """Kernel and plain times (CUDA events and profiler) into stats."""
+    stats["ms"], stats["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
+    prof, plain_prof = kernel_profile(kern), kernel_profile(plain)
+    stats["device_ms"] = prof and prof[0]
+    stats["plain_device_ms"] = plain_prof and plain_prof[0]
+    stats["at"] = at
+    return (f"{stats['ms']:.4f} ms (plain {stats['plain_ms']:.4f} ms) "
+            f"[device: {fmt(prof)}; plain {fmt(plain_prof)}]")
+
+
+def phase_ablation(dev):
+    from abc_tpu.crypto.numthy import gen_ntt_primes
+    from abc_tpu_torch.crypto.ntt import NttContext
+    from abc_tpu_torch.ops import ntt_ablation as na
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    from abc_tpu_torch.ops.modarith import as_residues
+    from abc_tpu_torch.scripts import ntt_ablation as script
+
+    stats = {k: {"max_abs_err": 0} for k in na.launches}
+
+    def hold(name, got, want, what):
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        check(torch.equal(got, want), what)
+
+    for n, L, batch in ABLATION_SHAPES:
+        moduli = gen_ntt_primes(30, L, n)
+        ctx = NttContext(n, moduli, dev)
+        x = rand_residues(moduli, (batch, L, n), seed=n + 2 * L + batch,
+                          device=dev)
+        fwd = nk.ntt_fwd(x, ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
+        for mode in na.MODES:
+            got = na.ablate_ntt(x, ctx, mode)
+            hold("ablate_ntt", got,
+                 na.ablate_ntt_plain(x, ctx.q, ctx.fwd_tw, mode),
+                 f"ablate_ntt {mode} != plain at {n, L, batch}")
+            if mode in na.NTT_MODES:
+                hold("ablate_ntt", got, fwd,
+                     f"ablate_ntt {mode} != ntt_fwd at {n, L, batch}")
+        line = f"  n={n} L={L} batch={batch}: {len(na.MODES)} modes = plain"
+        if (n, L, batch) == ABLATION_SHAPES[0]:
+            mode = ABLATION_TIMED["ablate_ntt"]
+            line += f"; {mode}: " + _timed(
+                stats["ablate_ntt"], lambda: na.ablate_ntt(x, ctx, mode),
+                lambda: na.ablate_ntt_plain(x, ctx.q, ctx.fwd_tw, mode),
+                [n, L, batch])
+        print(line, flush=True)
+
+    rng = np.random.default_rng(12)
+    xa = as_residues(rng.integers(0, 1 << 32, size=ALU_SHAPE,
+                                  dtype=np.uint64), dev)
+    for kind in na.ALU_KINDS:
+        hold("alu_chain", na.alu_chain(xa, kind, ALU_ITERS),
+             na.alu_chain_plain(xa, kind, ALU_ITERS),
+             f"alu_chain {kind} != plain")
+    kind = ABLATION_TIMED["alu_chain"]
+    print(f"  alu_chain {'/'.join(na.ALU_KINDS)} {list(ALU_SHAPE)} x "
+          f"{ALU_ITERS} = plain; {kind}: " + _timed(
+              stats["alu_chain"], lambda: na.alu_chain(xa, kind, ALU_ITERS),
+              lambda: na.alu_chain_plain(xa, kind, ALU_ITERS),
+              list(ALU_SHAPE) + [ALU_ITERS]), flush=True)
+
+    # the path: the ablation script's measurement, counted alone
+    for name in na.launches:
+        na.launches[name] = 0
+    result = script.run(quick=True,
+                        log=lambda *a: print("   ", *a, flush=True))
+    torch.cuda.synchronize()
+    launches = dict(na.launches)
+    check(all(v > 0 for v in launches.values()),
+          f"the ablation path launched a kernel no time: {launches}")
+    chains = result["census"]["alu_chain"]
+    check(not any(c["folded"] for c in chains.values()),
+          f"ALU chains folded by the compiler: {chains}")
+    times = [result[m]["us_per_fwd"] for m in script.MAIN_MODES + (
+        "shipping",)] + [result[f"alu_{k}"]["us_per_launch"]
+                         for k in na.ALU_KINDS]
+    check(all(np.isfinite(t) and t > 0 for t in times),
+          f"ablation times not positive: {times}")
+    print("  SASS: " + ", ".join(
+        f"alu_{k} {c['ops_per_iter']} IMAD / {c['instructions_per_iter']} "
+        f"instructions per iteration (not folded)"
+        for k, c in chains.items()) + f"; ntt_fwd butterfly "
+        f"{result['census']['instructions_per_butterfly']} instructions, "
+        f"{result['census']['alu_per_butterfly']} ALU; launches {launches}",
+        flush=True)
+    print(json.dumps({"ntt_ablation": result}), flush=True)
+    return stats, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -379,18 +491,21 @@ def main() -> int:
     launches = phase_hamming(dev)
     print("phase 5: LaplaceSharpening n=16384", flush=True)
     phase_laplace(dev)
+    print("phase 6: NTT ablation and ALU calibration", flush=True)
+    abl_stats, abl_launches = phase_ablation(dev)
+    stats.update(abl_stats)
+    launches.update(abl_launches)
     check(not any(v is not None and (m == "jax" or m.startswith("jax."))
                   for m, v in sys.modules.items()), "jax was imported")
 
-    kernels = [{"name": name, "route": "cuda",
-                "source": "abc_tpu_torch/csrc/ntt.cu",
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
                 "device_ms": stats[name]["device_ms"],
                 "plain_device_ms": stats[name]["plain_device_ms"],
-                "at": list(JSON_SHAPE[name])}
-               for name in ("ntt_fwd", "ntt_inv")]
+                "at": stats[name].get("at", list(JSON_SHAPE.get(name, ())))}
+               for name in ("ntt_fwd", "ntt_inv", "ablate_ntt", "alu_chain")]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi[0]}")
     print(json.dumps({"ok": True, "device": {
