@@ -1,24 +1,38 @@
 """abc_tpu_torch — the PyTorch/CUDA port of abc_tpu's encrypted execution path.
 
-The JAX package `abc_tpu` stays the reference. This package reuses its
-JAX-free layers (parser, compiler passes, RuntimeVisitor, parameter presets,
-the np64 host half of BFV: keygen, encode, encrypt, decrypt) by import, and
-ports the device half: modular arithmetic, the negacyclic NTT (hand-written
-CUDA kernels for Hopper, csrc/ntt.cu), BEHZ ct·ct multiplication, key
-switching, Galois rotations and the BFV ciphertext factory.
+The JAX package `abc_tpu` stays the reference, and this package imports
+nothing of it (and never `jax`): it keeps its own copy of the host-only
+layers (utils, ast_ir, parser, passes, the runtime executor; the same files
+with the import lines renamed) and its own BFV: parameters, number theory,
+the counter PRNG, keygen, switching keys, encode, encrypt, decrypt, and the
+evaluation (modular arithmetic, the negacyclic NTT as hand-written CUDA
+kernels for Hopper in csrc/ntt.cu, BEHZ ct·ct multiplication, key
+switching, Galois rotations), all on the device the caller names.
 
 Storage rule: residues are `torch.int32` tensors holding values in [0, q)
 with every prime below 2^30; arithmetic widens to int64, and the CUDA
 kernels reinterpret the storage as uint32.
 
-Layout:
+Layout (module for module the reference's):
+  utils/ ast_ir/ parser/ passes/   — the compiler, host only
+  runtime/executor.py, values.py, backend.py, dummy.py — program execution
+  runtime/bfv_backend.py — BFV ciphertext factory for RuntimeVisitor
   ops/modarith.py      — elementwise RNS arithmetic (torch engine)
   ops/ntt_kernels.py   — NTT kernel wrappers + their plain torch versions
-  crypto/ntt.py        — NttContext over [..., L, n] residues
+  crypto/numthy.py, params.py — primes and parameter presets
+  crypto/prng.py       — Threefry-2x32 streams (numpy words, torch polynomials)
+  crypto/ntt.py        — twiddle tables, NttContext over [..., L, n] residues
   crypto/behz.py       — BEHZ full-RNS ct·ct multiply
-  crypto/bfv.py        — BFV evaluation (mult, relin, rotations, plain ops)
-  runtime/bfv_backend.py — ciphertext factory for RuntimeVisitor
-  convert.py           — context_from_reference: np64 BfvContext → device
+  crypto/bfv.py        — BFV: keys, encode/encrypt/decrypt, evaluation
+  convert.py           — context_from_reference: a reference context's state
+                         (numpy arrays, plain values) → a port context
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+# the one-stop API: parse → compile → run (see README)
+from abc_tpu_torch.parser import Parser  # noqa: F401,E402
+from abc_tpu_torch.passes.pipeline import (  # noqa: F401,E402
+    CompileOptions, Compiler, compile_program, input_types_from_ast,
+    run_compiled,
+)

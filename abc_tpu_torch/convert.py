@@ -1,29 +1,52 @@
-"""Carry a reference BFV context's state onto a torch device.
+"""Carry a reference BFV context's state into the port.
 
 `context_from_reference` is the FHE counterpart of converting a model's
-weights: it takes an `abc_tpu` np64 `BfvContext` and returns the port's
-`BfvContext` with the secret key (NTT form over q∪P), the public key, every
-switching key built so far and the reference's scalar tables copied to the
-device as int32. The host half (keygen, encode/decode, encrypt/decrypt) stays
-on the reference context. Both sides then compute the same words, which is
-how the tests hold the port against the reference.
+weights: it takes the state of an `abc_tpu` BFV context as numpy arrays and
+plain values — never the live object — and returns the port's `BfvContext`
+holding that state on a torch device: the same secret and public key, the
+switching keys built so far, the master seed (so keys built later are the
+reference's too) and the position of the secret generator (so the next
+encryption draws what the reference's next encryption draws). Both sides
+then compute the same words, which is how the tests hold the port's
+evaluation against the reference even for contexts made without a seed.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Mapping
 
 from abc_tpu_torch.crypto.bfv import BfvContext
+from abc_tpu_torch.crypto.params import BfvParams
+
+STATE_KEYS = ("params", "master_seed", "rng_state", "s_coeffs", "s_ntt_full",
+              "pk_b_ntt", "pk_a_ntt", "switching_keys")
+PARAM_KEYS = ("n", "coeff_modulus", "plain_modulus", "seed", "error_std",
+              "ks_digits")
 
 
-def context_from_reference(ref_ctx, device) -> BfvContext:
-    """The port's BfvContext on `device` for an abc_tpu np64 BfvContext."""
-    if ref_ctx.params.engine != "np64":
-        raise ValueError("context_from_reference takes an np64 BfvContext "
-                         f"(host keys and tables), got engine "
-                         f"{ref_ctx.params.engine!r}")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but no CUDA device is "
-                           "available")
-    return BfvContext(ref_ctx, device)
+def context_from_reference(state: Mapping, device) -> BfvContext:
+    """The port's BfvContext on `device` holding a reference context's state.
+
+    state:
+      params          {n, coeff_modulus, plain_modulus, seed, error_std,
+                       ks_digits} (plain values)
+      master_seed     int, the seed both randomness domains derive from
+      rng_state       the secret generator's `bit_generator.state` dict
+      s_coeffs        [n] signed secret coefficients
+      s_ntt_full      [L+k, n] uint32, the secret in NTT form over q∪P
+      pk_b_ntt, pk_a_ntt   [L, n] uint32, the public key in NTT form
+      switching_keys  {"relin" | "galois_<g>": (ksk_b, ksk_a)}, each
+                      [α, L+k, n] uint32
+    """
+    missing = [k for k in STATE_KEYS if k not in state]
+    missing += [f"params.{k}" for k in PARAM_KEYS
+                if k not in state.get("params", {})]
+    if missing:
+        raise ValueError(f"reference state lacks {missing}")
+    p = state["params"]
+    params = BfvParams(n=int(p["n"]),
+                       coeff_modulus=[int(q) for q in p["coeff_modulus"]],
+                       plain_modulus=int(p["plain_modulus"]), seed=p["seed"],
+                       error_std=float(p["error_std"]),
+                       ks_digits=int(p["ks_digits"]))
+    return BfvContext(params, device, state=state)

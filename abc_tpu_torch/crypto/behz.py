@@ -2,39 +2,94 @@
 
 Same pipeline as the reference (lift q → Bsk ∪ {m̃} with the small Montgomery
 correction, tensor product in NTT form per base, fast floor in Bsk,
-Shenoy-Kumaresan back to q). The auxiliary primes and every constant table
-come from a reference np64 `BehzContext` (its `.tab` is a host dict), so both
-sides compute with identical constants; here they live on the device as
-int32 and the arithmetic is the torch engine's.
+Shenoy-Kumaresan back to q). The auxiliary primes (L+1 B-primes and m_sk,
+all 30-bit, disjoint from q ∪ {P, t}) and every constant table are computed
+here from host bigints exactly as the reference computes them; they live on
+the device as int32 and the arithmetic is the torch engine's.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from abc_tpu.crypto.behz import M_TILDE
 from abc_tpu_torch.crypto.ntt import NttContext
+from abc_tpu_torch.crypto.numthy import gen_ntt_primes, modinv
+from abc_tpu_torch.crypto.params import BfvParams
 from abc_tpu_torch.ops.modarith import as_residues, t64
 
+M_TILDE_BITS = 16
+M_TILDE = 1 << M_TILDE_BITS
 _MASK = M_TILDE - 1
 
 
 class BehzContext:
     """Device tables + auxiliary-base NTT for BEHZ multiplication."""
 
-    def __init__(self, ref, ntt_q: NttContext):
-        """ref: an abc_tpu np64 BehzContext for the same parameters; ntt_q:
-        the port's NttContext over the data primes."""
+    def __init__(self, params: BfvParams, ntt_q: NttContext):
+        """ntt_q: the NttContext over the data primes; its device is the
+        context's."""
+        self.params = params
+        L, n, t = params.L, params.n, params.plain_modulus
+        qs = params.data_primes
+        q_big = params.q
+        if M_TILDE <= 2 * (L + 2):
+            raise ValueError("m_tilde must exceed 2·(base size)")
         dev = ntt_q.device
+
+        aux = gen_ntt_primes(30, L + 2, n, exclude=params.coeff_modulus + [t])
+        self.b_primes = aux[:-1]
+        self.m_sk = aux[-1]
+        self.bsk = self.b_primes + [self.m_sk]          # size L+2
+        B_big = 1
+        for b in self.b_primes:
+            B_big *= b
         self.ntt_q = ntt_q
-        self.ntt_bsk = NttContext(ref.params.n, ref.bsk, dev)
-        self.tab = {k: as_residues(v, dev) for k, v in ref.tab.items()}
-        self.q_cols = as_residues(ref.q_cols, dev)          # [L, 1]
-        self.bsk_cols = as_residues(ref.bsk_cols, dev)      # [L+2, 1]
-        self.msk_col = as_residues(ref.m_sk, dev).reshape(1, 1)
-        self.msk_half = ref.msk_half
+        self.ntt_bsk = NttContext(n, self.bsk, dev)
+
+        host = {}
+
+        def as_col(v):
+            return np.asarray(v, dtype=np.uint32).reshape(-1, 1)
+
+        # step 1: y_i = [x_i · m̃ · (q/q_i)^{-1}]_{q_i}
+        qhat = [q_big // qi for qi in qs]
+        qhat_inv = [modinv(qh % qi, qi) for qh, qi in zip(qhat, qs)]
+        host["mtilde_qhatinv_mod_q"] = as_col(
+            [(M_TILDE * hi) % qi for hi, qi in zip(qhat_inv, qs)])
+        host["qhatinv_mod_q"] = as_col(qhat_inv)
+        # conversion tables  [L, dst]
+        host["qhat_mod_bsk"] = np.asarray(
+            [[qh % b for b in self.bsk] for qh in qhat], dtype=np.uint32)
+        host["qhat_mod_mtilde"] = as_col([qh % M_TILDE for qh in qhat])
+        # step 2
+        host["neg_qinv_mod_mtilde"] = np.uint32(
+            (-modinv(q_big % M_TILDE, M_TILDE)) % M_TILDE)
+        host["q_mod_bsk"] = as_col([q_big % b for b in self.bsk])
+        host["mtilde_inv_mod_bsk"] = as_col(
+            [modinv(M_TILDE, b) for b in self.bsk])
+        # step 4
+        host["t_mod_q"] = as_col([t % qi for qi in qs])
+        host["t_mod_bsk"] = as_col([t % b for b in self.bsk])
+        host["qinv_mod_bsk"] = as_col([modinv(q_big % b, b) for b in self.bsk])
+        # step 5 (Shenoy-Kumaresan over B with m_sk)
+        bhat = [B_big // b for b in self.b_primes]
+        host["bhatinv_mod_b"] = as_col(
+            [modinv(bh % b, b) for bh, b in zip(bhat, self.b_primes)])
+        host["bhat_mod_q"] = np.asarray(
+            [[bh % qi for qi in qs] for bh in bhat], dtype=np.uint32)
+        host["bhat_mod_msk"] = as_col([bh % self.m_sk for bh in bhat])
+        host["binv_mod_msk"] = np.uint32(modinv(B_big % self.m_sk, self.m_sk))
+        host["B_mod_q"] = as_col([B_big % qi for qi in qs])
+        host["msk_mod_q"] = as_col([self.m_sk % qi for qi in qs])
+
+        self.tab = {k: as_residues(v, dev) for k, v in host.items()}
+        self.q_cols = as_residues(as_col(qs), dev)            # [L, 1]
+        self.bsk_cols = as_residues(as_col(self.bsk), dev)    # [L+2, 1]
+        self.msk_col = as_residues(self.m_sk, dev).reshape(1, 1)
+        self.msk_half = self.m_sk >> 1
 
     # ----------------------------------------------------------------- helpers
     @staticmethod

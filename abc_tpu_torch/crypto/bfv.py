@@ -1,136 +1,432 @@
-"""RNS-BFV evaluation on torch tensors (port of the evaluation half of
-abc_tpu/crypto/bfv.py).
+"""RNS-BFV on torch tensors (port of abc_tpu/crypto/bfv.py): keygen,
+switching keys, batching encoder, encryption, decryption and the
+homomorphic evaluation (add/sub/negate, plain ops, BEHZ ct·ct multiply,
+relinearization, hybrid key switching for k = 1 and k ≥ 2, Galois rotations
+with hoisting).
 
-A `BfvContext` here wraps a reference np64 `abc_tpu.crypto.bfv.BfvContext`
-(the host half: keygen, switching-key construction, encode/decode,
-encryption and decryption, noise budget) and carries its keys and tables on
-a torch device. Everything on the evaluation path — add/sub/negate, plain
-ops, BEHZ ct·ct multiply, relinearization, hybrid key switching (k = 1 and
-k ≥ 2), Galois rotations with hoisting — runs on int32 device tensors
-through the torch engine and the NTT kernels, and produces the reference's
-words exactly. Ciphertexts are the reference's `BfvCiphertext` dataclass
-holding a [k, L, n] int32 tensor.
+Everything key- or ciphertext-sized is computed on the context's device
+through the torch engine, the port's NttContext (CUDA kernels on the card,
+the plain stage loop on the CPU) and the torch Threefry: only n-sized
+samples cross from the host. The scalar tables are host bigint
+precomputation, as in the reference.
 
-Build one with `abc_tpu_torch.convert.context_from_reference`. The
-reference context is only ever asked for host work, never handed a tensor.
+Randomness follows the reference draw for draw, so that a context built
+from the same seed holds the same words (keys, ciphertexts, results) as an
+abc_tpu np64 or jx32 context:
+
+* small draws (ternary secret, Gaussian errors) are numpy Generator draws
+  on the host, in the reference's order: the context's `rng` (SECRET domain
+  of the master seed) gives s, e_pk, then (u, e0, e1) per encryption; each
+  switching key's errors come from a generator keyed by (secret seed,
+  "<key id>/e"), as float32 ziggurat normals;
+* every uniform polynomial comes from the counter PRNG at (PUBLIC-domain
+  seed, stream): "pk", "<key id>/d<i>" (crypto/prng.py).
+
+Key switching is the hybrid construction with digit size k =
+params.ks_digits: ksk_j = (−(a_j·s + e_j) + P·W_j·s2, a_j) over q∪P with
+W_j the CRT basis element of digit Q_j; the reference's module note has the
+derivation.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from abc_tpu.crypto.behz import BehzContext as RefBehzContext
-from abc_tpu.crypto.bfv import BfvCiphertext, Plaintext
-from abc_tpu.utils.errors import RuntimeExecutionError
 from abc_tpu_torch.crypto.behz import BehzContext
-from abc_tpu_torch.crypto.ntt import NttContext
+from abc_tpu_torch.crypto.ntt import (NttContext, _bit_reverse_vec,
+                                      eval_perm_tables)
+from abc_tpu_torch.crypto.numthy import modinv
+from abc_tpu_torch.crypto.params import BfvParams
+from abc_tpu_torch.crypto.prng import (derive_key, seeded_rng, split_domain,
+                                       uniform_rns)
 from abc_tpu_torch.ops.modarith import as_residues, t64, to_host
+from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
 _CACHE_CAP = 8
+_M32 = 0xFFFFFFFF
+_SLOT_MAP_CACHE: Dict[int, np.ndarray] = {}
+
+
+@dataclass
+class Plaintext:
+    """Batched plaintext: polynomial coefficients mod t, an [n] int32 tensor
+    on the context's device."""
+    coeffs: torch.Tensor
+
+
+@dataclass
+class BfvCiphertext:
+    """data: [k, L, n] int32 tensor, coefficient domain, k = 2 (or 3
+    before relinearization)."""
+    data: torch.Tensor
+
+    @property
+    def size(self) -> int:
+        return self.data.shape[0]
 
 
 class BfvContext:
-    """Device keys + tables for one BFV parameter set (see module doc)."""
+    """Keys + precomputed tables for one BFV parameter set on one device."""
 
-    def __init__(self, ref, device):
-        self.ref = ref
-        self.params = params = ref.params
+    def __init__(self, params: BfvParams, device,
+                 state: Optional[Mapping] = None):
+        """Generates keys from params.seed (or OS entropy). With `state`
+        (see convert.context_from_reference) the context holds the given
+        keys and generator state instead and draws nothing."""
+        self.params = params
         self.device = dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but no CUDA device "
+                               "is available")
         self.counters: Dict[str, int] = {
             "relin": 0, "galois": 0, "decomp": 0, "decomp_hit": 0,
             "mult": 0, "op_ntt": 0, "op_ntt_hit": 0}
-        n, L = params.n, params.L
-        self.full = ref.full
+        n, moduli = params.n, params.coeff_modulus
+        if len({q.bit_length() for q in moduli}) != 1:
+            raise ValueError("uniform coeff-prime sizes required "
+                             "(single-subtract limb lifting)")
+        L, k = params.L, params.ks_digits
+        self.full = L + k                      # size of the extended base q∪P
         self.ntt_q = NttContext(n, params.data_primes, dev)
-        self.ntt_qp = NttContext(n, params.coeff_modulus, dev)
-        self._tab = {k: as_residues(v, dev) for k, v in ref._host.items()}
+        self.ntt_qp = NttContext(n, moduli, dev)
+        self.ntt_t = NttContext(n, [params.plain_modulus], dev)
+
+        host = self._scalar_tables()
+        self._tab = {name: as_residues(v, dev) for name, v in host.items()}
         self.q_q = self._tab["q_full"][:L]                 # [L, 1]
-        self._msd_half = list(ref._msd_half)
-        if params.ks_digits > 1:
-            self._dec_gather = torch.from_numpy(
-                ref._dec_gather.reshape(-1)).to(dev)
-        self.s_ntt_full = as_residues(ref.s_ntt_full, dev)
-        self.pk_b_ntt = as_residues(ref.pk_b_ntt, dev)
-        self.pk_a_ntt = as_residues(ref.pk_a_ntt, dev)
-        # switching keys: host key id → host pair (built by the reference's
-        # host path) and host pair → device pair (identity-keyed)
-        self._host_keys: Dict[str, Tuple] = {}
-        self._ksk_dev_cache: Dict[int, Tuple] = {}
-        for key in [ref.relin_key, *ref.galois_keys.values()]:
-            if key is not None:
-                self._ksk_device(key)
-        if ref.relin_key is not None:
-            self._host_keys["relin"] = ref.relin_key
-        for g, key in ref.galois_keys.items():
-            self._host_keys[f"galois_{g}"] = key
+        self._slot_to_pos = torch.from_numpy(_build_slot_map(n)).to(dev)
         self._perm_dev: Dict = {}
         self._op_cache: OrderedDict = OrderedDict()
         self._dec_cache: OrderedDict = OrderedDict()
         self._behz = None
+        # switching keys by id ("relin" / "galois_<g>") → device (b, a)
+        self._keys: Dict[str, Tuple] = {}
 
-    # ------------------------------------------------------------- host half
+        self._master_seed = int(
+            state["master_seed"] if state is not None else
+            params.seed if params.seed is not None else
+            np.random.default_rng().integers(0, 2 ** 63))
+        self._prng_seed = split_domain(self._master_seed, "public")
+        self._sec_seed = split_domain(self._master_seed, "secret")
+        self.rng = np.random.default_rng(self._sec_seed)
+        if state is None:
+            self._keygen()
+        else:
+            self.rng.bit_generator.state = state["rng_state"]
+            self.s_coeffs = np.asarray(state["s_coeffs"], dtype=np.int64)
+            self.s_ntt_full = as_residues(state["s_ntt_full"], dev)
+            self.pk_b_ntt = as_residues(state["pk_b_ntt"], dev)
+            self.pk_a_ntt = as_residues(state["pk_a_ntt"], dev)
+            for key_id, (ksk_b, ksk_a) in state["switching_keys"].items():
+                self._keys[key_id] = (as_residues(ksk_b, dev),
+                                      as_residues(ksk_a, dev))
+
+    # ---------------------------------------------------------------- tables
+    def _scalar_tables(self) -> Dict[str, np.ndarray]:
+        """Host bigints → uint32 tables, the reference's words."""
+        params = self.params
+        moduli, qs = params.coeff_modulus, params.data_primes
+        L, P, q_big, t = params.L, params.special_prime, params.q, \
+            params.plain_modulus
+        k, alpha = params.ks_digits, params.num_ks_digits
+        host: Dict[str, np.ndarray] = {}
+
+        def col(values):
+            return np.asarray(values, dtype=np.uint64).astype(
+                np.uint32).reshape(-1, 1)
+
+        host["q_full"] = col(moduli)
+        host["delta_mod_q"] = col([(q_big // t) % q for q in qs])
+        # P·W_j mod every modulus for the ksk construction (module note)
+        factors = np.zeros((alpha, self.full, 1), dtype=np.uint32)
+        digit_products = []
+        for j, grp in enumerate(params.digit_groups):
+            Qj = 1
+            for i in grp:
+                Qj *= qs[i]
+            digit_products.append(Qj)
+            qhat = q_big // Qj
+            w = qhat * modinv(qhat % Qj, Qj)          # ≡ δ_{jm} (mod Q_m)
+            for r, qr in enumerate(moduli):
+                factors[j, r, 0] = (P * w) % qr
+        host["ks_factors"] = factors
+        # mod-switch-down: divide by one special prime at a time (specials
+        # in reverse order); per-step tables over the remaining base
+        self._msd_half = []
+        for s in range(k):
+            ps = params.special_primes[s]
+            rest = moduli[:L + s]
+            host[f"msd_p_mod_{s}"] = col([ps % r for r in rest])
+            host[f"msd_p_inv_{s}"] = col([modinv(ps, r) for r in rest])
+            self._msd_half.append(ps >> 1)
+        if k > 1:
+            # digit fast-base-conversion tables: per digit j and local limb
+            # i, y_{j,i} = [d·(Q_j/q_{j,i})^{-1}]_{q_{j,i}}, then
+            # D_{j,r} = Σ_i y_{j,i}·(Q_j/q_{j,i}) mod r. Short digit groups
+            # are padded with inv_qhat=0 rows (contribute exactly 0).
+            gather = np.zeros((alpha, k), dtype=np.int64)
+            inv_qhat = np.zeros((alpha, k, 1), dtype=np.uint32)
+            q_src = np.ones((alpha, k, 1), dtype=np.uint32) * np.uint32(qs[0])
+            qhat_full = np.zeros((alpha, k, self.full, 1), dtype=np.uint32)
+            for j, grp in enumerate(params.digit_groups):
+                Qj = digit_products[j]
+                for i, gi in enumerate(grp):
+                    qi = qs[gi]
+                    qh = Qj // qi
+                    gather[j, i] = gi
+                    q_src[j, i, 0] = qi
+                    inv_qhat[j, i, 0] = modinv(qh % qi, qi)
+                    for r, qr in enumerate(moduli):
+                        qhat_full[j, i, r, 0] = qh % qr
+            self._dec_gather = torch.from_numpy(
+                gather.reshape(-1)).to(self.device)
+            host["dec_inv_qhat"] = inv_qhat
+            host["dec_q_src"] = q_src
+            host["dec_qhat_full"] = qhat_full
+        # decrypt tables (exact fixed-point scale-and-round):
+        # m = round(Σ_l y_l·θ_l) mod t with y_l = [v_l·(q/q_l)^{-1}]_{q_l}
+        # and θ_l = t·q̂_l/q = t/q_l < 1 (t is below every prime, so the
+        # integer CRT part vanishes); θ_l is carried as the 64-bit
+        # fixed-point pair (f_hi, f_lo) = floor(θ_l·2^64)
+        host["dec_qinv"] = col([modinv((q_big // qi) % qi, qi) for qi in qs])
+        theta_fp = [(t << 64) // qi for qi in qs]
+        host["dec_f_hi"] = col([f >> 32 for f in theta_fp])
+        host["dec_f_lo"] = col([f & _M32 for f in theta_fp])
+        return host
+
+    # -------------------------------------------------------------- sampling
+    def _sample_ternary(self) -> np.ndarray:
+        return self.rng.integers(-1, 2, size=self.params.n).astype(np.int64)
+
+    def _sample_error(self) -> np.ndarray:
+        e = np.rint(self.rng.normal(0.0, self.params.error_std,
+                                    self.params.n))
+        return np.clip(e, -19, 19).astype(np.int64)
+
+    def _lift_signed(self, coeffs: np.ndarray, q_col: torch.Tensor
+                     ) -> torch.Tensor:
+        """Small signed host coefficients [..., n] (|v| ≤ 127) → residues
+        [..., L', n] on the device, L' the rows of q_col. Only the int8
+        samples cross to the device."""
+        v = torch.from_numpy(np.ascontiguousarray(coeffs, dtype=np.int8)
+                             ).to(self.device).to(torch.int64)
+        return torch.remainder(v[..., None, :],
+                               q_col.to(torch.int64)).to(torch.int32)
+
+    @property
+    def public_seed(self) -> int:
+        """The PUBLIC-domain seed: regenerates every uniform `a` component
+        (public key, switching-key digits) and reveals nothing about the
+        secret and error draws, which are keyed from the other domain."""
+        return self._prng_seed
+
+    def _uniform_rns(self, num_limbs: int, streams) -> torch.Tensor:
+        """Uniform residues over the first num_limbs moduli on the device,
+        from the counter PRNG at (public seed, stream): [L', n] for one
+        stream label, [len(streams), L', n] for a list of them."""
+        single = isinstance(streams, str)
+        keys = [derive_key(self._prng_seed, s)
+                for s in ([streams] if single else streams)]
+        k0, k1 = [k[0] for k in keys], [k[1] for k in keys]
+        if single:
+            k0, k1 = k0[0], k1[0]
+        return uniform_rns(k0, k1, self.params.coeff_modulus[:num_limbs],
+                           self.params.n, self.device)
+
+    # ---------------------------------------------------------------- keygen
+    def _keygen(self) -> None:
+        """Secret key (NTT form over q∪P) and public key over q, NTT domain:
+        (b = −(a·s + e), a), computed on the device."""
+        L = self.params.L
+        self.s_coeffs = self._sample_ternary()
+        e_pk = self._sample_error()
+        self.s_ntt_full = self.ntt_qp.fwd(
+            self._lift_signed(self.s_coeffs, self._tab["q_full"]))
+        a_ntt = self._uniform_rns(L, "pk")   # uniform is uniform in NTT form
+        e_ntt = self.ntt_q.fwd(self._lift_signed(e_pk, self.q_q))
+        as_ntt = t64.mul(a_ntt, self.s_ntt_full[:L], self.q_q)
+        self.pk_b_ntt = t64.sub(t64.neg(as_ntt, self.q_q), e_ntt, self.q_q)
+        self.pk_a_ntt = a_ntt
+
+    def _ksk_errors(self, stream: str) -> np.ndarray:
+        """[α, n] Gaussian errors for one switching key, from a generator
+        keyed by (secret seed, stream): order-independent, so repeated
+        builds give the same key. float32 ziggurat normals drawn with numpy,
+        as the reference draws them."""
+        rng_e = seeded_rng(self._sec_seed, f"{stream}/e")
+        e = np.rint(rng_e.standard_normal(
+            (self.params.num_ks_digits, self.params.n), dtype=np.float32)
+            * np.float32(self.params.error_std))
+        return np.clip(e, -19, 19).astype(np.int64)
+
+    def _ksk_target(self, key_id: str) -> torch.Tensor:
+        """NTT-domain target secret for a key id: s² for "relin", τ_g(s) for
+        "galois_<g>", the latter as the evaluation-domain permutation."""
+        if key_id == "relin":
+            return t64.mul(self.s_ntt_full, self.s_ntt_full,
+                           self._tab["q_full"])
+        g = int(key_id[len("galois_"):])
+        return self.s_ntt_full.index_select(-1, self._galois_perm_eval(g))
+
+    def _build_key(self, key_id: str) -> Tuple:
+        """One switching key toward the target secret of `key_id`, on the
+        device: (ksk_b, ksk_a), each [α, L+k, n]. All α digits in one
+        batch: one Threefry call, one forward NTT of α·(L+k) rows. The
+        stream label is the key id, so any engine regenerates the same key
+        from (seed, id) alone."""
+        alpha, q_full = self.params.num_ks_digits, self._tab["q_full"]
+        a = self._uniform_rns(self.full,
+                              [f"{key_id}/d{i}" for i in range(alpha)])
+        e_ntt = self.ntt_qp.fwd(
+            self._lift_signed(self._ksk_errors(key_id), q_full))
+        term = t64.mul(self._ksk_target(key_id)[None],
+                       self._tab["ks_factors"], q_full)
+        a_s = t64.mul(a, self.s_ntt_full[None], q_full)
+        b = t64.add(t64.sub(t64.neg(a_s, q_full), e_ntt, q_full), term,
+                    q_full)
+        return b, a
+
+    def materialize_keys(self, key_ids: Sequence[str]) -> Dict[str, Tuple]:
+        """Device key pairs for a set of key ids ("relin" / "galois_<g>"),
+        building each missing one once."""
+        for key_id in key_ids:
+            if key_id not in self._keys:
+                self._keys[key_id] = self._build_key(key_id)
+        return {key_id: self._keys[key_id] for key_id in key_ids}
+
+    def get_relin_key(self) -> Tuple:
+        return self.materialize_keys(["relin"])["relin"]
+
+    def get_galois_key(self, galois_elt: int) -> Tuple:
+        key_id = f"galois_{galois_elt}"
+        return self.materialize_keys([key_id])[key_id]
+
+    # -------------------------------------------------------------- encoding
     def encode(self, values: Sequence[int]) -> Plaintext:
-        return self.ref.encode(values)
+        """Batch-encode up to n integers into slots (zero-padded here;
+        last-element padding is applied by the runtime factory layer)."""
+        n, t = self.params.n, self.params.plain_modulus
+        if len(values) > n:
+            raise RuntimeExecutionError(
+                f"too many values to encode: {len(values)}")
+        slots = torch.zeros(n, dtype=torch.int32, device=self.device)
+        if len(values):
+            vals = torch.tensor([int(v) % t for v in values],
+                                dtype=torch.int32, device=self.device)
+            slots[self._slot_to_pos[:len(values)]] = vals
+        return Plaintext(self.ntt_t.inv(slots.reshape(1, n))[0])
 
     def decode(self, pt: Plaintext, signed: bool = True) -> List[int]:
-        return self.ref.decode(pt, signed)
+        n, t = self.params.n, self.params.plain_modulus
+        slots_eval = self.ntt_t.fwd(pt.coeffs.reshape(1, n))[0]
+        out = slots_eval[self._slot_to_pos].to(torch.int64)
+        if signed:
+            out = torch.where(out > t // 2, out - t, out)
+        return out.tolist()
 
+    # --------------------------------------------------------------- encrypt
     def encrypt(self, pt: Plaintext) -> BfvCiphertext:
         return self.encrypt_many([pt])[0]
 
     def encrypt_many(self, pts: Sequence[Plaintext]) -> List[BfvCiphertext]:
-        """Encrypt on the host (the reference's draw order per ciphertext:
-        u, e0, e1) and move the ciphertexts to the device."""
-        return [BfvCiphertext(as_residues(ct.data, self.device))
-                for ct in self.ref.encrypt_many(pts)]
+        """Encrypt a batch in one batched NTT + pointwise pass on the
+        device; the generator is drawn per ciphertext in the order u, e0,
+        e1."""
+        if not pts:
+            return []
+        samples = [(self._sample_ternary(), self._sample_error(),
+                    self._sample_error()) for _ in pts]
+        u, e0, e1 = (self._lift_signed(np.stack([s[i] for s in samples]),
+                                       self.q_q) for i in range(3))
+        u_ntt = self.ntt_q.fwd(u)                              # [B, L, n]
+        pre = torch.stack([t64.mul(self.pk_b_ntt, u_ntt, self.q_q),
+                           t64.mul(self.pk_a_ntt, u_ntt, self.q_q)], dim=1)
+        ci = self.ntt_q.inv(pre)                               # [B, 2, L, n]
+        m = torch.stack([pt.coeffs for pt in pts])             # [B, n]
+        dm = t64.mul(m[:, None, :], self._tab["delta_mod_q"], self.q_q)
+        c0 = t64.add(t64.add(ci[:, 0], e0, self.q_q), dm, self.q_q)
+        c1 = t64.add(ci[:, 1], e1, self.q_q)
+        data = torch.stack([c0, c1], dim=1)
+        return [BfvCiphertext(data[i]) for i in range(len(pts))]
 
-    def to_reference(self, ct: BfvCiphertext) -> BfvCiphertext:
-        """The host (np64) form of a device ciphertext."""
-        return BfvCiphertext(to_host(ct.data))
+    # --------------------------------------------------------------- decrypt
+    def _dot_secret(self, ct: BfvCiphertext) -> torch.Tensor:
+        """v = Σ_k c_k·s^k mod q, [L, n] coefficient-domain residues
+        (size-3 ciphertexts before relinearization included)."""
+        s = self.s_ntt_full[:self.params.L]
+        c_ntt = self.ntt_q.fwd(ct.data)
+        acc = t64.add(c_ntt[0], t64.mul(c_ntt[1], s, self.q_q), self.q_q)
+        if ct.size == 3:
+            s2 = t64.mul(s, s, self.q_q)
+            acc = t64.add(acc, t64.mul(c_ntt[2], s2, self.q_q), self.q_q)
+        elif ct.size != 2:
+            raise RuntimeExecutionError(f"cannot decrypt size-{ct.size}")
+        return self.ntt_q.inv(acc)
 
     def decrypt(self, ct: BfvCiphertext) -> Plaintext:
-        return self.ref.decrypt(self.to_reference(ct))
+        """Dot product with the secret and exact fixed-point CRT
+        scale-and-round on the device (table notes in _scalar_tables): the
+        fractional parts of y_l·θ_l are summed exactly in 2^-32 units. A
+        coefficient within 4096·2^-32 of the rounding boundary (noise at
+        capacity) sends the whole ciphertext to the exact bigint path."""
+        t = self.params.plain_modulus
+        v = self._dot_secret(ct)
+        y = t64.mul(v, self._tab["dec_qinv"], self.q_q).to(torch.int64)
+        f_hi = self._tab["dec_f_hi"].to(torch.int64) & _M32
+        f_lo = self._tab["dec_f_lo"].to(torch.int64) & _M32
+        p_hi = y * f_hi                        # < 2^62: exact in int64
+        frac = ((p_hi & _M32) + ((y * f_lo) >> 32)).sum(dim=0)
+        whole = (p_hi >> 32).sum(dim=0) + (frac >> 32)
+        frac = frac & _M32
+        half = 1 << 31
+        if bool(((frac - half).abs() < 4096).any()):
+            return self._decrypt_exact(to_host(v))[0]
+        m = torch.remainder(whole + (frac >= half), t)
+        return Plaintext(m.to(torch.int32))
+
+    def _crt_compose_host(self, v: np.ndarray) -> np.ndarray:
+        """[L, n] residues → object array of exact bigints in [0, q)."""
+        q_big = self.params.q
+        acc = np.zeros(self.params.n, dtype=object)
+        for l, ql in enumerate(self.params.data_primes):
+            qhat = q_big // ql
+            c = qhat * modinv(qhat % ql, ql)
+            acc = (acc + v[l].astype(object) * c) % q_big
+        return acc
+
+    def _decrypt_exact(self, v: np.ndarray) -> Tuple[Plaintext, int]:
+        """(plaintext, invariant-noise budget in bits) from v = [c(s)]_q on
+        the host, with exact bigints."""
+        q_big, t = self.params.q, self.params.plain_modulus
+        big = self._crt_compose_host(v)
+        coeffs = np.zeros(self.params.n, dtype=np.uint32)
+        max_resid = 0
+        for j in range(self.params.n):
+            m_j, resid = divmod(int(big[j]) * t, q_big)
+            if resid > q_big // 2:
+                m_j += 1
+                resid -= q_big
+            coeffs[j] = m_j % t
+            max_resid = max(max_resid, abs(resid))
+        if max_resid == 0:
+            budget = q_big.bit_length()
+        else:
+            budget = max(0, q_big.bit_length() - 1 - max_resid.bit_length())
+        return Plaintext(as_residues(coeffs, self.device)), budget
 
     def noise_budget(self, ct: BfvCiphertext) -> int:
-        return self.ref.noise_budget(self.to_reference(ct))
-
-    # ------------------------------------------------------------------ keys
-    def _get_key(self, key_id: str) -> Tuple:
-        """Host switching key for "relin" / "galois_<g>", built once by the
-        reference's host key path (same seed → same key)."""
-        key = self._host_keys.get(key_id)
-        if key is None:
-            key = self.ref._build_keys_batch([key_id])[key_id]
-            self._host_keys[key_id] = key
-        return key
-
-    def get_relin_key(self) -> Tuple:
-        return self._get_key("relin")
-
-    def get_galois_key(self, galois_elt: int) -> Tuple:
-        return self._get_key(f"galois_{galois_elt}")
-
-    def _ksk_device(self, ksk) -> Tuple:
-        """Device copies of a host switching key, cached by identity (ids
-        recycle, so a hit is verified with `is`)."""
-        ksk_b, ksk_a = ksk
-        hit = self._ksk_dev_cache.get(id(ksk_b))
-        if hit is not None and hit[0] is ksk_b:
-            return hit[1]
-        dev = (as_residues(ksk_b, self.device),
-               as_residues(ksk_a, self.device))
-        self._ksk_dev_cache[id(ksk_b)] = (ksk_b, dev)
-        return dev
+        """Invariant-noise budget in bits (exact)."""
+        return self._decrypt_exact(to_host(self._dot_secret(ct)))[1]
 
     # --------------------------------------------------------- homomorphic ops
     def _get_behz(self) -> BehzContext:
         if self._behz is None:
-            ref_behz = RefBehzContext(self.params, ntt_q=self.ref.ntt_q)
-            self._behz = BehzContext(ref_behz, self.ntt_q)
+            self._behz = BehzContext(self.params, self.ntt_q)
         return self._behz
 
     def add(self, a: BfvCiphertext, b: BfvCiphertext) -> BfvCiphertext:
@@ -145,8 +441,7 @@ class BfvContext:
     def _plain_m(self, pt: Plaintext) -> torch.Tensor:
         """Plaintext coefficients broadcast over the L limbs, [L, n] (they
         are below t, hence below every q_j)."""
-        m = torch.from_numpy(pt.coeffs.astype(np.int32)).to(self.device)
-        return m.expand(self.params.L, -1)
+        return pt.coeffs.expand(self.params.L, -1)
 
     def _plain_dm(self, pt: Plaintext) -> torch.Tensor:
         """Δ·m in RNS on the device, [L, n]."""
@@ -252,8 +547,7 @@ class BfvContext:
     def _key_switch(self, d, ksk) -> Tuple:
         """d: [L, n] coeff-domain poly over q → (k0, k1) over q with
         k0 + k1·s ≈ d·s2 (both coeff domain)."""
-        ksk_b, ksk_a = self._ksk_device(ksk)
-        return self._ks_inner(self._decompose_ntt(d), ksk_b, ksk_a)
+        return self._ks_inner(self._decompose_ntt(d), *ksk)
 
     def _mod_switch_down(self, x):
         """[L+k, n] over q∪P → [L, n] over q: k successive exact centered
@@ -275,20 +569,33 @@ class BfvContext:
     # --------------------------------------------------------------- rotations
     def _galois_perm(self, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Coefficient-domain gather indices + keep-sign mask for x → x^g,
-        on the device (host tables from the reference, cached per g)."""
+        on the device, cached per g."""
         if g not in self._perm_dev:
-            gather, sign_pos = self.ref._galois_perm(g)
+            n = self.params.n
+            j = np.arange(n, dtype=np.int64)
+            jg = (j * g) % (2 * n)
+            wrap = jg >= n
+            idx = np.where(wrap, jg - n, jg)
+            gather = np.empty(n, dtype=np.int64)
+            sign_pos = np.empty(n, dtype=bool)
+            gather[idx] = j
+            sign_pos[idx] = ~wrap
             self._perm_dev[g] = (torch.from_numpy(gather).to(self.device),
                                  torch.from_numpy(sign_pos).to(self.device))
         return self._perm_dev[g]
 
     def _galois_perm_eval(self, g: int) -> torch.Tensor:
-        """Evaluation-domain gather indices for x → x^g (a pure
-        permutation), on the device, cached per g."""
+        """Evaluation-domain gather indices for x → x^g, on the device,
+        cached per g: position p holds the evaluation at ψ^e_p with e_p =
+        2·brv(p)+1, and the automorphism is the pure permutation out[p] =
+        in[pos(e_p·g mod 2n)], with no signs. This is what lets a
+        decomposition be permuted after its forward NTTs (hoisting)."""
         key = ("eval", g)
         if key not in self._perm_dev:
+            n = self.params.n
+            e, pos_of_exp = eval_perm_tables(n)
             self._perm_dev[key] = torch.from_numpy(
-                self.ref._galois_perm_eval(g)).to(self.device)
+                pos_of_exp[(e * g) % (2 * n)]).to(self.device)
         return self._perm_dev[key]
 
     def _decompose_cached(self, ct_data):
@@ -302,9 +609,8 @@ class BfvContext:
         """Galois automorphism g of ct given c1's decomposition D: permute D
         in the NTT domain, key-switch, and apply the signed coefficient
         gather to c0."""
-        ksk_b, ksk_a = self._ksk_device(self.get_galois_key(g))
         k0, k1 = self._ks_inner(D.index_select(-1, self._galois_perm_eval(g)),
-                                ksk_b, ksk_a)
+                                *self.get_galois_key(g))
         gather, sign_pos = self._galois_perm(g)
         c0g = ct.data[0].index_select(-1, gather)
         c0g = torch.where(sign_pos, c0g, t64.neg(c0g, self.q_q))
@@ -350,3 +656,22 @@ class BfvContext:
 
 def _set0(data, c0):
     return torch.cat([c0[None], data[1:]], dim=0)
+
+
+def _build_slot_map(n: int) -> np.ndarray:
+    """slot index → NTT-output position, per the SEAL-compatible 2×(n/2)
+    matrix batching layout: slot (r, i) sits at evaluation point
+    ψ^(±3^i mod 2n); forward-NTT position p evaluates at ψ^(2·brv(p)+1).
+    A pure function of n, memoised."""
+    if n in _SLOT_MAP_CACHE:
+        return _SLOT_MAP_CACHE[n]
+    m = 2 * n
+    brv = _bit_reverse_vec(n, n.bit_length() - 1)
+    pos = np.empty(n, dtype=np.int64)
+    g = 1
+    for i in range(n // 2):
+        pos[i] = brv[(g - 1) // 2]                # row 0: exponent 3^i
+        pos[n // 2 + i] = brv[(m - g - 1) // 2]   # row 1: exponent -3^i
+        g = g * 3 % m
+    _SLOT_MAP_CACHE[n] = pos
+    return pos

@@ -1,9 +1,9 @@
 """Negacyclic NTT over RNS limbs (port of abc_tpu/crypto/ntt.py).
 
 Polynomials are int32 tensors [..., L, n] with any number of leading batch
-dims; each limb transforms independently. The twiddle tables are the
-reference's (abc_tpu.crypto.ntt._limb_tables, host numpy, memoised per
-(n, q)) and move to the device once per context. Transforms go through
+dims; each limb transforms independently. The twiddle tables (ψ^brv powers
+with their Shoup companions, host numpy, memoised per (n, q)) are computed
+here and move to the device once per context. Transforms go through
 ops/ntt_kernels.py: a CUDA tensor runs the hand-written kernels, a CPU
 tensor the plain torch stage loop. Output order and values are the
 reference's: forward position p holds the evaluation at ψ^(2·brv(p)+1).
@@ -16,9 +16,79 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from abc_tpu.crypto.ntt import _limb_tables
-from abc_tpu_torch.ops.modarith import as_residues, t64
+from abc_tpu_torch.crypto.numthy import find_minimal_2nth_root, modinv
+from abc_tpu_torch.ops.modarith import as_residues, shoup, t64
 from abc_tpu_torch.ops.ntt_kernels import ntt_fwd, ntt_inv
+
+
+def _bit_reverse_vec(n: int, bits: int) -> np.ndarray:
+    """[n] int64: the `bits`-bit reversal of every k < n."""
+    k = np.arange(n, dtype=np.uint64)
+    r = np.zeros(n, dtype=np.uint64)
+    for _ in range(bits):
+        r = (r << np.uint64(1)) | (k & np.uint64(1))
+        k >>= np.uint64(1)
+    return r.astype(np.int64)
+
+
+_EVAL_PERM_TABLES: dict = {}
+
+
+def eval_perm_tables(n: int):
+    """(e, pos_of_exp) for evaluation-domain Galois permutations: forward-NTT
+    position p holds the evaluation at ψ^e[p] with e[p] = 2·brv(p)+1, and
+    pos_of_exp inverts that map over the odd exponents mod 2n. A pure
+    function of n, memoised."""
+    if n not in _EVAL_PERM_TABLES:
+        e = 2 * _bit_reverse_vec(n, n.bit_length() - 1) + 1
+        pos_of_exp = np.empty(2 * n, dtype=np.int64)
+        pos_of_exp[e] = np.arange(n)
+        _EVAL_PERM_TABLES[n] = (e, pos_of_exp)
+    return _EVAL_PERM_TABLES[n]
+
+
+def _power_table(base: int, n: int, q: int) -> np.ndarray:
+    """[n] uint64: base^i mod q by iterative doubling (q < 2^32, so the
+    products stay inside uint64)."""
+    out = np.empty(n, dtype=np.uint64)
+    out[0] = 1
+    filled = 1
+    step = base % q
+    while filled < n:
+        take = min(filled, n - filled)
+        out[filled:filled + take] = out[:take] * np.uint64(step) % np.uint64(q)
+        step = step * step % q
+        filled += take
+    return out
+
+
+_LIMB_TABLE_CACHE: dict = {}
+
+
+def _limb_tables(n: int, q: int):
+    """(psi, fwd, fwd_sh, inv, inv_sh, ninv, ninv_sh) for one (n, modulus)
+    pair: ψ the minimal primitive 2n-th root, fwd[k] = ψ^brv(k), inv[k] =
+    ψ^-brv(k), each with its Shoup companion floor(w·2^32/q), and n⁻¹.
+    A pure function of (n, q), memoised."""
+    key = (n, q)
+    hit = _LIMB_TABLE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    brv = _bit_reverse_vec(n, n.bit_length() - 1)
+    psi = find_minimal_2nth_root(n, q)
+    qv = np.uint64(q)
+    fwd_p = _power_table(psi, n, q)[brv]
+    inv_p = _power_table(modinv(psi, q), n, q)[brv]
+    ninv = modinv(n, q)
+    out = (psi,
+           fwd_p.astype(np.uint32),
+           # w < 2^30, so w << 32 < 2^62
+           ((fwd_p << np.uint64(32)) // qv).astype(np.uint32),
+           inv_p.astype(np.uint32),
+           ((inv_p << np.uint64(32)) // qv).astype(np.uint32),
+           ninv, shoup(ninv, q))
+    _LIMB_TABLE_CACHE[key] = out
+    return out
 
 
 class NttContext:

@@ -103,6 +103,8 @@ def load() -> ctypes.CDLL:
     lib.abc_ntt_fwd.restype = i32
     lib.abc_ntt_inv.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.abc_ntt_inv.restype = i32
+    lib.abc_ntt_cluster_size.argtypes = [i64, i32]
+    lib.abc_ntt_cluster_size.restype = i32
     lib.abc_ablate_ntt.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.abc_ablate_ntt.restype = i32
     lib.abc_alu_chain.argtypes = [vp, vp, i64, i32, u32, u32, u32, i32, vp]

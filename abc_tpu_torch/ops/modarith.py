@@ -15,7 +15,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from abc_tpu.ops.modarith import barrett_mu, shoup  # noqa: F401  (re-export)
+
+
+def barrett_mu(q: int) -> int:
+    """mu = floor(2^60 / q), the Barrett constant the reference's u32 engine
+    carries in its tables (`mu_full`, `dec_mu_src`). Fits 32 bits only for q
+    in [2^29, 2^30); smaller moduli (the 20-bit plain modulus) get the
+    placeholder 0. The torch engine's products are exact and read no mu; the
+    tables keep the words so that a context's state matches the reference's."""
+    if q < (1 << 29):
+        return 0
+    if q >= (1 << 30):
+        raise ValueError("primes must be below 2^30")
+    return (1 << 60) // q
+
+
+def shoup(w: int, q: int) -> int:
+    """Companion word floor(w·2^32/q) for Shoup multiplication (read by the
+    CUDA NTT kernels)."""
+    return (w << 32) // q
 
 
 def as_residues(arr, device) -> torch.Tensor:

@@ -73,7 +73,8 @@ def inv_ntt_plain(a: torch.Tensor, q: torch.Tensor, tw: torch.Tensor,
 
 def check_operands(a, q, tables):
     """Raise unless a CUDA tensor a and its int32 tables fit the NTT kernels
-    (n a power of two in [MIN_N, MAX_N], contiguous, on a's device)."""
+    (n a power of two in [MIN_N, MAX_N], contiguous, 16-byte aligned, on a's
+    device)."""
     if a.device.type != "cuda":
         raise ValueError(f"NTT kernels take CPU or CUDA tensors, got "
                          f"{a.device}")
@@ -84,6 +85,9 @@ def check_operands(a, q, tables):
     L = a.shape[-2]
     if not a.is_contiguous():
         raise ValueError("NTT kernel input must be contiguous")
+    if a.data_ptr() % 16:
+        raise ValueError("NTT kernel input must be 16-byte aligned (rows "
+                         "move as 16-byte loads)")
     expect = {"q": (L,), "tw": (L, n), "tw_sh": (L, n), "ninv": (L,),
               "ninv_sh": (L,)}
     for name, t in [("a", a), ("q", q)] + list(tables.items()):
@@ -117,6 +121,14 @@ def _launch(name, a, args):
                            f"{lib.abc_cuda_error_string(err).decode()}")
     launches[name] += 1
     return out
+
+
+def cluster_size(rows: int, n: int) -> int:
+    """CTAs per row (the thread block cluster) that the kernels use for a
+    launch of `rows` rows of n coefficients: a function of the shape alone,
+    read from the built library."""
+    from abc_tpu_torch.ops import _build
+    return _build.load().abc_ntt_cluster_size(rows, n.bit_length() - 1)
 
 
 def ntt_fwd(a: torch.Tensor, q: torch.Tensor, tw: torch.Tensor,

@@ -1,9 +1,8 @@
 """BFV runtime backend on torch (port of abc_tpu/runtime/bfv_backend.py).
 
-The factory plugs into the reference's RuntimeVisitor / run_compiled like
-abc_tpu's BfvCiphertextFactory. It builds a reference np64 BfvContext from
-(slots, seed, ks_digits) for the host half, and carries the
-evaluation onto `device` (abc_tpu_torch.convert.context_from_reference).
+The factory plugs into RuntimeVisitor / run_compiled like abc_tpu's
+BfvCiphertextFactory. It builds a BfvContext from (slots, seed, ks_digits)
+on `device`: keys, encryption, evaluation and decryption all run there.
 There is no backend sniffing: the caller names the device, and a CUDA
 device without a GPU is an error.
 """
@@ -14,14 +13,11 @@ from typing import List, Sequence, Union
 
 import torch
 
-from abc_tpu.crypto.bfv import BfvCiphertext, BfvContext as RefBfvContext, \
-    Plaintext
-from abc_tpu.crypto.params import BfvParams
-from abc_tpu.runtime.backend import AbstractCiphertextFactory
-from abc_tpu.runtime.values import AbstractCiphertext, Cleartext
-from abc_tpu.utils.errors import RuntimeExecutionError
-from abc_tpu_torch.convert import context_from_reference
-from abc_tpu_torch.crypto.bfv import BfvContext
+from abc_tpu_torch.crypto.bfv import BfvCiphertext, BfvContext, Plaintext
+from abc_tpu_torch.crypto.params import BfvParams
+from abc_tpu_torch.runtime.backend import AbstractCiphertextFactory
+from abc_tpu_torch.runtime.values import AbstractCiphertext, Cleartext
+from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
 
 def _zero_pad(data: torch.Tensor, size: int) -> torch.Tensor:
@@ -110,10 +106,8 @@ class BfvCiphertextFactory(AbstractCiphertextFactory):
 
     def __init__(self, slots: int = 8192, seed: int = None,
                  ks_digits: int = 1, device="cuda"):
-        self.params = BfvParams.create(slots, engine="np64", seed=seed,
-                                       ks_digits=ks_digits)
-        self.context = context_from_reference(RefBfvContext(self.params),
-                                              device)
+        self.params = BfvParams.create(slots, seed=seed, ks_digits=ks_digits)
+        self.context = BfvContext(self.params, device)
 
     @property
     def slot_count(self) -> int:
@@ -129,8 +123,7 @@ class BfvCiphertextFactory(AbstractCiphertextFactory):
         return self.create_many([value])[0]
 
     def create_many(self, values: Sequence) -> List[TorchBfvCiphertext]:
-        """Encrypt a batch of inputs (host encryption, one device copy
-        each)."""
+        """Encrypt a batch of inputs in one batched device pass."""
         pts = []
         for value in values:
             if isinstance(value, Cleartext):

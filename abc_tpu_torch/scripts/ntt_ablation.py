@@ -12,17 +12,22 @@ At n = 16384 with the L = 14 moduli of `BfvParams.create(16384, seed=5)`:
                masks_only  per-stage index arithmetic, in the thread
                rolls_only  per-stage shared-memory exchange + barrier
                muls_only   Shoup products with their twiddle loads
-               full        the transform (ntt_fwd's work)
+               full        the transform, one stage and one barrier at a
+                           time in shared memory: the loop of the port's
+                           first ntt_fwd, kept as the record of that design
                reformed    multiply first, then exchange the product
-             then "shipping": `NttContext.fwd`, the kernel the port runs.
+             then "shipping": `NttContext.fwd`, the kernel the port runs
+             (clusters, three stages per pass in registers; csrc/ntt.cu),
+             so "full" against "shipping" is that design's before and after.
   calibration  `alu_chain` mac and shoup: the card's sustained u32 rate on
              the butterfly's own multiply mix, from instruction counts read
              out of the SASS.
-  census     the forward kernel's instructions per butterfly, counted in
-             the SASS of ntt_fwd_kernel's butterfly loop.
+  census     instructions per butterfly, counted in the SASS of the
+             butterfly loop of `full` and of ntt_fwd_kernel's three-stage
+             pass ("shipping").
   reconciled achieved ALU rate of `full` against the calibrated ceiling.
-  --batched  `ntt_fwd` at B in {1, 8, 16, 64}: the median of 5 two-point
-             estimates, in us per transform and Gbf/s.
+  --batched  `ntt_fwd` and `ntt_inv` at B in {1, 8, 16, 64}: the median of
+             5 two-point estimates, in us per transform and Gbf/s.
 
 Timing: a chain of c launches is captured once in a CUDA graph and its
 replays are timed between CUDA events; the per-launch time is the difference
@@ -46,7 +51,7 @@ from collections import Counter
 import numpy as np
 import torch
 
-from abc_tpu.crypto.params import BfvParams
+from abc_tpu_torch.crypto.params import BfvParams
 from abc_tpu_torch.crypto.ntt import NttContext
 from abc_tpu_torch.ops import _build
 from abc_tpu_torch.ops import ntt_ablation as na
@@ -59,9 +64,10 @@ MAIN_MODES = ("zero", "masks_only", "rolls_only", "muls_only", "full",
 ALU_ITERS = 512
 ALU_UNROLL = 8          # `#pragma unroll 8` on both chains, csrc/ntt_ablation.cu
 BATCHES = ((1, 2048), (8, 256), (16, 128), (64, 32))
-ONE_KERNEL = ("one column: the port has one forward kernel (ntt_fwd) where "
-              "the TPU had two (rank-1 and full-plane twiddle tables); its "
-              "rows read the [L, n] tables directly at every batch size")
+ONE_KERNEL = ("one column per direction: the port has one kernel each "
+              "(ntt_fwd, ntt_inv) where the TPU had two (rank-1 and "
+              "full-plane twiddle tables); its rows read the [L, n] tables "
+              "directly at every batch size")
 
 
 def _require_cuda():
@@ -72,7 +78,7 @@ def _require_cuda():
 
 def setup(device):
     """The NTT context of the measurement and a [L, N] input below min q."""
-    moduli = list(BfvParams.create(N, engine="np64", seed=5).coeff_modulus)
+    moduli = list(BfvParams.create(N, seed=5).coeff_modulus)
     ctx = NttContext(N, moduli, device)
     rng = np.random.default_rng(0)
     x0 = as_residues(rng.integers(0, min(moduli), size=(len(moduli), N),
@@ -216,25 +222,30 @@ def _innermost(body, pick):
     return hits[-1]
 
 
-def butterfly_census(funcs, n=N):
-    """Instructions per butterfly of ntt_fwd_kernel's stage loop, counted in
-    its SASS: the innermost loop that holds the Shoup product (IMAD.HI) and
-    the shared-memory stores; two STS per butterfly."""
-    body = _find(funcs, "ntt_fwd_kernel")
+FULL_KERNEL = "ablate_ntt_kernelILi4EE"     # Mode kFull of csrc/ntt_ablation.cu
+SHIPPING_KERNEL = "ntt_fwd_kernelILi0EE"   # the C = 1 instantiation
+
+
+def butterfly_census(funcs, kernel, n=N):
+    """Instructions per butterfly of `kernel`'s butterfly loop, counted in
+    its SASS: the largest innermost loop that holds Shoup products and
+    shared-memory stores (the one-stage loop of `full`; the three-stage
+    register pass of ntt_fwd_kernel). One IMAD.HI per butterfly. The
+    barriers are those of the loop around it: per stage in `full`, per
+    three-stage pass in ntt_fwd_kernel."""
+    body = _find(funcs, kernel)
     lo, hi = _innermost(body, lambda ops: any(o.startswith("IMAD.HI")
                                               for o in ops)
                         and "STS" in {o.split(".")[0] for o in ops})
     ops = _range(body, lo, hi)
     cls = Counter(op_class(o) for o in ops)
-    bf = cls["sts"] / 2
+    bf = sum(o.startswith("IMAD.HI") for o in ops)
     stage = [s for s in loops(body) if s[0] < lo and hi < s[1]]
-    if not stage:
-        raise RuntimeError("SASS: no stage loop around the butterflies")
-    s_lo, s_hi = stage[0]
-    bars = sum(op_class(o) == "bar" for o in _range(body, s_lo, s_hi))
+    bars = sum(op_class(o) == "bar" for o in _range(body, *stage[0])) \
+        if stage else None
     logn = n.bit_length() - 1
     alu = cls["alu"] / bf
-    return {"kernel": "ntt_fwd_kernel", "butterflies_per_loop_body": bf,
+    return {"kernel": kernel, "butterflies_per_loop_body": bf,
             "instructions_per_butterfly": len(ops) / bf,
             "alu_per_butterfly": alu,
             "imad_per_butterfly": sum(map(_is_imad, ops)) / bf,
@@ -243,7 +254,7 @@ def butterfly_census(funcs, n=N):
             "sts_per_butterfly": cls["sts"] / bf,
             "ldg_per_butterfly": cls["ldg"] / bf,
             "control_per_butterfly": cls["control"] / bf,
-            "barriers_per_stage": bars,
+            "barriers_per_outer_loop": bars,
             "alu_per_element": alu * logn / 2,
             "loop_opcodes": dict(Counter(ops))}
 
@@ -267,10 +278,13 @@ def alu_chain_census(funcs):
 
 
 def census(n=N):
-    """The SASS census of the built library (ntt_fwd_kernel and both ALU
-    chains)."""
+    """The SASS census of the built library: the butterfly loop of `full`
+    (top-level keys, what `reconciled` reads), of ntt_fwd_kernel
+    ("shipping") and both ALU chains."""
     funcs = sass_functions(_build.sass())
-    return {**butterfly_census(funcs, n), "alu_chain": alu_chain_census(funcs)}
+    return {**butterfly_census(funcs, FULL_KERNEL, n),
+            "shipping": butterfly_census(funcs, SHIPPING_KERNEL, n),
+            "alu_chain": alu_chain_census(funcs)}
 
 
 # ---------------------------------------------------------------- the runs
@@ -338,8 +352,8 @@ def run(quick=False, chain=0, log=print):
 
 
 def batched(quick=False, log=print):
-    """`ntt_fwd` at B in {1, 8, 16, 64}: median of 5 (3 with quick)
-    two-point estimates per batch; returns the rows."""
+    """`ntt_fwd` and `ntt_inv` at B in {1, 8, 16, 64}: median of 5 (3 with
+    quick) two-point estimates per batch; returns the rows."""
     _require_cuda()
     ctx, x0 = setup(torch.device("cuda", 0))
     L = len(ctx.moduli)
@@ -351,19 +365,21 @@ def batched(quick=False, log=print):
         if quick:
             chain //= 4
         xB = x0 if B == 1 else x0.expand(B, L, N).contiguous()
-        ctx.fwd(xB)
-        torch.cuda.synchronize()
-        full, half = _graph(ctx.fwd, xB, chain), _graph(ctx.fwd, xB,
-                                                        chain // 2)
-        ests = sorted((_replay_s(full) - _replay_s(half)) / (chain // 2) / B
-                      for _ in range(k_est))
-        med = statistics.median(ests)
-        row = {"B": B, "chain": chain,
-               "ntt_fwd": {"us_per_fwd": med * 1e6, "Gbf_s": bf / med / 1e9,
-                           "spread_us": [ests[0] * 1e6, ests[-1] * 1e6]}}
+        row = {"B": B, "chain": chain}
+        for name, step in (("ntt_fwd", ctx.fwd), ("ntt_inv", ctx.inv)):
+            step(xB)
+            torch.cuda.synchronize()
+            full, half = _graph(step, xB, chain), _graph(step, xB,
+                                                         chain // 2)
+            ests = sorted((_replay_s(full) - _replay_s(half))
+                          / (chain // 2) / B for _ in range(k_est))
+            med = statistics.median(ests)
+            row[name] = {"us_per_transform": med * 1e6,
+                         "Gbf_s": bf / med / 1e9,
+                         "spread_us": [ests[0] * 1e6, ests[-1] * 1e6]}
+            del full, half
         log(json.dumps(row))
         rows.append(row)
-        del full, half
     return rows
 
 

@@ -3,25 +3,42 @@
 
     python3 chip_smoke.py
 
+The port is self-contained, so nothing here can ask the JAX package for an
+oracle. The card's results are held against (i) each kernel's plain torch
+version on the card, (ii) the port's own CPU run of the same seed, word for
+word, (iii) the plaintext oracle after decryption and (iv) golden SHA-256
+digests of the reference's words, stored in
+abc_tpu_torch/testdata/golden.json (tests/test_torch_golden.py recomputes
+them from abc_tpu's np64 engine).
+
 Phases, each of which raises on failure (the script then exits nonzero):
 
-1. Build the NTT kernels from abc_tpu_torch/csrc with nvcc (sm_90a).
+1. Build the kernels from abc_tpu_torch/csrc with nvcc (sm_90a), one nvcc
+   per source, started together.
 2. Kernel vs plain: ntt_fwd / ntt_inv against their plain torch versions on
-   the card (torch.equal) at the slice's shapes, one shape against the np64
-   host oracle, inv(fwd(x)) == x; kernel and plain times in CUDA events,
-   median of 10 calls (warm L2).
-3. BFV mult+relin at n=8192 (6 data primes, k=1 and k=2): the port on the
-   card against an abc_tpu np64 context of the same seed, word for word; one
-   multiply of fresh operands launches exactly 5 forward and 3 inverse
-   transforms (154 limb rows at k=1); ms per op.
-4. The main path: the README hamming program, compiled by abc_tpu's passes
+   the card (torch.equal) at every n in {1024 .. 32768} x rows in {1, 12,
+   14, 16, 18, 24, 42, 112, 896}, inputs holding 0 and q-1, so that every
+   cluster size (1, 2, 4, 8 CTAs per row) is launched; inv(fwd(x)) == x;
+   every main-path launch shape runs on at least 96 CTAs. Then, at the main
+   path's launch shapes and the ablation's, kernel and plain times in CUDA
+   events (median of 10 calls, warm L2) and the profiler's device time,
+   beside the bound: the larger of bytes moved over 3.35 TB/s and integer
+   multiply-adds over 132 SMs x 64 per clock x 1.98 GHz.
+3. BFV mult+relin at n=8192 (6 data primes, k=1 and k=2): keys,
+   ciphertexts and result on the card equal to the port's CPU context of
+   the same seed and to the golden digests; one multiply of fresh operands
+   launches exactly 5 forward and 3 inverse transforms (154 limb rows at
+   k=1); ms per op.
+4. The main path: the README hamming program, compiled by the port's passes
    and run encrypted through run_compiled with the port's factory at
    n=8192. Kernel launch counts are taken over this run alone. Its output
-   words equal abc_tpu's np64 factory of the same seed and decrypt to 2.
+   words equal the CPU run and the golden digest, and decrypt to 2.
 5. LaplaceSharpening at the reference's parameters (n=16384, 13 data
    primes): decrypts equal to the plain oracle, rotations share one hoisted
    decomposition, both kernels launched; phase times.
-6. NTT ablation and ALU calibration: every mode of ablate_ntt torch.equal to
+6. Keys on the card: a fresh factory (keygen) and every Galois key that
+   LaplaceSharpening used, timed, equal to phase 5's keys.
+7. NTT ablation and ALU calibration: every mode of ablate_ntt torch.equal to
    its plain version at (n, L, B) = (16384, 14, 1) and (8192, 6, 3), the
    four NTT modes also equal to ntt_fwd; both alu_chain kinds at
    [14, 128, 128] x 512 iterations equal to their plain versions. Then the
@@ -31,10 +48,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
    on one line.
 
 Needs one CUDA device; exits nonzero at once without one. Imports nothing of
-JAX. Prints the card's name and power limit, a {"kernels": [...]} JSON line,
-and last {"ok": true, "device": {...}}.
+JAX or of abc_tpu. Prints the card's name and power limit, a
+{"kernels": [...]} JSON line, and last {"ok": true, "device": {...}}.
 """
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -44,14 +62,6 @@ import time
 import numpy as np
 import torch
 
-HAMMING_INPUTS = "secret int x = {1,1,0,1}; secret int y = {1,0,1,1};"
-HAMMING = """
-  int sum = 0;
-  for (int i = 0; i < 4; i = i + 1) {
-    sum = sum + (x[i]-y[i])*(x[i]-y[i]);
-  }
-  return sum;
-"""
 # LaplaceSharpening as the reference runs it (abc_tpu/benchsuite.py config 6)
 LAPLACE = """
   int weightMatrix = {1, 1, 1, 1, -8, 1, 1, 1, 1};
@@ -72,12 +82,24 @@ LAPLACE = """
 """
 MAIN_N = 8192        # the bench headline preset: 6 data primes, t of 20 bits
 LAPLACE_N = 16384    # the reference's own end-to-end parameters: 13 primes
-NTT_SHAPES = [(8192, 6, 1), (8192, 6, 3), (8192, 7, 6), (8192, 8, 2),
-              (8192, 8, 3), (16384, 14, 1), (16384, 14, 8)]
+LAPLACE_SEED = 23
+# (n, L, batch) timed in phase 2: the launches of one n=8192 mult+relin
+# (forward 12, 16, 12, 16, 42 rows; inverse 18, 24, 14) and the ablation's
+NTT_SHAPES = [(8192, 6, 2), (8192, 8, 2), (8192, 7, 6), (8192, 6, 3),
+              (8192, 8, 3), (8192, 7, 2), (16384, 14, 1), (16384, 14, 8)]
 # the largest forward (key-switch decomposition, 42 rows) and inverse (Bsk
 # tensor product, 24 rows) transform of one n=8192 mult+relin
 JSON_SHAPE = {"ntt_fwd": (8192, 7, 6), "ntt_inv": (8192, 8, 3)}
-ORACLE_SHAPE = (8192, 6, 3)      # also held against the np64 host oracle
+MAIN_ROWS = (12, 14, 16, 18, 24, 42)     # per launch on the main path
+SWEEP_N = (1024, 2048, 4096, 8192, 16384, 32768)
+SWEEP_ROWS = ((1, 1), (12, 6), (14, 7), (16, 8), (18, 6), (24, 8), (42, 7),
+              (112, 14), (896, 14))      # (rows, L)
+# The card's rates for the bound: device memory (NVIDIA's data sheet) and
+# 32-bit integer multiply-adds, 132 SMs x 64 per clock x 1.98 GHz (the SM
+# clock read under load), the ceiling that alu_chain calibrates against.
+HBM_BYTES_S = 3.35e12
+IMAD_S = 132 * 64 * 1.98e9
+IMAD_PER_BUTTERFLY = 3                   # one Shoup product
 REPLACES = {
     "ntt_fwd": "abc_tpu/ops/pallas_ntt.py:265 (_fwd_kernel via "
                "pallas_fwd_ntt :416, pallas_fwd_ntt_fp :439)",
@@ -118,26 +140,28 @@ def cuda_ms(fn, reps=10):
 def kernel_profile(fn, reps=5):
     """Device kernels of fn() from torch.profiler, per call: (total kernel
     ms, kernel launches, {kernel name: ms}); None where the profiler saw no
-    device activity."""
+    device activity in three tries (a trace now and then comes back
+    empty)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name, launches = {}, 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if "memcpy" in ev.name.lower() or "memset" in ev.name.lower():
-            continue
-        launches += 1
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-            ev.device_time_total / 1e3 / reps
-    if not launches:
-        return None
-    return sum(by_name.values()), launches / reps, by_name
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name, launches = {}, 0
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "memcpy" in ev.name.lower() or "memset" in ev.name.lower():
+                continue
+            launches += 1
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+                ev.device_time_total / 1e3 / reps
+        if launches:
+            return sum(by_name.values()), launches / reps, by_name
+    return None
 
 
 def fmt(prof):
@@ -151,6 +175,42 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def digest(t):
+    """SHA-256 of a tensor's uint32 words, little-endian, C order (the
+    recipe of abc_tpu_torch/testdata/golden.json)."""
+    from abc_tpu_torch.ops.modarith import to_host
+    words = np.ascontiguousarray(to_host(t.contiguous()), dtype="<u4")
+    return hashlib.sha256(words.tobytes()).hexdigest()
+
+
+def golden():
+    import os
+
+    import abc_tpu_torch
+    path = os.path.join(os.path.dirname(abc_tpu_torch.__file__), "testdata",
+                        "golden.json")
+    with open(path) as f:
+        return json.load(f)
+
+
+def bound(n_bytes, imads):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate and the multiply-adds over the
+    integer rate."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_S * 1e3, imads / IMAD_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def ntt_bound(n, L, rows, inverse):
+    """Bound of one transform launch: rows in and out, the [L, n] twiddle
+    and companion tables and q (and n^-1 with its companion) read once;
+    n/2 log2(n) butterflies per row, and the n^-1 scale of the inverse."""
+    n_bytes = 4 * (2 * rows * n + 2 * L * n + L + (2 * L if inverse else 0))
+    products = rows * ((n // 2) * (n.bit_length() - 1) + (n if inverse else 0))
+    return bound(n_bytes, IMAD_PER_BUTTERFLY * products)
+
+
 def rand_residues(moduli, shape, seed, device):
     from abc_tpu_torch.ops.modarith import as_residues
     q = np.asarray(moduli, dtype=np.uint64).reshape(len(moduli), 1)
@@ -159,77 +219,109 @@ def rand_residues(moduli, shape, seed, device):
                        device)
 
 
+def _transforms(nk, ctx, x):
+    """{kernel name: (kernel call, plain call)} on input x."""
+    return {
+        "ntt_fwd": (lambda: nk.ntt_fwd(x, ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh),
+                    lambda: nk.fwd_ntt_plain(x, ctx.q, ctx.fwd_tw)),
+        "ntt_inv": (lambda: nk.ntt_inv(x, ctx.q, ctx.inv_tw, ctx.inv_tw_sh,
+                                       ctx.n_inv, ctx.n_inv_sh),
+                    lambda: nk.inv_ntt_plain(x, ctx.q, ctx.inv_tw,
+                                             ctx.n_inv)),
+    }
+
+
 def phase_kernels(dev):
-    from abc_tpu.crypto.ntt import NttContext as RefNttContext
-    from abc_tpu.crypto.numthy import gen_ntt_primes
     from abc_tpu_torch.crypto.ntt import NttContext
+    from abc_tpu_torch.crypto.numthy import gen_ntt_primes
     from abc_tpu_torch.ops import ntt_kernels as nk
-    from abc_tpu_torch.ops.modarith import to_host
 
     stats = {k: {"max_abs_err": 0} for k in nk.launches}
+
+    def hold(name, got, want, at):
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        check(torch.equal(got, want), f"{name} != plain at {at}")
+
+    # every n x rows, with 0 and q-1 among the inputs
+    clusters = {}
+    for n in SWEEP_N:
+        seen = []
+        for rows, L in SWEEP_ROWS:
+            moduli = gen_ntt_primes(30, L, n)
+            ctx = NttContext(n, moduli, dev)
+            x = rand_residues(moduli, (rows // L, L, n), seed=n + rows,
+                              device=dev)
+            x[..., 0] = 0
+            x[..., 1::257] = (ctx.q - 1).reshape(L, 1)
+            for name, (kern, plain) in _transforms(nk, ctx, x).items():
+                hold(name, kern(), plain(), (n, rows))
+            back = ctx.inv(ctx.fwd(x))
+            check(torch.equal(back, x), f"inv(fwd(x)) != x at {n, rows}")
+            c = nk.cluster_size(rows, n)
+            clusters[c] = clusters.get(c, 0) + 1
+            seen.append(f"{rows}:{c}")
+        print(f"  n={n}: ntt_fwd, ntt_inv = plain and inv(fwd(x)) = x at "
+              f"rows:CTAs-per-row {' '.join(seen)}", flush=True)
+    check(set(clusters) == {1, 2, 4, 8},
+          f"cluster sizes launched: {clusters}")
+    ctas = {rows: rows * nk.cluster_size(rows, MAIN_N) for rows in MAIN_ROWS}
+    check(min(ctas.values()) >= 96, f"main-path launches on {ctas} CTAs")
+    print(f"  shapes per cluster size {clusters}; main-path launches "
+          f"(n={MAIN_N}) rows -> CTAs {ctas}", flush=True)
+
+    # times at the main path's launch shapes and the ablation's
     for n, L, batch in NTT_SHAPES:
         moduli = gen_ntt_primes(30, L, n)
         ctx = NttContext(n, moduli, dev)
         x = rand_residues(moduli, (batch, L, n), seed=n + L + batch,
                           device=dev)
-        runs = {
-            "ntt_fwd": (lambda: nk.ntt_fwd(x, ctx.q, ctx.fwd_tw,
-                                           ctx.fwd_tw_sh),
-                        lambda: nk.fwd_ntt_plain(x, ctx.q, ctx.fwd_tw)),
-            "ntt_inv": (lambda: nk.ntt_inv(x, ctx.q, ctx.inv_tw,
-                                           ctx.inv_tw_sh, ctx.n_inv,
-                                           ctx.n_inv_sh),
-                        lambda: nk.inv_ntt_plain(x, ctx.q, ctx.inv_tw,
-                                                 ctx.n_inv)),
-        }
-        line = [f"n={n} L={L} batch={batch}:"]
-        for name, (kern, plain) in runs.items():
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int64) - want.to(torch.int64))
-                      .abs().max())
-            check(torch.equal(got, want), f"{name} != plain at {n, L, batch}")
-            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        rows = L * batch
+        line = [f"n={n} L={L} batch={batch} ({rows} rows x "
+                f"{nk.cluster_size(rows, n)} CTAs):"]
+        for name, (kern, plain) in _transforms(nk, ctx, x).items():
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-            line.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+            prof = kernel_profile(kern)
+            b_ms, b_by = ntt_bound(n, L, rows, name == "ntt_inv")
+            line.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f} ms) "
+                        f"[device: {fmt(prof)}; bound {b_ms:.5f} ms by "
+                        f"{b_by}]")
             if JSON_SHAPE[name] == (n, L, batch):
-                stats[name]["ms"], stats[name]["plain_ms"] = ms, plain_ms
-                prof, plain_prof = kernel_profile(kern), kernel_profile(plain)
-                stats[name]["device_ms"] = prof and prof[0]
-                stats[name]["plain_device_ms"] = plain_prof and plain_prof[0]
-                line.append(f"[device: {fmt(prof)}; plain {fmt(plain_prof)}]")
-        back = nk.ntt_inv(nk.ntt_fwd(x, ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh),
-                          ctx.q, ctx.inv_tw, ctx.inv_tw_sh, ctx.n_inv,
-                          ctx.n_inv_sh)
-        check(torch.equal(back, x), f"inv(fwd(x)) != x at {n, L, batch}")
-        if (n, L, batch) == ORACLE_SHAPE:
-            ref = RefNttContext(n, moduli, engine="np64")
-            xh = to_host(x)
-            check(np.array_equal(to_host(ctx.fwd(x)), ref.fwd(xh)),
-                  "ntt_fwd != np64 oracle")
-            check(np.array_equal(to_host(ctx.inv(x)), ref.inv(xh)),
-                  "ntt_inv != np64 oracle")
-            line.append("(= np64 oracle)")
+                plain_prof = kernel_profile(plain)
+                stats[name].update(
+                    ms=ms, plain_ms=plain_ms, device_ms=prof and prof[0],
+                    plain_device_ms=plain_prof and plain_prof[0],
+                    bound_ms=b_ms, bound_by=b_by)
+                line.append(f"[plain device: {fmt(plain_prof)}]")
         print("  " + "  ".join(line), flush=True)
     return stats
 
 
-def phase_mult_relin(dev, k):
-    from abc_tpu.crypto.bfv import BfvCiphertext, BfvContext as RefBfvContext
-    from abc_tpu.crypto.params import BfvParams
-    from abc_tpu_torch.convert import context_from_reference
+def phase_mult_relin(dev, k, gold):
+    from abc_tpu_torch.crypto.bfv import BfvCiphertext, BfvContext
+    from abc_tpu_torch.crypto.params import BfvParams
     from abc_tpu_torch.ops import ntt_kernels as nk
-    from abc_tpu_torch.ops.modarith import to_host
 
-    ref = RefBfvContext(BfvParams.create(MAIN_N, seed=11, engine="np64",
-                                         ks_digits=k))
-    ctx = context_from_reference(ref, dev)
-    a, b = ctx.encrypt_many([ctx.encode([3, 4, 5]), ctx.encode([7, -2, 9])])
-    got = ctx.multiply(a, b)
-    want = ref.multiply(ctx.to_reference(a), ctx.to_reference(b))
-    check(np.array_equal(to_host(got.data), want.data),
-          f"mult+relin k={k} != np64")
-    check(ctx.decode(ctx.decrypt(got))[:3] == [21, -8, 45],
+    params = BfvParams.create(gold["n"], seed=gold["seed"], ks_digits=k)
+    ctx, cpu = BfvContext(params, dev), BfvContext(params, "cpu")
+    a, b = ctx.encrypt_many([ctx.encode(gold["a"]), ctx.encode(gold["b"])])
+    ca, cb = cpu.encrypt_many([cpu.encode(gold["a"]), cpu.encode(gold["b"])])
+    got, want = ctx.multiply(a, b), cpu.multiply(ca, cb)
+    relin, cpu_relin = ctx.get_relin_key(), cpu.get_relin_key()
+    words = {"pk_b": (ctx.pk_b_ntt, cpu.pk_b_ntt),
+             "pk_a": (ctx.pk_a_ntt, cpu.pk_a_ntt),
+             "relin_b": (relin[0], cpu_relin[0]),
+             "relin_a": (relin[1], cpu_relin[1]),
+             "ct_a": (a.data, ca.data), "ct_b": (b.data, cb.data),
+             "result": (got.data, want.data)}
+    for name, (on_card, on_cpu) in words.items():
+        check(torch.equal(on_card.cpu(), on_cpu),
+              f"k={k}: {name} on the card != the port's CPU run")
+        check(digest(on_card) == gold[name],
+              f"k={k}: {name} != golden digest (abc_tpu np64)")
+    expect = [x * y for x, y in zip(gold["a"], gold["b"])]
+    check(ctx.decode(ctx.decrypt(got))[:len(expect)] == expect,
           f"mult+relin k={k} decrypt")
     before = dict(nk.launches)
     fresh = [BfvCiphertext(a.data.clone()), BfvCiphertext(b.data.clone())]
@@ -241,9 +333,10 @@ def phase_mult_relin(dev, k):
           f"k={k}: {d_fwd} fwd / {d_inv} inv launches per mult+relin")
     ms = cuda_ms(lambda: ctx.multiply(BfvCiphertext(a.data.clone()),
                                       BfvCiphertext(b.data.clone())), reps=20)
-    print(f"  k={k}: word-identical to np64, decrypts [21, -8, 45]; "
-          f"{d_fwd} fwd + {d_inv} inv launches per op; "
-          f"{ms:.3f} ms/op (median of 20, fresh operands)", flush=True)
+    print(f"  k={k}: keys, ciphertexts and result word-identical to the CPU "
+          f"run and the golden digests, decrypts {expect}; {d_fwd} fwd + "
+          f"{d_inv} inv launches per op; {ms:.3f} ms/op (median of 20, fresh "
+          f"operands)", flush=True)
     prof = kernel_profile(lambda: ctx.multiply(BfvCiphertext(a.data.clone()),
                                                BfvCiphertext(b.data.clone())))
     print(f"  k={k} device kernels per op: {fmt(prof)}", flush=True)
@@ -256,19 +349,19 @@ def phase_mult_relin(dev, k):
 
 
 def run_dsl(factory, inputs_src, program_src, output_src):
-    """Parse, compile (abc_tpu passes) and execute under RuntimeVisitor, as
-    run_compiled does; returns the output ciphertext and the host-clock
-    times (ms) of input encryption and computation."""
-    from abc_tpu.parser import Parser
-    from abc_tpu.passes.pipeline import (CompileOptions, compile_program,
-                                         input_types_from_ast)
-    from abc_tpu.runtime.executor import RuntimeVisitor
+    """Parse, compile and execute under RuntimeVisitor, as run_compiled
+    does; returns the output ciphertext and the host-clock times (ms) of
+    input encryption and computation."""
+    from abc_tpu_torch import (CompileOptions, Parser, compile_program,
+                               input_types_from_ast)
+    from abc_tpu_torch.runtime.executor import RuntimeVisitor
 
     inputs = Parser.parse(inputs_src)
     compiled = compile_program(program_src, input_types_from_ast(inputs),
                                CompileOptions())
     t0 = time.perf_counter()
     rv = RuntimeVisitor(factory, inputs, compiled.secret_tainted)
+    torch.cuda.synchronize()
     t1 = time.perf_counter()
     rv.execute_ast(compiled.ast)
     ct = rv.get_output(Parser.parse(output_src))[0][1]
@@ -278,46 +371,51 @@ def run_dsl(factory, inputs_src, program_src, output_src):
                 "computation": (t2 - t1) * 1e3}
 
 
-def readme_hamming(factory):
-    """The README quick start: compile_program (vectorized) → run_compiled
+def readme_hamming(factory, gold):
+    """The README quick start: compile_program (vectorized) -> run_compiled
     with `factory`; returns the output ciphertext."""
-    from abc_tpu.parser import Parser
-    from abc_tpu.passes.pipeline import (CompileOptions, compile_program,
-                                         input_types_from_ast, run_compiled)
+    from abc_tpu_torch import (CompileOptions, Parser, compile_program,
+                               input_types_from_ast, run_compiled)
 
-    inputs = Parser.parse(HAMMING_INPUTS)
-    compiled = compile_program(HAMMING, input_types_from_ast(inputs),
+    inputs = Parser.parse(gold["inputs"])
+    compiled = compile_program(gold["program"], input_types_from_ast(inputs),
                                CompileOptions(vectorize=True))
-    _, outputs = run_compiled(compiled, inputs, Parser.parse("hd = sum;"),
+    _, outputs = run_compiled(compiled, inputs, Parser.parse(gold["output"]),
                               factory)
     return outputs[0][1]
 
 
-def phase_hamming(dev):
-    from abc_tpu.runtime.bfv_backend import BfvCiphertextFactory as RefFactory
+def phase_hamming(dev, gold):
     from abc_tpu_torch.ops import ntt_kernels as nk
-    from abc_tpu_torch.ops.modarith import to_host
     from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
 
-    factory = BfvCiphertextFactory(slots=MAIN_N, seed=5, device=dev)
+    factory = BfvCiphertextFactory(slots=gold["n"], seed=gold["seed"],
+                                   device=dev)
     for name in nk.launches:
         nk.launches[name] = 0
     t0 = time.perf_counter()
-    ct = readme_hamming(factory)
+    ct = readme_hamming(factory, gold)
     torch.cuda.synchronize()
     t_run = (time.perf_counter() - t0) * 1e3
     launches = dict(nk.launches)
     hd = factory.decrypt(ct)[0]
-    ref_ct = readme_hamming(RefFactory(slots=MAIN_N, seed=5, engine="np64"))
+    cpu_factory = BfvCiphertextFactory(slots=gold["n"], seed=gold["seed"],
+                                       device="cpu")
+    cpu_ct = readme_hamming(cpu_factory, gold)
     check(all(v > 0 for v in launches.values()),
           f"main path launched a kernel no time: {launches}")
-    check(np.array_equal(to_host(ct.ct.data), ref_ct.ct.data),
-          "hamming output != abc_tpu np64 factory")
+    check(torch.equal(ct.ct.data.cpu(), cpu_ct.ct.data),
+          "hamming output on the card != the port's CPU run")
+    check(digest(ct.ct.data) == gold["result"],
+          "hamming output != golden digest (abc_tpu np64 factory)")
+    check(factory.context.counters == cpu_factory.context.counters,
+          "hamming op counters differ between card and CPU")
     check(hd == 2, f"hamming decrypts to {hd}")
-    print(f"  hamming n={MAIN_N}: decrypts to {hd}, word-identical to abc_tpu "
-          f"np64; launches {launches}; counters {factory.context.counters}; "
-          f"run_compiled {t_run:.1f} ms (host clock: encryption, switching-"
-          f"key builds and evaluation)", flush=True)
+    print(f"  hamming n={gold['n']}: decrypts to {hd}, word-identical to "
+          f"the CPU run and the golden digest; launches {launches}; "
+          f"counters {factory.context.counters}; run_compiled {t_run:.1f} ms "
+          f"(host clock: encryption, switching-key builds and evaluation)",
+          flush=True)
     return launches
 
 
@@ -342,8 +440,11 @@ def phase_laplace(dev):
             want[x * size + y] = 2 * img[x * size + y] - conv
 
     before = dict(nk.launches)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    factory = BfvCiphertextFactory(slots=LAPLACE_N, seed=23, device=dev)
+    factory = BfvCiphertextFactory(slots=LAPLACE_N, seed=LAPLACE_SEED,
+                                   device=dev)
+    torch.cuda.synchronize()
     t_keygen = (time.perf_counter() - t0) * 1e3
     ct, first = run_dsl(factory, inputs_src, LAPLACE, "out = img2;")
     t0 = time.perf_counter()
@@ -359,25 +460,58 @@ def phase_laplace(dev):
           f"{c}; launches {launched}", flush=True)
     print(f"  phases (host clock, ms): factory+keygen {t_keygen:.1f}, input "
           f"encryption {first['input_encryption']:.1f}, computation "
-          f"{first['computation']:.1f} (includes host switching-key builds), "
+          f"{first['computation']:.1f} (first run: builds "
+          f"{len(factory.context._keys)} switching keys on the card), "
           f"computation again with keys built {steady['computation']:.1f}, "
           f"decryption {t_dec:.1f}", flush=True)
+    return factory.context
 
 
-def _timed(stats, kern, plain, at):
-    """Kernel and plain times (CUDA events and profiler) into stats."""
+def phase_keys(dev, used):
+    """A fresh factory of LaplaceSharpening's parameters and seed, then
+    every switching key that program used (`used`: phase 5's context), all
+    built on the card and timed on the host clock."""
+    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+
+    ids = sorted(used._keys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx = BfvCiphertextFactory(slots=LAPLACE_N, seed=LAPLACE_SEED,
+                               device=dev).context
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    keys = ctx.materialize_keys(ids)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for name, a, b in [("s", ctx.s_ntt_full, used.s_ntt_full),
+                       ("pk_b", ctx.pk_b_ntt, used.pk_b_ntt)] + \
+            [(kid, keys[kid][0], used._keys[kid][0]) for kid in ids]:
+        check(torch.equal(a, b), f"{name}: same seed, another key")
+    mb = sum(t.numel() * 4 for pair in keys.values() for t in pair) / 2 ** 20
+    print(f"  n={LAPLACE_N}: factory+keygen {(t1 - t0) * 1e3:.1f} ms, "
+          f"{len(ids)} switching keys ({mb:.0f} MiB) "
+          f"{(t2 - t1) * 1e3:.1f} ms, {(t2 - t1) * 1e3 / len(ids):.1f} ms "
+          f"per key, all on the card (host clock); equal to phase 5's",
+          flush=True)
+
+
+def _timed(stats, kern, plain, at, bound_of):
+    """Kernel and plain times (CUDA events and profiler) and the bound into
+    stats."""
     stats["ms"], stats["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
     prof, plain_prof = kernel_profile(kern), kernel_profile(plain)
     stats["device_ms"] = prof and prof[0]
     stats["plain_device_ms"] = plain_prof and plain_prof[0]
+    stats["bound_ms"], stats["bound_by"] = bound_of
     stats["at"] = at
     return (f"{stats['ms']:.4f} ms (plain {stats['plain_ms']:.4f} ms) "
-            f"[device: {fmt(prof)}; plain {fmt(plain_prof)}]")
+            f"[device: {fmt(prof)}; plain {fmt(plain_prof)}; bound "
+            f"{stats['bound_ms']:.5f} ms by {stats['bound_by']}]")
 
 
 def phase_ablation(dev):
-    from abc_tpu.crypto.numthy import gen_ntt_primes
     from abc_tpu_torch.crypto.ntt import NttContext
+    from abc_tpu_torch.crypto.numthy import gen_ntt_primes
     from abc_tpu_torch.ops import ntt_ablation as na
     from abc_tpu_torch.ops import ntt_kernels as nk
     from abc_tpu_torch.ops.modarith import as_residues
@@ -411,7 +545,7 @@ def phase_ablation(dev):
             line += f"; {mode}: " + _timed(
                 stats["ablate_ntt"], lambda: na.ablate_ntt(x, ctx, mode),
                 lambda: na.ablate_ntt_plain(x, ctx.q, ctx.fwd_tw, mode),
-                [n, L, batch])
+                [n, L, batch], ntt_bound(n, L, L * batch, False))
         print(line, flush=True)
 
     rng = np.random.default_rng(12)
@@ -426,7 +560,10 @@ def phase_ablation(dev):
           f"{ALU_ITERS} = plain; {kind}: " + _timed(
               stats["alu_chain"], lambda: na.alu_chain(xa, kind, ALU_ITERS),
               lambda: na.alu_chain_plain(xa, kind, ALU_ITERS),
-              list(ALU_SHAPE) + [ALU_ITERS]), flush=True)
+              list(ALU_SHAPE) + [ALU_ITERS],
+              # words in and out; 3 multiply-adds per word and iteration
+              bound(2 * 4 * xa.numel(), 3 * xa.numel() * ALU_ITERS)),
+          flush=True)
 
     # the path: the ablation script's measurement, counted alone
     for name in na.launches:
@@ -448,10 +585,14 @@ def phase_ablation(dev):
     print("  SASS: " + ", ".join(
         f"alu_{k} {c['ops_per_iter']} IMAD / {c['instructions_per_iter']} "
         f"instructions per iteration (not folded)"
-        for k, c in chains.items()) + f"; ntt_fwd butterfly "
-        f"{result['census']['instructions_per_butterfly']} instructions, "
-        f"{result['census']['alu_per_butterfly']} ALU; launches {launches}",
-        flush=True)
+        for k, c in chains.items()) + "; per butterfly: " + ", ".join(
+            f"{what} {c['instructions_per_butterfly']:.1f} instructions, "
+            f"{c['alu_per_butterfly']:.1f} ALU"
+            for what, c in (("full (one stage per barrier)",
+                             result["census"]),
+                            ("ntt_fwd (three stages per pass)",
+                             result["census"]["shipping"])))
+        + f"; launches {launches}", flush=True)
     print(json.dumps({"ntt_ablation": result}), flush=True)
     return stats, launches
 
@@ -460,11 +601,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
-    # The np64 oracle (abc_tpu) probes JAX's trace state on each of its
-    # cache lookups. With the import blocked it takes its no-JAX branch:
-    # the same words, without its caches. Nothing of JAX is loaded.
-    sys.modules["jax"] = None
-    from abc_tpu.ops import native
     from abc_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
@@ -473,35 +609,43 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()
     print(f"card: {smi[0]}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}; reference host engine: "
-          f"{'native C++' if native.available() else 'NumPy'}", flush=True)
+          f"python {sys.version.split()[0]}", flush=True)
     _build.build()
     print(f"kernel build: {_build.build_seconds:.1f} s (nvcc, sm_90a)",
           flush=True)
     print("\n".join("  " + ln for ln in _build.build_log.splitlines()
                     if "registers" in ln or "spill" in ln), flush=True)
     _build.load()
+    gold = golden()
 
     print("phase 2: kernels vs plain", flush=True)
     stats = phase_kernels(dev)
     print("phase 3: mult+relin n=8192", flush=True)
     for k in (1, 2):
-        phase_mult_relin(dev, k)
+        phase_mult_relin(dev, k, gold[f"mult_relin_n8192_k{k}"])
     print("phase 4: main path (README hamming, n=8192)", flush=True)
-    launches = phase_hamming(dev)
+    launches = phase_hamming(dev, gold["hamming_n8192"])
     print("phase 5: LaplaceSharpening n=16384", flush=True)
-    phase_laplace(dev)
-    print("phase 6: NTT ablation and ALU calibration", flush=True)
+    laplace_ctx = phase_laplace(dev)
+    print("phase 6: keygen and switching keys on the card", flush=True)
+    phase_keys(dev, laplace_ctx)
+    del laplace_ctx
+    print("phase 7: NTT ablation and ALU calibration", flush=True)
     abl_stats, abl_launches = phase_ablation(dev)
     stats.update(abl_stats)
     launches.update(abl_launches)
-    check(not any(v is not None and (m == "jax" or m.startswith("jax."))
-                  for m, v in sys.modules.items()), "jax was imported")
+    loaded = sorted(m for m, v in sys.modules.items() if v is not None
+                    and m.split(".")[0] in ("jax", "jaxlib", "abc_tpu"))
+    check(not loaded, f"the reference or JAX was imported: {loaded}")
 
+    # no single PyTorch call computes a negacyclic NTT mod q or these ALU
+    # chains, so no kernel has a library yardstick
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+                "bound_ms": stats[name]["bound_ms"],
+                "bound_by": stats[name]["bound_by"], "library_ms": None,
                 "device_ms": stats[name]["device_ms"],
                 "plain_device_ms": stats[name]["plain_device_ms"],
                 "at": stats[name].get("at", list(JSON_SHAPE.get(name, ())))}

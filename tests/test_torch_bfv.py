@@ -1,19 +1,21 @@
 """abc_tpu_torch BFV evaluation against the reference, word for word.
 
-The port runs on CPU tensors (plain NTT) from an np64 reference context via
-context_from_reference; the reference side is an abc_tpu jx32 context of the
-same seed (n=1024), or np64 for one mult+relin at n=8192. Same seed → same
-keys and same ciphertexts, so every result must be bit-identical.
+The port builds its own context on CPU tensors (plain NTT) from the seed;
+the reference side is an abc_tpu jx32 context of the same seed (n=1024), or
+np64 for one mult+relin at n=8192. Same seed → same keys and same
+ciphertexts, so every result must be bit-identical.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from abc_tpu.crypto.bfv import BfvCiphertext as RefBfvCiphertext
 from abc_tpu.crypto.bfv import BfvContext as RefBfvContext
-from abc_tpu.crypto.params import BfvParams
-from abc_tpu_torch.convert import context_from_reference
+from abc_tpu.crypto.params import BfvParams as RefBfvParams
 from abc_tpu_torch.crypto import ntt as port_ntt
+from abc_tpu_torch.crypto.bfv import BfvContext
+from abc_tpu_torch.crypto.params import BfvParams
 from abc_tpu_torch.ops import ntt_kernels as nk
 from abc_tpu_torch.ops.modarith import to_host
 
@@ -35,11 +37,10 @@ def pair(request):
     """(port context on CPU, reference jx32 context), n=1024, seed 7."""
     pytest.importorskip("jax")
     k = request.param
-    ref_np = RefBfvContext(BfvParams.create(1024, seed=7, engine="np64",
-                                            ks_digits=k))
-    ref_jx = RefBfvContext(BfvParams.create(1024, seed=7, engine="jx32",
-                                            ks_digits=k))
-    return context_from_reference(ref_np, "cpu"), ref_jx
+    ref_jx = RefBfvContext(RefBfvParams.create(1024, seed=7, engine="jx32",
+                                               ks_digits=k))
+    return BfvContext(BfvParams.create(1024, seed=7, ks_digits=k),
+                      "cpu"), ref_jx
 
 
 def _same(port_ct, ref_ct):
@@ -88,8 +89,7 @@ def test_mult_relin_ntt_census():
     """One mult+relin of fresh operands: 5 forward and 3 inverse transform
     calls, 4(2L+2) + L(L+1) forward and 3(2L+2) + 2(L+1) inverse limb rows
     (154 rows at the n=8192 preset's L=6)."""
-    ref = RefBfvContext(BfvParams.create(1024, seed=3, engine="np64"))
-    port = context_from_reference(ref, "cpu")
+    port = BfvContext(BfvParams.create(1024, seed=3), "cpu")
     a, b = port.encrypt_many([port.encode([1, 2]), port.encode([3, 4])])
     port.get_relin_key()
     port._get_behz()
@@ -108,20 +108,21 @@ def test_mult_relin_ntt_census():
         port.multiply(a, b)
     finally:
         mp.undo()
-    L = ref.params.L
+    L = port.params.L
     assert len(calls["fwd"]) == 5 and len(calls["inv"]) == 3
     assert sum(calls["fwd"]) == 4 * (2 * L + 2) + L * (L + 1)
     assert sum(calls["inv"]) == 3 * (2 * L + 2) + 2 * (L + 1)
 
 
 def _mult_relin_vs_np64(device, k):
-    ref = RefBfvContext(BfvParams.create(8192, seed=11, engine="np64",
-                                         ks_digits=k))
-    port = context_from_reference(ref, device)
+    ref = RefBfvContext(RefBfvParams.create(8192, seed=11, engine="np64",
+                                            ks_digits=k))
+    port = BfvContext(BfvParams.create(8192, seed=11, ks_digits=k), device)
     a, b = port.encrypt_many([port.encode([3, 4, 5]),
                               port.encode([7, -2, 9])])
     got = port.multiply(a, b)
-    want = ref.multiply(port.to_reference(a), port.to_reference(b))
+    want = ref.multiply(RefBfvCiphertext(to_host(a.data)),
+                        RefBfvCiphertext(to_host(b.data)))
     np.testing.assert_array_equal(to_host(got.data), want.data)
     assert port.decode(port.decrypt(got))[:3] == [21, -8, 45]
     return port, a, b

@@ -75,3 +75,17 @@ def test_words_round_trip_bit_for_bit():
     t = as_residues(words, "cpu")
     assert t.dtype == torch.int32
     np.testing.assert_array_equal(to_host(t), words)
+
+
+@pytest.mark.parametrize("n", [1024, 8192, 16384])
+def test_barrett_mu_and_shoup_are_the_reference_s(n):
+    """The port's own table helpers give the reference's words, at the
+    preset primes and at the 20-bit plain modulus (mu placeholder 0)."""
+    from abc_tpu_torch.ops import modarith as port
+    params = BfvParams.create(n)
+    for q in params.coeff_modulus + [params.plain_modulus]:
+        assert port.barrett_mu(q) == barrett_mu(q)
+        for w in (0, 1, q // 3, q - 1):
+            assert port.shoup(w, q) == shoup(w, q)
+    with pytest.raises(ValueError):
+        port.barrett_mu(1 << 30)

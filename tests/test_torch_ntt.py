@@ -62,6 +62,30 @@ def test_plain_matches_pallas_interpret(n, which):
     np.testing.assert_array_equal(to_host(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("n,q", [(1024, None), (8192, None), (2048, "t"),
+                                 (16384, "t")])
+def test_twiddle_tables_are_the_reference_s(n, q):
+    """The port computes its own ψ^brv tables, Shoup companions and n⁻¹:
+    the reference's words, for a 30-bit prime and for the 20-bit plain
+    modulus (the encoder's transform)."""
+    from abc_tpu.crypto.ntt import _limb_tables as ref_tables
+    from abc_tpu.crypto.ntt import eval_perm_tables as ref_perm
+    from abc_tpu_torch.crypto import ntt as port
+    q = gen_ntt_primes(20, 1, n)[0] if q == "t" else \
+        gen_ntt_primes(30, 3, n)[2]
+    got, want = port._limb_tables(n, q), ref_tables(n, q)
+    assert len(got) == len(want) == 7
+    for g, w in zip(got, want):
+        if isinstance(w, np.ndarray):
+            assert g.dtype == w.dtype == np.uint32
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert g == w
+    (e, pos), (ref_e, ref_pos) = port.eval_perm_tables(n), ref_perm(n)
+    np.testing.assert_array_equal(e, ref_e)
+    np.testing.assert_array_equal(pos[1::2], ref_pos[1::2])   # odd exponents
+
+
 def test_plain_matches_jx32_stage_loop():
     jnp = pytest.importorskip("jax.numpy")
     n = 1024
@@ -121,7 +145,9 @@ def test_wrapper_refuses_other_devices():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,L,batch", [(8192, 6, 1), (8192, 7, 6),
-                                       (16384, 14, 8), (32768, 2, 1)])
+                                       (16384, 14, 8), (32768, 2, 1),
+                                       (8192, 6, 2), (8192, 8, 3),
+                                       (16384, 14, 1), (1024, 1, 1)])
 def test_kernels_match_plain_on_cuda(cuda, n, L, batch):
     moduli = gen_ntt_primes(30, L, n)
     ctx = NttContext(n, moduli, cuda)
@@ -150,3 +176,18 @@ def test_kernel_wrapper_checks_operands_on_cuda(cuda):
         nk.ntt_fwd(a.t().contiguous().t(), ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
     with pytest.raises(ValueError):
         nk.ntt_fwd(a[:1], ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
+    flat = torch.zeros(2 * n + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        nk.ntt_fwd(flat[1:].reshape(2, n), ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n,ctas", [
+    (12, 8192, 8), (14, 8192, 8), (16, 8192, 8), (18, 8192, 8),
+    (24, 8192, 4), (42, 8192, 4), (48, 8192, 2), (96, 8192, 1),
+    (14, 16384, 8), (112, 16384, 1), (1, 1024, 1), (1, 2048, 2),
+    (1, 32768, 8)])
+def test_cluster_size_is_a_function_of_the_shape(cuda, rows, n, ctas):
+    """The smallest power of two ≤ 8 that gives rows·C ≥ 96 CTAs, while a
+    CTA keeps at least 1024 coefficients."""
+    assert nk.cluster_size(rows, n) == ctas

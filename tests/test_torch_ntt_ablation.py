@@ -266,8 +266,8 @@ def _chain(ops, unroll):
 _MAC = ["IMAD R5, R5, R8, R9"]
 _SHOUP = ["IMAD.HI.U32 R5, R7, UR9, RZ", "IMAD R6, R5, UR6, RZ",
           "IMAD R7, R7, UR8, -R6"]
-# the shape of ntt_fwd_kernel's stage loop (0x10-0x120) around its
-# butterfly loop (0x20-0xf0)
+# the shape of a one-stage-per-barrier kernel: its stage loop (0x10-0x120)
+# around its butterfly loop (0x20-0xf0)
 _FWD = _sass_function("ntt_fwd_kernel", [
     "MOV R0, RZ", "IADD3 R1, R1, 0x1, RZ",
     "SHF.R.S32.HI R20, RZ, UR5, R19", "LDS R22, [R20]", "LDS R23, [R21]",
@@ -283,14 +283,30 @@ _FWD = _sass_function("ntt_fwd_kernel", [
 def test_sass_census_of_the_butterfly_loop():
     from abc_tpu_torch.scripts import ntt_ablation as script
     funcs = script.sass_functions(_FWD)
-    c = script.butterfly_census(funcs, n=16384)
+    c = script.butterfly_census(funcs, "ntt_fwd_kernel", n=16384)
     assert c["butterflies_per_loop_body"] == 1
     assert (c["instructions_per_butterfly"], c["alu_per_butterfly"],
             c["imad_per_butterfly"]) == (12, 5, 3)
     assert (c["lds_per_butterfly"], c["sts_per_butterfly"],
             c["ldg_per_butterfly"], c["control_per_butterfly"]) == (2, 2, 2, 1)
-    assert c["barriers_per_stage"] == 1
+    assert c["barriers_per_outer_loop"] == 1
     assert c["alu_per_element"] == 5 * 14 / 2
+
+
+def test_sass_census_counts_butterflies_by_their_shoup_products():
+    """A three-stage register pass: 12 butterflies (12 IMAD.HI) between 8
+    loads and 8 stores in one loop body, no loop around it."""
+    from abc_tpu_torch.scripts import ntt_ablation as script
+    shoup = ["IMAD.HI.U32 R25, R23, R6, RZ", "IMAD R25, R10, R25, RZ",
+             "IMAD R25, R8, R23, -R25", "IADD3 R7, R7, R25, RZ"]
+    body = ["MOV R0, RZ"] + ["LDS R22, [R20]"] * 8 + shoup * 12 + \
+        ["STS [R20], R7"] * 8 + ["@!P1 BRA 0x10", "EXIT", "BRA 0x400"]
+    funcs = script.sass_functions(_sass_function("ntt_fwd_kernel", body))
+    c = script.butterfly_census(funcs, "ntt_fwd_kernel", n=8192)
+    assert c["butterflies_per_loop_body"] == 12
+    assert c["instructions_per_butterfly"] == (8 + 48 + 8 + 1) / 12
+    assert c["imad_per_butterfly"] == 3 and c["alu_per_butterfly"] == 4
+    assert c["barriers_per_outer_loop"] is None
 
 
 @pytest.mark.parametrize("kind,ops,unroll,folded", [

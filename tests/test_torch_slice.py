@@ -1,6 +1,7 @@
-"""abc_tpu_torch end to end: DSL programs compiled by abc_tpu's passes and run
-encrypted through RuntimeVisitor with the port's BFV factory, against
-abc_tpu's np64 factory of the same seed (words, op counters, decryption).
+"""abc_tpu_torch end to end: DSL programs compiled by the port's passes and
+run encrypted through the port's RuntimeVisitor and BFV factory, against the
+same programs through abc_tpu with its np64 factory of the same seed (words,
+op counters, decryption).
 """
 
 import os
@@ -11,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from abc_tpu.parser import Parser
-from abc_tpu.passes.pipeline import (CompileOptions, compile_program,
-                                     input_types_from_ast, run_compiled)
+import abc_tpu
+import abc_tpu_torch
 from abc_tpu.runtime.bfv_backend import BfvCiphertextFactory as RefFactory
+from abc_tpu_torch.ast_ir.nodes import VariableDeclaration
 from abc_tpu_torch.ops import ntt_kernels as nk
+from abc_tpu_torch.passes.type_checking import run_type_checking
+from abc_tpu_torch.runtime.executor import RuntimeVisitor
 from abc_tpu_torch.ops.modarith import to_host
 from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
 from helpers import run_program
@@ -40,15 +43,30 @@ def cuda():
     return torch.device("cuda")
 
 
-def _hamming(factory):
-    """The README quick start: vectorized compile, run, decrypt slot 0."""
-    inputs = Parser.parse(HAMMING_INPUTS)
-    compiled = compile_program(HAMMING, input_types_from_ast(inputs),
-                               CompileOptions(vectorize=True))
-    _, outputs = run_compiled(compiled, inputs, Parser.parse("hd = sum;"),
-                              factory)
+def _hamming(factory, pkg=abc_tpu_torch):
+    """The README quick start through package `pkg` (the port, or abc_tpu
+    for the reference factory): vectorized compile, run, decrypt slot 0."""
+    inputs = pkg.Parser.parse(HAMMING_INPUTS)
+    compiled = pkg.compile_program(HAMMING, pkg.input_types_from_ast(inputs),
+                                   pkg.CompileOptions(vectorize=True))
+    _, outputs = pkg.run_compiled(compiled, inputs,
+                                  pkg.Parser.parse("hd = sum;"), factory)
     ct = outputs[0][1]
     return ct, factory.decrypt(ct)[0]
+
+
+def _run_program_port(inputs_src, program_src, output_src, factory):
+    """helpers.run_program through the port's parser, type checker and
+    RuntimeVisitor."""
+    parse = abc_tpu_torch.Parser.parse
+    ast_input, ast_program = parse(inputs_src), parse(program_src)
+    input_types = {decl.target.identifier: decl.datatype
+                   for decl in ast_input.children()
+                   if isinstance(decl, VariableDeclaration)}
+    tcv = run_type_checking(ast_program, input_types)
+    rv = RuntimeVisitor(factory, ast_input, tcv.get_secret_tainted_nodes())
+    rv.execute_ast(ast_program)
+    return rv, rv.get_output(parse(output_src))
 
 
 def _words(handle):
@@ -60,7 +78,7 @@ def test_hamming_matches_reference_factory():
     port = BfvCiphertextFactory(slots=1024, seed=5, device="cpu")
     ref = RefFactory(slots=1024, seed=5, engine="np64")
     ct, hd = _hamming(port)
-    ref_ct, ref_hd = _hamming(ref)
+    ref_ct, ref_hd = _hamming(ref, abc_tpu)
     assert hd == ref_hd == 2
     np.testing.assert_array_equal(_words(ct), _words(ref_ct))
     assert port.context.counters == ref.context.counters
@@ -75,7 +93,8 @@ def test_laplace_sharpening_matches_oracle_and_reference():
               f" int imgSize = {size};")
     port = BfvCiphertextFactory(slots=1024, seed=3, device="cpu")
     ref = RefFactory(slots=1024, seed=3, engine="np64")
-    _, pairs = run_program(inputs, LAPLACE_SECRET_PROGRAM, "out = img2;", port)
+    _, pairs = _run_program_port(inputs, LAPLACE_SECRET_PROGRAM,
+                                 "out = img2;", port)
     _, ref_pairs = run_program(inputs, LAPLACE_SECRET_PROGRAM, "out = img2;",
                                ref)
     assert port.decrypt(pairs[0][1])[:size * size] == \
@@ -89,9 +108,8 @@ def test_laplace_sharpening_matches_oracle_and_reference():
 
 _JAX_FREE_SLICE = f"""
 import sys
-from abc_tpu.parser import Parser
-from abc_tpu.passes.pipeline import (CompileOptions, compile_program,
-                                     input_types_from_ast, run_compiled)
+from abc_tpu_torch import (CompileOptions, Parser, compile_program,
+                           input_types_from_ast, run_compiled)
 from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
 inputs = Parser.parse({HAMMING_INPUTS!r})
 compiled = compile_program({HAMMING!r}, input_types_from_ast(inputs),
@@ -100,7 +118,7 @@ factory = BfvCiphertextFactory(slots=1024, seed=5, device="cpu")
 _, out = run_compiled(compiled, inputs, Parser.parse("hd = sum;"), factory)
 hd = factory.decrypt(out[0][1])[0]
 assert factory.context.counters["mult"] == 1
-print(hd, "jax" in sys.modules)
+print(hd, "jax" in sys.modules or "abc_tpu" in sys.modules)
 """
 
 
