@@ -17,6 +17,8 @@ Layout (module for module the reference's):
   utils/ ast_ir/ parser/ passes/   — the compiler, host only
   runtime/executor.py, values.py, backend.py, dummy.py — program execution
   runtime/bfv_backend.py — BFV ciphertext factory for RuntimeVisitor
+  runtime/jit_executor.py — whole-program execution: jit_compile_program,
+                         JittedProgram (one CUDA graph per program)
   ops/modarith.py      — elementwise RNS arithmetic (torch engine)
   ops/ntt_kernels.py   — NTT kernel wrappers + their plain torch versions
   crypto/numthy.py, params.py — primes and parameter presets
@@ -24,6 +26,10 @@ Layout (module for module the reference's):
   crypto/ntt.py        — twiddle tables, NttContext over [..., L, n] residues
   crypto/behz.py       — BEHZ full-RNS ct·ct multiply
   crypto/bfv.py        — BFV: keys, encode/encrypt/decrypt, evaluation
+  crypto/noise.py      — circuit noise analysis, auto-chosen parameter sets
+  circuits.py          — DSL source generators for the benchmark programs
+  cli.py, __main__.py  — `python -m abc_tpu_torch <benchmark> <out.csv>`
+  utils/profiling.py   — PhaseTimer, ProfilingFactory, device_trace
   convert.py           — context_from_reference: a reference context's state
                          (numpy arrays, plain values) → a port context
 """
@@ -35,4 +41,7 @@ from abc_tpu_torch.parser import Parser  # noqa: F401,E402
 from abc_tpu_torch.passes.pipeline import (  # noqa: F401,E402
     CompileOptions, Compiler, compile_program, input_types_from_ast,
     run_compiled,
+)
+from abc_tpu_torch.runtime.jit_executor import (  # noqa: F401,E402
+    JittedProgram, jit_compile_program,
 )

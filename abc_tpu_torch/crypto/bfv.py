@@ -26,11 +26,30 @@ Key switching is the hybrid construction with digit size k =
 params.ks_digits: ksk_j = (−(a_j·s + e_j) + P·W_j·s2, a_j) over q∪P with
 W_j the CRT basis element of digit Q_j; the reference's module note has the
 derivation.
+
+Whole-program capture (runtime/jit_executor.py) records the evaluation into a
+CUDA graph, which holds device pointers. Three things follow here:
+
+* keys are not arguments of the captured program: the graph reads the key
+  tensors this context owns, so the reference's record_key_requests /
+  set_key_overrides / _fake_ksk (keys as executable arguments under jax.jit)
+  have no counterpart; nor have precompute_mult_operand and
+  multiply(a_pre=, b_pre=), the hand-hoisting of an operand's transforms:
+  _operand_cached hoists a reused operand and nothing in the port asks for
+  more;
+* whatever the evaluation builds lazily from host data (the BEHZ context, the
+  Galois permutation tables, a switching key) is built by an eager run before
+  the capture, since a host-to-device copy is illegal inside one;
+  ensure_eval_ready builds what does not depend on the program;
+* the identity-keyed caches (_op_cache, _dec_cache) must not carry an entry
+  across the boundary of a capture: fresh_caches() empties them on the way in
+  and on the way out.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -429,6 +448,35 @@ class BfvContext:
             self._behz = BehzContext(self.params, self.ntt_q)
         return self._behz
 
+    def ensure_eval_ready(self) -> None:
+        """Build everything the evaluation path needs that does not depend on
+        the program, outside any timed phase or graph capture: the BEHZ
+        multiply context (its auxiliary primes and twiddle tables; the three
+        NTT contexts of this context got theirs in the constructor) and, on
+        a CUDA device, the kernel library (nvcc build at first use, then the
+        load). A failed build raises."""
+        self._get_behz()
+        if self.device.type == "cuda":
+            from abc_tpu_torch.ops import _build
+            _build.load()
+
+    @contextmanager
+    def fresh_caches(self):
+        """Run a block with the identity-keyed caches (operand NTT forms,
+        key-switch decompositions) empty at its start and emptied again at
+        its end. A whole-program run is such a block: its input tensors keep
+        their identity from run to run while their contents change, so an
+        entry made by one run would hand the next one the transforms of old
+        data; and entries made while a CUDA graph is captured point into the
+        graph's memory pool, which no eager code may read."""
+        self._op_cache.clear()
+        self._dec_cache.clear()
+        try:
+            yield
+        finally:
+            self._op_cache.clear()
+            self._dec_cache.clear()
+
     def add(self, a: BfvCiphertext, b: BfvCiphertext) -> BfvCiphertext:
         return BfvCiphertext(t64.add(a.data, b.data, self.q_q))
 
@@ -468,7 +516,9 @@ class BfvContext:
 
     def multiply(self, a: BfvCiphertext, b: BfvCiphertext,
                  relinearize: bool = True) -> BfvCiphertext:
-        """ct·ct multiply via BEHZ, then (optionally) relinearization."""
+        """ct·ct multiply via BEHZ, then (optionally) relinearization. The
+        per-operand lift and transforms come from `_operand_cached`, so an
+        operand reused across multiplies is transformed once."""
         if a.size != 2 or b.size != 2:
             raise RuntimeExecutionError("multiply expects size-2 ciphertexts")
         self.counters["mult"] += 1
@@ -476,6 +526,12 @@ class BfvContext:
         b_pre = a_pre if b.data is a.data else self._operand_cached(b.data)
         ct3 = BfvCiphertext(self._get_behz().multiply(a_pre, b_pre))
         return self.relinearize(ct3) if relinearize else ct3
+
+    def square(self, a: BfvCiphertext, relinearize: bool = True
+               ) -> BfvCiphertext:
+        """a·a with one operand transform (the factory lowers `x *** x` to
+        this)."""
+        return self.multiply(a, a, relinearize=relinearize)
 
     def _operand_cached(self, ct_data):
         """Operand NTT forms (over q and Bsk) with an identity-keyed cache:

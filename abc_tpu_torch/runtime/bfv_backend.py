@@ -5,11 +5,20 @@ BfvCiphertextFactory. It builds a BfvContext from (slots, seed, ks_digits)
 on `device`: keys, encryption, evaluation and decryption all run there.
 There is no backend sniffing: the caller names the device, and a CUDA
 device without a GPU is an error.
+
+A program's evaluation meets two kinds of values that are made on the host
+and copied to the device: plaintext operands (encode_cleartext) and
+encryptions inside the program (`secret int v = 0;`). Under jax.jit these are
+trace constants. A CUDA graph cannot hold a host copy, so the whole-program
+executor records them from one eager run and serves them again, in the same
+order, to the run it captures: HostConstants, switched on with
+`factory.host_constants(tape)`.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+from contextlib import contextmanager
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -24,6 +33,50 @@ def _zero_pad(data: torch.Tensor, size: int) -> torch.Tensor:
     """Pad a [k, L, n] ciphertext component stack with zero components."""
     pad = data.new_zeros((size - data.shape[0],) + tuple(data.shape[1:]))
     return torch.cat([data, pad])
+
+
+class HostConstants:
+    """The device values a program run makes from host data, in the order
+    the run asks for them. The first run under a tape records; every later
+    run gets the recorded values back, each checked against the key it was
+    recorded under (the program's control flow is cleartext-driven, so
+    every run asks in the same order). The tape keeps the tensors alive for
+    as long as a CUDA graph reads them."""
+
+    def __init__(self):
+        self.items: list = []
+        self._pos: Optional[int] = None          # None: recording
+
+    def take(self, key, make):
+        if self._pos is None:
+            value = make()
+            self.items.append((key, value))
+            return value
+        if self._pos >= len(self.items) or self.items[self._pos][0] != key:
+            raise RuntimeExecutionError(
+                "the program asked for another host-made constant than its "
+                f"recorded run did at position {self._pos}: whole-program "
+                "execution needs cleartext-driven control flow")
+        value = self.items[self._pos][1]
+        self._pos += 1
+        return value
+
+    def end_run(self, completed: bool) -> None:
+        """Ready the tape for the next run: a completed recording turns to
+        serving, a failed one is forgotten; a served run that left recorded
+        values unasked took another path than the recorded one."""
+        if self._pos is None:
+            if completed:
+                self._pos = 0
+            else:
+                self.items.clear()
+            return
+        short = completed and self._pos != len(self.items)
+        self._pos = 0
+        if short:
+            raise RuntimeExecutionError(
+                "the program asked for fewer host-made constants than its "
+                "recorded run did")
 
 
 class TorchBfvCiphertext(AbstractCiphertext):
@@ -67,8 +120,10 @@ class TorchBfvCiphertext(AbstractCiphertext):
 
     def multiply(self, other):
         a = self._relin()
-        b = other._relin() if other is not self else a
-        return self._wrap(self._ctx().multiply(a, b, relinearize=False))
+        if other is self:
+            return self._wrap(self._ctx().square(a, relinearize=False))
+        return self._wrap(
+            self._ctx().multiply(a, other._relin(), relinearize=False))
 
     # ctxt ⊕ plain
     def _encode(self, cleartext: Cleartext) -> Plaintext:
@@ -105,18 +160,46 @@ class BfvCiphertextFactory(AbstractCiphertextFactory):
     """Factory owning the BFV context + keys, evaluating on `device`."""
 
     def __init__(self, slots: int = 8192, seed: int = None,
-                 ks_digits: int = 1, device="cuda"):
-        self.params = BfvParams.create(slots, seed=seed, ks_digits=ks_digits)
+                 ks_digits: int = 1, device="cuda", plain_bits: int = 20,
+                 context: Optional[BfvContext] = None):
+        """context: a pre-built BfvContext (e.g. of auto-chosen parameters);
+        the other arguments are then not read."""
+        self._tape: Optional[HostConstants] = None
+        if context is not None:
+            self.context = context
+            self.params = context.params
+            return
+        self.params = BfvParams.create(slots, seed=seed, ks_digits=ks_digits,
+                                       plain_bits=plain_bits)
         self.context = BfvContext(self.params, device)
 
     @property
     def slot_count(self) -> int:
         return self.params.slot_count
 
+    @contextmanager
+    def host_constants(self, tape: HostConstants):
+        """Run one program run with its plaintext operands and in-program
+        encryptions going through `tape`: recorded by the tape's first run,
+        served again to every later one."""
+        self._tape = tape
+        completed = False
+        try:
+            yield
+            completed = True
+        finally:
+            self._tape = None
+            tape.end_run(completed)
+
+    def _host_made(self, key, make):
+        return make() if self._tape is None else self._tape.take(key, make)
+
     def encode_cleartext(self, cleartext: Cleartext) -> Plaintext:
         """Cleartext → plaintext with last-element padding to all slots."""
         vals = [int(v) for v in cleartext.values]
-        return self.context.encode(self.expand_vector(vals))
+        return self._host_made(
+            ("encode", tuple(vals)),
+            lambda: self.context.encode(self.expand_vector(vals)))
 
     def create_ciphertext(self, value: Union[Cleartext, Sequence[int], int]
                           ) -> TorchBfvCiphertext:
@@ -124,20 +207,32 @@ class BfvCiphertextFactory(AbstractCiphertextFactory):
 
     def create_many(self, values: Sequence) -> List[TorchBfvCiphertext]:
         """Encrypt a batch of inputs in one batched device pass."""
-        pts = []
+        rows = []
         for value in values:
             if isinstance(value, Cleartext):
-                vals = [int(v) for v in value.values]
+                rows.append(tuple(int(v) for v in value.values))
             elif isinstance(value, int):
-                vals = [int(value)]
+                rows.append((int(value),))
             else:
-                vals = [int(v) for v in value]
-            pts.append(self.context.encode(self.expand_vector(vals)))
-        return [TorchBfvCiphertext(ct, self)
-                for ct in self.context.encrypt_many(pts)]
+                rows.append(tuple(int(v) for v in value))
+        cts = self._host_made(
+            ("encrypt", tuple(rows)),
+            lambda: self.context.encrypt_many(
+                [self.context.encode(self.expand_vector(list(vals)))
+                 for vals in rows]))
+        return [TorchBfvCiphertext(ct, self) for ct in cts]
 
     def decrypt(self, ciphertext: AbstractCiphertext) -> List[int]:
         if not isinstance(ciphertext, TorchBfvCiphertext):
             raise RuntimeExecutionError(
                 "BfvCiphertextFactory can only decrypt its own ciphertexts")
         return self.context.decode(self.context.decrypt(ciphertext.ct))
+
+    # --- whole-program protocol (runtime/jit_executor.py) -------------------
+    def jit_pack(self, handle: TorchBfvCiphertext):
+        """(device tensor, static metadata) of a ciphertext handle."""
+        return handle.ct.data, None
+
+    def jit_unpack(self, tensor: torch.Tensor, meta=None
+                   ) -> TorchBfvCiphertext:
+        return TorchBfvCiphertext(BfvCiphertext(tensor), self)

@@ -46,6 +46,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
    measurement, with the ablation module's launch counts taken over it
    alone, the SASS check that the ALU chains were not folded, and its JSON
    on one line.
+8. Whole-program execution (jit_compile_program / JittedProgram: the
+   program as one CUDA graph). The README hamming program at n=8192 with
+   phase 4's seed: run() decrypts to 2, the raw output words equal phase
+   4's eager words and the golden digest; kernel launch counts are taken
+   over this path alone (they move at set-up, warm-up and capture only),
+   and a profiled replay holds as many NTT kernels as one eager walk of the
+   program launches.
+   Serving: three fresh input pairs through encrypt_inputs -> run_raw ->
+   decrypt_outputs, each equal to the plain oracle and, word for word, to an
+   eager executor run on the same ciphertexts, with ntt_kernels.launches and
+   context.counters unchanged across the replays. auto_params=True chooses
+   the same parameter set on the card as on the CPU, with the same words.
+   LaplaceSharpening at n=16384 (phase 5's seed) as a graph: words equal to
+   phase 5's, phase_ms, bytes of the graph's pool, ms per replay beside
+   phase 5's second eager run. mult+relin at n=8192, k=1 as a graph (words
+   equal to phase 3's op on the same operands): ms per replay beside phase 3's eager
+   ms/op and device-kernel total. `python -m abc_tpu_torch hamming -
+   --backend bfv --slots 8192` as a subprocess.
 
 Needs one CUDA device; exits nonzero at once without one. Imports nothing of
 JAX or of abc_tpu. Prints the card's name and power limit, a
@@ -54,6 +72,7 @@ JAX or of abc_tpu. Prints the card's name and power limit, a
 
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -102,13 +121,13 @@ IMAD_S = 132 * 64 * 1.98e9
 IMAD_PER_BUTTERFLY = 3                   # one Shoup product
 REPLACES = {
     "ntt_fwd": "abc_tpu/ops/pallas_ntt.py:265 (_fwd_kernel via "
-               "pallas_fwd_ntt :416, pallas_fwd_ntt_fp :439)",
+               "pallas_fwd_ntt :417, pallas_fwd_ntt_fp :440)",
     "ntt_inv": "abc_tpu/ops/pallas_ntt.py:309 (_inv_kernel via "
-               "pallas_inv_ntt :468, pallas_inv_ntt_fp :495)",
+               "pallas_inv_ntt :469, pallas_inv_ntt_fp :496)",
     "ablate_ntt": "scripts/ntt_ablation.py:85 (_ablate_kernel via "
-                  "ablate_ntt :177)",
+                  "ablate_ntt :178)",
     "alu_chain": "scripts/ntt_ablation.py:201 (_alu_mac_kernel), :210 "
-                 "(_alu_shoup_kernel) via alu_chain :220",
+                 "(_alu_shoup_kernel) via alu_chain :221",
 }
 SOURCE = {"ntt_fwd": "abc_tpu_torch/csrc/ntt.cu",
           "ntt_inv": "abc_tpu_torch/csrc/ntt.cu",
@@ -139,9 +158,9 @@ def cuda_ms(fn, reps=10):
 
 def kernel_profile(fn, reps=5):
     """Device kernels of fn() from torch.profiler, per call: (total kernel
-    ms, kernel launches, {kernel name: ms}); None where the profiler saw no
-    device activity in three tries (a trace now and then comes back
-    empty)."""
+    ms, kernel launches, {kernel name: ms}, {kernel name: launches}); None
+    where the profiler saw no device activity in three tries (a trace now
+    and then comes back empty)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -150,7 +169,7 @@ def kernel_profile(fn, reps=5):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by_name, launches = {}, 0
+        by_name, counts, launches = {}, {}, 0
         for ev in prof.events():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -159,8 +178,9 @@ def kernel_profile(fn, reps=5):
             launches += 1
             by_name[ev.name] = by_name.get(ev.name, 0.0) + \
                 ev.device_time_total / 1e3 / reps
+            counts[ev.name] = counts.get(ev.name, 0) + 1 / reps
         if launches:
-            return sum(by_name.values()), launches / reps, by_name
+            return sum(by_name.values()), launches / reps, by_name, counts
     return None
 
 
@@ -168,6 +188,15 @@ def fmt(prof):
     if prof is None:
         return "not measured"
     return f"{prof[0]:.4f} ms in {prof[1]:.0f} kernels"
+
+
+def fmt_ntt(prof):
+    """fmt plus the share of the hand-written NTT kernels."""
+    if prof is None:
+        return "not measured"
+    ntt = sum(v for name, v in prof[2].items() if "ntt_" in name)
+    count = sum(c for name, c in prof[3].items() if "ntt_" in name)
+    return f"{fmt(prof)}, of which NTT {ntt:.4f} ms in {count:.0f}"
 
 
 def check(cond, what):
@@ -184,8 +213,6 @@ def digest(t):
 
 
 def golden():
-    import os
-
     import abc_tpu_torch
     path = os.path.join(os.path.dirname(abc_tpu_torch.__file__), "testdata",
                         "golden.json")
@@ -340,12 +367,14 @@ def phase_mult_relin(dev, k, gold):
     prof = kernel_profile(lambda: ctx.multiply(BfvCiphertext(a.data.clone()),
                                                BfvCiphertext(b.data.clone())))
     print(f"  k={k} device kernels per op: {fmt(prof)}", flush=True)
-    if prof is not None:
-        ntt = sum(v for name, v in prof[2].items() if "ntt_" in name)
-        top = sorted(prof[2].items(), key=lambda kv: -kv[1])[:6]
-        print(f"    NTT kernels {ntt:.4f} ms; busy share of the op "
-              f"{prof[0] / ms:.3f}; top: " + "; ".join(
-                  f"{name[:60]} {v:.4f} ms" for name, v in top), flush=True)
+    if prof is None:
+        return ms, None
+    ntt = sum(v for name, v in prof[2].items() if "ntt_" in name)
+    top = sorted(prof[2].items(), key=lambda kv: -kv[1])[:6]
+    print(f"    NTT kernels {ntt:.4f} ms; busy share of the op "
+          f"{prof[0] / ms:.3f}; top: " + "; ".join(
+              f"{name[:60]} {v:.4f} ms" for name, v in top), flush=True)
+    return ms, prof[0]
 
 
 def run_dsl(factory, inputs_src, program_src, output_src):
@@ -416,21 +445,25 @@ def phase_hamming(dev, gold):
           f"counters {factory.context.counters}; run_compiled {t_run:.1f} ms "
           f"(host clock: encryption, switching-key builds and evaluation)",
           flush=True)
-    return launches
+    return launches, ct.ct.data
 
 
-def phase_laplace(dev):
+LAPLACE_SIZE = 4
+
+
+def laplace_image(seed):
     import random
+    rng = random.Random(seed)
+    return [rng.randrange(0, 256) for _ in range(LAPLACE_SIZE ** 2)]
 
-    from abc_tpu_torch.ops import ntt_kernels as nk
-    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
 
-    size = 4
-    rng = random.Random(7)
-    img = [rng.randrange(0, 256) for _ in range(size * size)]
-    inputs_src = ("secret int img = {" + ",".join(map(str, img)) + "};"
-                  f" int imgSize = {size};")
-    weights = [1, 1, 1, 1, -8, 1, 1, 1, 1]
+def laplace_inputs(img):
+    return ("secret int img = {" + ",".join(map(str, img)) + "};"
+            f" int imgSize = {LAPLACE_SIZE};")
+
+
+def laplace_oracle(img):
+    size, weights = LAPLACE_SIZE, [1, 1, 1, 1, -8, 1, 1, 1, 1]
     want = list(img)
     for x in range(1, size - 1):
         for y in range(1, size - 1):
@@ -438,6 +471,16 @@ def phase_laplace(dev):
                        img[(x + i) * size + (y + j)]
                        for j in range(-1, 2) for i in range(-1, 2))
             want[x * size + y] = 2 * img[x * size + y] - conv
+    return want
+
+
+def phase_laplace(dev):
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+
+    size = LAPLACE_SIZE
+    img = laplace_image(7)
+    inputs_src, want = laplace_inputs(img), laplace_oracle(img)
 
     before = dict(nk.launches)
     torch.cuda.synchronize()
@@ -464,7 +507,7 @@ def phase_laplace(dev):
           f"{len(factory.context._keys)} switching keys on the card), "
           f"computation again with keys built {steady['computation']:.1f}, "
           f"decryption {t_dec:.1f}", flush=True)
-    return factory.context
+    return factory.context, ct.ct.data, steady["computation"]
 
 
 def phase_keys(dev, used):
@@ -597,6 +640,222 @@ def phase_ablation(dev):
     return stats, launches
 
 
+def replay_ms(jp, tensors, reps):
+    """(median ms of one run_raw between CUDA events, "spread max M, iqr Q":
+    the largest distance of a run from that median and the interquartile
+    range, both relative to the median)."""
+    jp.run_raw(tensors)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        jp.run_raw(tensors)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    med = statistics.median(times)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    return med, (f"spread max {max(abs(t - med) for t in times) / med:.3f}, "
+                 f"iqr {(q3 - q1) / med:.3f}")
+
+
+def phase_whole_program(dev, gold, hamming_words, laplace_words,
+                        laplace_eager_ms, mult_eager):
+    from abc_tpu_torch import CompileOptions, jit_compile_program
+    from abc_tpu_torch.crypto.bfv import BfvCiphertext
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+
+    def unchanged_across(jp, tensors):
+        """run_raw(tensors) with every Python-side counter held still."""
+        before = dict(nk.launches), dict(jp.factory.context.counters), \
+            jp._graph
+        raw = jp.run_raw(tensors)
+        torch.cuda.synchronize()
+        check((dict(nk.launches), dict(jp.factory.context.counters),
+               jp._graph) == before,
+              "a replay moved a launch or op counter, or made a new graph")
+        return raw
+
+    def walk_launches(jp):
+        """Kernel launches of one eager walk of the program."""
+        before = dict(nk.launches)
+        jp.run_eager(jp.secret_inputs)
+        return {k: nk.launches[k] - before[k] for k in before}
+
+    def replay_profile(jp, tensors, per_walk, reps=5):
+        """kernel_profile of a replay, which must hold exactly the NTT
+        kernels that one walk of the program launches: the hand-written
+        kernels are inside the graph, and nothing else took their place."""
+        prof = kernel_profile(lambda: jp.run_raw(tensors), reps)
+        check(prof is not None,
+              "the profiler saw no device activity in a replay, three times")
+        in_graph = {name: round(sum(
+            c for kernel, c in prof[3].items() if name in kernel))
+            for name in nk.launches}
+        check(in_graph == per_walk,
+              f"a replay runs {in_graph} NTT kernels, one walk of the "
+              f"program launches {per_walk}")
+        return prof
+
+    # --- the README hamming program as one graph, n=8192
+    g = gold["hamming_n8192"]
+    factory = BfvCiphertextFactory(slots=g["n"], seed=g["seed"], device=dev)
+    for name in nk.launches:
+        nk.launches[name] = 0
+    jp = jit_compile_program(g["program"], g["inputs"], g["output"],
+                             factory=factory,
+                             options=CompileOptions(vectorize=True))
+    raw = jp.run_raw(jp.secret_inputs)
+    torch.cuda.synchronize()
+    launches = dict(nk.launches)
+    out_name = next(iter(raw))
+    check(all(v > 0 for v in launches.values()),
+          f"the whole-program path launched a kernel no time: {launches}")
+    per_walk = walk_launches(jp)
+    check(torch.equal(raw[out_name], hamming_words),
+          "hamming as a graph != phase 4's eager words")
+    check(digest(raw[out_name]) == g["result"],
+          "hamming as a graph != golden digest (abc_tpu np64 factory)")
+    hd = jp.run()[out_name][0]
+    check(hd == 2, f"hamming as a graph decrypts to {hd}")
+    prof = replay_profile(jp, jp.secret_inputs, per_walk)
+    ms, spread = replay_ms(jp, jp.secret_inputs, 20)
+    print(f"  hamming n={g['n']}: run() decrypts to {hd}; raw words equal to "
+          f"phase 4's eager run and the golden digest; launches on this "
+          f"path {launches} (encryption, key builds, warm-up and capture; "
+          f"one walk of the program {per_walk}, and a profiled replay holds "
+          f"exactly those); phase_ms "
+          f"{ {k: round(v, 1) for k, v in jp.phase_ms.items()} }; "
+          f"device bytes {jp.device_bytes}; replay {ms:.3f} ms (CUDA events, "
+          f"median of 20, {spread}); device: {fmt(prof)}",
+          flush=True)
+
+    # --- serving: fresh inputs through the same graph
+    for x, y in (([0, 0, 0, 0], [1, 1, 1, 1]), ([1, 0, 1, 0], [1, 0, 1, 0]),
+                 ([1, 1, 1, 0], [0, 1, 0, 0])):
+        fresh = jp.encrypt_inputs({"x": x, "y": y})
+        raw = unchanged_across(jp, fresh)
+        got = jp.decrypt_outputs(raw)[out_name][0]
+        want = sum(int(a != b) for a, b in zip(x, y))
+        check(got == want, f"serving {x} {y}: {got} != oracle {want}")
+        check(torch.equal(raw[out_name], jp.run_eager(fresh)[out_name]),
+              f"serving {x} {y}: replay != eager run on the same ciphertexts")
+    held = jp.run_raw(jp.secret_inputs)[out_name]
+    jp.run_raw(fresh)
+    check(torch.equal(held, hamming_words),
+          "a later run_raw overwrote an earlier result")
+    print("  serving: 3 fresh input pairs, each equal to the oracle and to "
+          "an eager run on the same ciphertexts; no launch or op counter "
+          "moved across the replays; one graph", flush=True)
+
+    # --- auto_params: the same choice and the same words as the CPU run
+    auto = {d: jit_compile_program(
+        g["program"], g["inputs"], g["output"], auto_params=True, device=d,
+        seed=g["seed"], security_strict=True,
+        options=CompileOptions(vectorize=True)) for d in (dev, "cpu")}
+    check(auto[dev].auto_params == auto["cpu"].auto_params,
+          f"auto_params on the card {auto[dev].auto_params} != on the CPU "
+          f"{auto['cpu'].auto_params}")
+    raw = auto[dev].run_raw(auto[dev].secret_inputs)[out_name]
+    check(torch.equal(
+        raw.cpu(), auto["cpu"].run_raw(auto["cpu"].secret_inputs)[out_name]),
+        "auto_params: words on the card != the port's CPU run")
+    hd = auto[dev].run()[out_name][0]
+    check(hd == 2, f"auto_params hamming decrypts to {hd}")
+    print(f"  auto_params: {auto[dev].auto_params} on card and CPU alike; "
+          f"words equal; decrypts to {hd}", flush=True)
+    del auto
+
+    # --- LaplaceSharpening n=16384 as one graph
+    factory = BfvCiphertextFactory(slots=LAPLACE_N, seed=LAPLACE_SEED,
+                                   device=dev)
+    img = laplace_image(7)
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    jp = jit_compile_program(LAPLACE, laplace_inputs(img), "out = img2;",
+                             factory=factory)
+    raw = jp.run_raw(jp.secret_inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - allocated0
+    check(torch.equal(raw["out"], laplace_words),
+          "laplace as a graph != phase 5's eager words")
+    img2 = laplace_image(8)
+    fresh = jp.encrypt_inputs({"img": img2})
+    raw = unchanged_across(jp, fresh)
+    got = jp.decrypt_outputs(raw)["out"][:LAPLACE_SIZE ** 2]
+    check(got == laplace_oracle(img2),
+          f"laplace replay on a fresh image {got} != oracle")
+    check(torch.equal(raw["out"], jp.run_eager(fresh)["out"]),
+          "laplace replay != eager run on the same ciphertext")
+    ms, spread = replay_ms(jp, fresh, 10)
+    per_walk = walk_launches(jp)
+    prof = replay_profile(jp, fresh, per_walk, reps=2)
+    print(f"  laplace n={LAPLACE_N}: words equal to phase 5's; a fresh image "
+          f"equal to the oracle and to an eager run; phase_ms "
+          f"{ {k: round(v, 1) for k, v in jp.phase_ms.items()} }; device "
+          f"bytes {jp.device_bytes}, peak allocated while building and "
+          f"running it {peak} above what phases 5-6 still hold; host "
+          f"constants on the tape "
+          f"{len(jp._tape.items)}; replay {ms:.3f} ms (CUDA events, median "
+          f"of 10, fresh input, {spread}) beside phase 5's "
+          f"second eager run {laplace_eager_ms:.1f} ms (host clock); "
+          f"device: {fmt_ntt(prof)}, the NTT kernels of one walk "
+          f"{per_walk}", flush=True)
+    del jp, factory
+
+    # --- mult+relin n=8192 k=1 as one graph: the multiply leaves size 3
+    # (lazy relin), the rotation by 0 asks for size 2 and rotates nothing
+    g = gold["mult_relin_n8192_k1"]
+    factory = BfvCiphertextFactory(slots=g["n"], seed=g["seed"], device=dev)
+    jp = jit_compile_program(
+        "secret int p = a *** b; p = rotate(p, 0);",
+        "secret int a = {%s}; secret int b = {%s};" % (
+            ",".join(map(str, g["a"])), ",".join(map(str, g["b"]))),
+        "y = p;", factory=factory)
+    per_walk = walk_launches(jp)
+    check(per_walk == {"ntt_fwd": 5, "ntt_inv": 3},
+          f"mult+relin as a program: {per_walk} launches per walk")
+    fresh = jp.encrypt_inputs({"a": g["b"], "b": g["a"]})
+    raw = unchanged_across(jp, fresh)
+    check(torch.equal(raw["y"], factory.context.multiply(
+        BfvCiphertext(fresh["a"]), BfvCiphertext(fresh["b"])).data),
+        "mult+relin as a graph != BfvContext.multiply on the same operands")
+    ms, spread = replay_ms(jp, fresh, 20)
+    prof = replay_profile(jp, fresh, per_walk)
+    eager_ms, eager_dev = mult_eager
+    print(f"  mult+relin n={g['n']} k=1 as a graph: words equal to "
+          f"BfvContext.multiply (phase 3's op); {ms:.3f} ms per replay (CUDA events, median of "
+          f"20, fresh operands, {spread}; two copies in, one "
+          f"clone out) beside phase 3's eager {eager_ms:.3f} ms/op and its "
+          f"device-kernel total "
+          f"{'not measured' if eager_dev is None else f'{eager_dev:.4f} ms'}"
+          f"; replay device: {fmt_ntt(prof)}"
+          + f", busy share {prof[0] / ms:.3f}"
+          + f"; phase_ms { {k: round(v, 1) for k, v in jp.phase_ms.items()} }"
+          f"; device bytes {jp.device_bytes}", flush=True)
+
+    # --- the CLI (per-op executor) in a process of its own
+    proc = subprocess.run(
+        [sys.executable, "-m", "abc_tpu_torch", "hamming", "-", "--backend",
+         "bfv", "--slots", str(MAIN_N)], capture_output=True, text=True,
+        timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0, f"CLI exit {proc.returncode}: {proc.stderr}")
+    check(len(lines) == 2 and lines[0] == "t_keygen,t_input_encryption,"
+          "t_computation,t_decryption" and len(lines[1].split(",")) == 4
+          and all(float(v) > 0 for v in lines[1].split(",")),
+          f"CLI CSV: {proc.stdout!r}")
+    check("sum: [2" in proc.stderr, f"CLI stderr: {proc.stderr!r}")
+    print(f"  python -m abc_tpu_torch hamming - --backend bfv --slots "
+          f"{MAIN_N}: exit 0, {lines[0]} = {lines[1]} (ms, host clock, "
+          f"first run of its process), sum: [2 ...", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -618,22 +877,36 @@ def main() -> int:
     _build.load()
     gold = golden()
 
-    print("phase 2: kernels vs plain", flush=True)
+    clock = [time.perf_counter()]
+
+    def announce(title):
+        """Print a phase's title after the seconds the one before it took."""
+        now = time.perf_counter()
+        print(f"  ({now - clock[0]:.1f} s on the host clock)\n{title}",
+              flush=True)
+        clock[0] = now
+
+    announce("phase 2: kernels vs plain")
     stats = phase_kernels(dev)
-    print("phase 3: mult+relin n=8192", flush=True)
-    for k in (1, 2):
-        phase_mult_relin(dev, k, gold[f"mult_relin_n8192_k{k}"])
-    print("phase 4: main path (README hamming, n=8192)", flush=True)
-    launches = phase_hamming(dev, gold["hamming_n8192"])
-    print("phase 5: LaplaceSharpening n=16384", flush=True)
-    laplace_ctx = phase_laplace(dev)
-    print("phase 6: keygen and switching keys on the card", flush=True)
+    announce("phase 3: mult+relin n=8192")
+    mult_eager = {k: phase_mult_relin(dev, k, gold[f"mult_relin_n8192_k{k}"])
+                  for k in (1, 2)}
+    announce("phase 4: main path (README hamming, n=8192)")
+    launches, hamming_words = phase_hamming(dev, gold["hamming_n8192"])
+    announce("phase 5: LaplaceSharpening n=16384")
+    laplace_ctx, laplace_words, laplace_eager_ms = phase_laplace(dev)
+    announce("phase 6: keygen and switching keys on the card")
     phase_keys(dev, laplace_ctx)
     del laplace_ctx
-    print("phase 7: NTT ablation and ALU calibration", flush=True)
+    announce("phase 7: NTT ablation and ALU calibration")
     abl_stats, abl_launches = phase_ablation(dev)
     stats.update(abl_stats)
     launches.update(abl_launches)
+    announce("phase 8: whole-program execution (one CUDA graph per program)")
+    graph_launches = phase_whole_program(dev, gold, hamming_words,
+                                         laplace_words, laplace_eager_ms,
+                                         mult_eager[1])
+    announce("phases done")
     loaded = sorted(m for m, v in sys.modules.items() if v is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "abc_tpu"))
     check(not loaded, f"the reference or JAX was imported: {loaded}")
@@ -642,6 +915,9 @@ def main() -> int:
     # chains, so no kernel has a library yardstick
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
+                # the whole-program path counts while it sets up, warms up
+                # and captures, and never at a replay
+                "launches_whole_program": graph_launches.get(name, 0),
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
                 "bound_ms": stats[name]["bound_ms"],

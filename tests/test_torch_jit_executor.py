@@ -1,0 +1,387 @@
+"""Whole-program execution of the port (abc_tpu_torch.runtime.jit_executor)
+against abc_tpu: the BFV cases of tests/test_jit_executor.py at slots=1024 on
+the CPU, each holding the port's raw output words identical (no tolerance:
+residues are canonical) to the reference of the same seed: abc_tpu's np64
+factory walked eagerly through the same compile pipeline, and once abc_tpu's
+own jit_compile_program (jx32). Plus what a CUDA-graph capture needs of the
+context (identity caches emptied around a run, host-made constants on a
+tape) driven here without a graph, and the refusals (mesh, CKKS, no GPU).
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+import abc_tpu
+from abc_tpu.runtime.bfv_backend import BfvCiphertextFactory as RefFactory
+from abc_tpu.runtime.jit_executor import (
+    jit_compile_program as ref_jit_compile_program)
+from abc_tpu_torch import CompileOptions, JittedProgram, jit_compile_program
+from abc_tpu_torch.crypto.bfv import BfvCiphertext
+from abc_tpu_torch.ops import ntt_kernels as nk
+from abc_tpu_torch.ops.modarith import to_host
+from abc_tpu_torch.runtime.bfv_backend import (BfvCiphertextFactory,
+                                               HostConstants,
+                                               TorchBfvCiphertext)
+from abc_tpu_torch.runtime.dummy import DummyCiphertextFactory
+from abc_tpu_torch.utils.errors import RuntimeExecutionError
+
+HAMMING_LOOP = ("int sum = 0;"
+                "for (int i = 0; i < 4; i = i + 1) {"
+                "  sum = sum + (x[i]-y[i])*(x[i]-y[i]);"
+                "} return sum;")
+XY = "secret int x = {1,1,0,1}; secret int y = {1,0,1,1};"
+MULT_ROTATE = dict(
+    program_src="secret int p = a *** b; p = rotate(p, 1);",
+    inputs_src="secret int a = {3, 1, 4, 1}; secret int b = {2, 7, 1, 8};",
+    output_src="y = p;")
+
+# the BFV programs of tests/test_jit_executor.py: (program, inputs, output,
+# leading decrypted slots)
+PROGRAMS = {
+    "hamming_distance": ("""
+          secret int diff = (x --- y) *** (x --- y);
+          diff = diff +++ rotate(diff, 2);
+          diff = diff +++ rotate(diff, 1);
+          return diff;
+        """, XY, "hd = diff;", [2]),
+    "loop_unrolls_into_circuit": ("""
+          for (int i = 0; i < 3; i = i + 1) {
+            acc = acc +++ acc;
+          }
+          return acc;
+        """, "secret int acc = {2};", "y = acc;", [16]),
+    "mixed_plain_secret": ("""
+          int w = 10;
+          secret int z = x *** w +++ 5;
+          return z;
+        """, "secret int x = {1, 2, 3};", "y = z;", [15, 25, 35]),
+    "matches_eager": (MULT_ROTATE["program_src"], MULT_ROTATE["inputs_src"],
+                      MULT_ROTATE["output_src"], [7, 4, 8]),
+    "rerun": ("secret int s = x +++ x;", "secret int x = {5};", "y = s;",
+              [10]),
+    "census_fallback": ("secret int y = rotate(x, 1); return y;",
+                        "secret int x = {10, 20, 30};", "out = y;",
+                        [20, 30]),
+    "streaming_hamming": (HAMMING_LOOP, XY, "out = sum;", [2]),
+    "in_program_encryption": ("secret int v = 7; v = v +++ x; return v;",
+                              "secret int x = {5};", "out = v;", [12]),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _port(seed, device="cpu"):
+    return BfvCiphertextFactory(slots=1024, seed=seed, device=device)
+
+
+def _reference_eager_words(program, inputs, output, seed, options=None):
+    """The program through abc_tpu's compile pipeline and its eager executor
+    on the np64 factory of `seed`: (output words, decrypted slots)."""
+    ast_in = abc_tpu.Parser.parse(inputs)
+    compiled = abc_tpu.Compiler(options).compile_source(
+        program, abc_tpu.input_types_from_ast(ast_in))
+    factory = RefFactory(slots=1024, seed=seed, engine="np64")
+    _, pairs = abc_tpu.run_compiled(compiled, ast_in,
+                                    abc_tpu.Parser.parse(output), factory)
+    ct = pairs[0][1]
+    return np.asarray(ct.ct.data), factory.decrypt(ct)
+
+
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_jitted_program_words_equal_reference_eager(name):
+    program, inputs, output, want = PROGRAMS[name]
+    jp = jit_compile_program(program, inputs, output, factory=_port(seed=9))
+    raw = jp.run_raw(jp.secret_inputs)
+    (out_name, words), = raw.items()
+    ref_words, ref_plain = _reference_eager_words(program, inputs, output,
+                                                  seed=9)
+    np.testing.assert_array_equal(to_host(words), ref_words)
+    got = jp.decrypt_outputs(raw)[out_name]
+    assert got[:len(want)] == want == ref_plain[:len(want)]
+    assert jp.run()[out_name][:len(want)] == want
+
+
+def test_jitted_words_equal_reference_jit():
+    """The port against abc_tpu's own jit_compile_program (jx32, one XLA
+    program) on the program of test_jitted_matches_eager."""
+    ref = ref_jit_compile_program(
+        factory=RefFactory(slots=1024, engine="jx32", seed=9), **MULT_ROTATE)
+    jp = jit_compile_program(factory=_port(seed=9), **MULT_ROTATE)
+    for name in ("a", "b"):
+        np.testing.assert_array_equal(to_host(jp.secret_inputs[name]),
+                                      np.asarray(ref.secret_inputs[name]))
+    np.testing.assert_array_equal(
+        to_host(jp.run_raw(jp.secret_inputs)["y"]),
+        np.asarray(ref.run_raw(ref.secret_inputs)["y"]))
+    assert jp.run()["y"][:3] == ref.run()["y"][:3] == [7, 4, 8]
+
+
+def test_attributes_and_phases_of_the_reference():
+    jp = jit_compile_program(factory=_port(seed=9), **MULT_ROTATE)
+    assert set(jp.secret_inputs) == {"a", "b"}
+    assert set(jp.phase_ms) == {"eval_ready", "encrypt", "key_census",
+                                "key_build", "setup_other", "parse_compile"}
+    assert all(v >= 0 for v in jp.phase_ms.values())
+    assert jp.auto_params is None and jp.device_bytes is None
+    # the census found both keys, so key_build made them before any run
+    assert set(jp.factory.context._keys) == {"relin", "galois_3"}
+
+
+def test_rerun_on_a_fresh_ciphertext():
+    program, inputs, output, _ = PROGRAMS["rerun"]
+    factory = _port(seed=9)
+    jp = jit_compile_program(program, inputs, output, factory=factory)
+    assert jp.run()["y"][0] == 10
+    ct2 = factory.create_ciphertext([21])
+    raw = jp.run_raw({"x": ct2.ct.data})
+    assert factory.context.decode(factory.context.decrypt(
+        BfvCiphertext(raw["y"])))[0] == 42
+
+
+@pytest.mark.parametrize("census", [{"relin"}, None],
+                         ids=["drops_the_rotate_key", "cannot_run"])
+def test_census_missing_key_is_built_by_the_first_run(monkeypatch, census):
+    """If the dummy-run key census under-approximates, or cannot run, the
+    first walk of the program builds the missing key: correct, just later."""
+    monkeypatch.setattr(JittedProgram, "_census_key_ids",
+                        lambda self, compiled, i, o: census)
+    program, inputs, output, want = PROGRAMS["census_fallback"]
+    jp = jit_compile_program(program, inputs, output, factory=_port(seed=21))
+    assert "galois_3" not in jp.factory.context._keys
+    assert jp.run()["out"][:2] == want
+    assert "galois_3" in jp.factory.context._keys
+
+
+def test_census_finds_exactly_the_keys():
+    jp = jit_compile_program(factory=_port(seed=3), **MULT_ROTATE)
+    assert jp._census_key_ids(jp.compiled, jp.input_ast, jp.output_ast) == \
+        {"relin", f"galois_{pow(3, 1, 2 * 1024)}"}
+
+
+def test_encrypt_inputs_streams_fresh_values():
+    """Serving pattern: compile once, stream new encrypted inputs through
+    the same program, decrypt correct results."""
+    jp = jit_compile_program(HAMMING_LOOP, XY, "out = sum;",
+                             factory=_port(seed=5))
+    assert jp.run()["out"][0] == 2
+    for x, y in (([0, 0, 0, 0], [1, 1, 1, 1]),
+                 ([1, 0, 1, 0], [1, 0, 1, 0]),
+                 ([1, 1, 1, 0], [0, 1, 0, 0])):
+        fresh = jp.encrypt_inputs({"x": x, "y": y})
+        got = jp.decrypt_outputs(jp.run_raw(fresh))["out"][0]
+        assert got == sum(int(a != b) for a, b in zip(x, y)), (x, y, got)
+    # partial update reuses the original other input (y = {1,0,1,1})
+    fresh = jp.encrypt_inputs({"x": [0, 0, 1, 1]})
+    assert fresh["y"] is jp.secret_inputs["y"]
+    assert jp.decrypt_outputs(jp.run_raw(fresh))["out"][0] == 1
+    with pytest.raises(RuntimeExecutionError, match="unknown"):
+        jp.encrypt_inputs({"zzz": [1]})
+
+
+def test_run_raw_refuses_other_inputs_than_the_programs():
+    jp = jit_compile_program(factory=_port(seed=9), **MULT_ROTATE)
+    a = jp.secret_inputs["a"]
+    with pytest.raises(RuntimeExecutionError, match="exactly"):
+        jp.run_raw({"a": a})
+    with pytest.raises(RuntimeExecutionError, match="expected"):
+        jp.run_raw({"a": a, "b": a[:1]})
+    with pytest.raises(RuntimeExecutionError, match="expected"):
+        jp.run_raw({"a": a, "b": a.to(torch.int64)})
+
+
+# ------------------------------------------------ what a capture needs
+
+def test_fresh_caches_keeps_entries_from_crossing_a_run():
+    """The trap of the identity-keyed caches: a static input tensor keeps
+    its identity while its contents change. An entry made before a run (the
+    warm-up's) must miss inside it, and one made inside must miss after."""
+    ctx = _port(seed=4).context
+    a, b, c = ctx.encrypt_many([ctx.encode([3]), ctx.encode([5]),
+                                ctx.encode([7])])
+    static = a.data.clone()
+    before = ctx.multiply(BfvCiphertext(static), b)           # the warm-up
+    assert ctx.counters["op_ntt"] == 2
+    with ctx.fresh_caches():
+        inside = ctx.multiply(BfvCiphertext(static), b)       # the capture
+        assert ctx.counters["op_ntt"] == 4 and \
+            ctx.counters["op_ntt_hit"] == 0
+        static.copy_(c.data)                                  # a fresh input
+    after = ctx.multiply(BfvCiphertext(static), b)
+    assert ctx.counters["op_ntt_hit"] == 0
+    assert torch.equal(before.data, inside.data)
+    assert torch.equal(after.data, ctx.multiply(c, b).data)
+    assert ctx.decode(ctx.decrypt(after))[0] == 35
+    # rotations: the same for the decomposition cache
+    with ctx.fresh_caches():
+        ctx.rotate_rows(BfvCiphertext(static), 1)
+    ctx.rotate_rows(BfvCiphertext(static), 2)
+    assert ctx.counters["decomp"] == 2 and ctx.counters["decomp_hit"] == 0
+
+
+@pytest.mark.parametrize("repaired", [True, False])
+def test_two_runs_on_one_tensor_with_new_contents(monkeypatch, repaired):
+    """Two run_raw calls on different inputs held in the SAME tensors (what
+    a graph's static inputs are), each equal to the eager result. With the
+    emptying of the caches taken out, the second run multiplies by the
+    first inputs' transforms: this test sees it."""
+    factory = _port(seed=9)
+    ctx = factory.context
+    if not repaired:
+        monkeypatch.setattr(ctx, "fresh_caches", contextlib.nullcontext)
+    jp = jit_compile_program(factory=factory, **MULT_ROTATE)
+    static = {k: v.clone() for k, v in jp.secret_inputs.items()}
+    first = jp.run_raw(static)["y"]
+    fresh = jp.encrypt_inputs({"a": [2, 2, 2, 2], "b": [5, 6, 7, 8]})
+    for name in static:
+        static[name].copy_(fresh[name])
+    second = jp.run_raw(static)["y"]
+    eager = ctx.rotate_rows(ctx.multiply(BfvCiphertext(fresh["a"].clone()),
+                                         BfvCiphertext(fresh["b"].clone())),
+                            1).data
+    assert jp.decrypt_outputs({"y": first})["y"][:3] == [7, 4, 8]
+    if repaired:
+        assert torch.equal(second, eager)
+        assert jp.decrypt_outputs({"y": second})["y"][:3] == [12, 14, 16]
+    else:
+        assert not torch.equal(second, eager)
+
+
+def test_in_program_encryptions_are_constants_of_the_program():
+    """`secret int v = 7;` encrypts inside the program: host draws and a
+    host-to-device copy, which a captured run cannot make. The first run
+    records them, later runs get the same ciphertext back."""
+    program, inputs, output, _ = PROGRAMS["in_program_encryption"]
+    jp = jit_compile_program(program, inputs, output, factory=_port(seed=9))
+    r1 = jp.run_raw(jp.secret_inputs)["out"]
+    rng_state = jp.factory.context.rng.bit_generator.state
+    r2 = jp.run_raw(jp.secret_inputs)["out"]
+    assert torch.equal(r1, r2)
+    assert jp.factory.context.rng.bit_generator.state == rng_state
+    assert [key[0] for key, _ in jp._tape.items] == ["encrypt"]
+
+
+def test_plain_operands_are_encoded_once():
+    program, inputs, output, _ = PROGRAMS["mixed_plain_secret"]
+    jp = jit_compile_program(program, inputs, output, factory=_port(seed=9))
+    jp.run_raw(jp.secret_inputs)
+    keys = [key for key, _ in jp._tape.items]
+    assert keys == [("encode", (10,)), ("encode", (5,))]
+    held = [value.coeffs for _, value in jp._tape.items]
+    jp.run_raw(jp.secret_inputs)
+    assert all(a is b.coeffs for a, (_, b) in zip(held, jp._tape.items))
+
+
+def test_host_constants_tape_refuses_another_order():
+    tape = HostConstants()
+    assert tape.take("a", lambda: 1) == 1
+    assert tape.take("b", lambda: 2) == 2
+    tape.end_run(completed=True)
+    assert tape.take("a", lambda: 99) == 1
+    with pytest.raises(RuntimeExecutionError, match="another host-made"):
+        tape.take("c", lambda: 3)
+    tape.end_run(completed=False)
+    assert tape.take("a", None) == 1
+    with pytest.raises(RuntimeExecutionError, match="fewer"):
+        tape.end_run(completed=True)
+    assert [tape.take(k, None) for k in "ab"] == [1, 2]
+    with pytest.raises(RuntimeExecutionError, match="another host-made"):
+        tape.take("c", lambda: 3)
+
+
+def test_a_failed_recording_run_is_forgotten():
+    tape = HostConstants()
+    tape.take("a", lambda: 1)
+    tape.end_run(completed=False)
+    assert tape.items == []
+    assert tape.take("b", lambda: 2) == 2
+
+
+def test_context_additions_equal_the_reference():
+    """ensure_eval_ready and square against the np64 context of the same
+    seed; the factory lowers `x *** x` to square (one operand transform)."""
+    from abc_tpu.crypto.bfv import BfvContext as RefContext
+    from abc_tpu.crypto.params import BfvParams as RefParams
+    factory = _port(seed=11)
+    ctx = factory.context
+    ref = RefContext(RefParams.create(1024, engine="np64", seed=11))
+    ctx.ensure_eval_ready()
+    assert ctx._behz is not None
+    a, b = ctx.encrypt_many([ctx.encode([3, 4]), ctx.encode([5, 6])])
+    ra, rb = ref.encrypt_many([ref.encode([3, 4]), ref.encode([5, 6])])
+    np.testing.assert_array_equal(to_host(ctx.square(a).data),
+                                  ref.square(ra).data)
+    np.testing.assert_array_equal(to_host(ctx.multiply(a, b).data),
+                                  ref.multiply(ra, rb).data)
+    before = dict(ctx.counters)
+    handle = TorchBfvCiphertext(a, factory)
+    squared = handle.multiply(handle)
+    assert ctx.counters["mult"] == before["mult"] + 1
+    assert ctx.counters["op_ntt"] + ctx.counters["op_ntt_hit"] == \
+        before["op_ntt"] + before["op_ntt_hit"] + 1
+    np.testing.assert_array_equal(
+        to_host(squared.ct.data), ref.square(ra, relinearize=False).data)
+
+
+# ------------------------------------------------------------- refusals
+
+def test_mesh_and_batch_values_wait_for_the_multi_gpu_slice():
+    for kwargs in ({"mesh": object()}, {"batch_values": {"a": [[1], [2]]}}):
+        with pytest.raises(RuntimeExecutionError, match="multi-GPU"):
+            jit_compile_program(factory=_port(seed=9), **MULT_ROTATE,
+                                **kwargs)
+
+
+def test_float_program_under_auto_params_waits_for_ckks():
+    with pytest.raises(RuntimeExecutionError, match="CKKS"):
+        jit_compile_program("secret double acc = w0 * w0; return acc;",
+                            "secret double w0 = {1.5,2.0};", "out = acc;",
+                            auto_params=True, device="cpu", seed=5)
+
+
+def test_factory_and_auto_params_exclude_each_other():
+    with pytest.raises(RuntimeExecutionError, match="factory=None"):
+        jit_compile_program(factory=_port(seed=9), auto_params=True,
+                            **MULT_ROTATE)
+    with pytest.raises(RuntimeExecutionError, match="pass a factory"):
+        jit_compile_program(**MULT_ROTATE)
+    with pytest.raises(RuntimeExecutionError, match="whole-program protocol"):
+        jit_compile_program(factory=DummyCiphertextFactory(64), **MULT_ROTATE)
+
+
+def test_cuda_device_without_gpu_raises(monkeypatch):
+    """No CPU fallback: the default device is the card, and asking for it
+    where there is none is an error."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jit_compile_program(HAMMING_LOOP, XY, "out = sum;", auto_params=True,
+                            options=CompileOptions(vectorize=True), seed=4)
+
+
+# ---------------------------------------------------------------- on the card
+
+@pytest.mark.gpu
+def test_graph_replay_equals_eager_on_cuda(cuda):
+    jp = jit_compile_program(factory=_port(seed=9, device=cuda),
+                             **MULT_ROTATE)
+    cpu = jit_compile_program(factory=_port(seed=9), **MULT_ROTATE)
+    assert jp._graph is not None
+    assert {"warmup", "capture"} <= set(jp.phase_ms)
+    assert jp.device_bytes["graph_pool"] > 0
+    first = jp.run_raw(jp.secret_inputs)["y"]
+    assert torch.equal(first.cpu(), cpu.run_raw(cpu.secret_inputs)["y"])
+    fresh = jp.encrypt_inputs({"a": [2, 2, 2, 2], "b": [5, 6, 7, 8]})
+    counters = dict(nk.launches), dict(jp.factory.context.counters)
+    second = jp.run_raw(fresh)["y"]
+    torch.cuda.synchronize()
+    assert (dict(nk.launches), dict(jp.factory.context.counters)) == counters
+    assert torch.equal(second, jp.run_eager(fresh)["y"])
+    assert jp.decrypt_outputs({"y": second})["y"][:3] == [12, 14, 16]
+    assert jp.decrypt_outputs({"y": first})["y"][:3] == [7, 4, 8]
