@@ -1,4 +1,4 @@
-"""Carry a reference BFV context's state into the port.
+"""Carry a reference BFV or CKKS context's state into the port.
 
 `context_from_reference` is the FHE counterpart of converting a model's
 weights: it takes the state of an `abc_tpu` BFV context as numpy arrays and
@@ -9,6 +9,7 @@ reference's too) and the position of the secret generator (so the next
 encryption draws what the reference's next encryption draws). Both sides
 then compute the same words, which is how the tests hold the port's
 evaluation against the reference even for contexts made without a seed.
+`ckks_context_from_reference` does the same for a CKKS context.
 """
 
 from __future__ import annotations
@@ -16,12 +17,23 @@ from __future__ import annotations
 from typing import Mapping
 
 from abc_tpu_torch.crypto.bfv import BfvContext
+from abc_tpu_torch.crypto.ckks import CkksContext, CkksParams
 from abc_tpu_torch.crypto.params import BfvParams
 
 STATE_KEYS = ("params", "master_seed", "rng_state", "s_coeffs", "s_ntt_full",
               "pk_b_ntt", "pk_a_ntt", "switching_keys")
 PARAM_KEYS = ("n", "coeff_modulus", "plain_modulus", "seed", "error_std",
               "ks_digits")
+CKKS_PARAM_KEYS = ("n", "coeff_modulus", "scale", "seed", "error_std",
+                   "ks_digits")
+
+
+def _check(state: Mapping, param_keys) -> None:
+    missing = [k for k in STATE_KEYS if k not in state]
+    missing += [f"params.{k}" for k in param_keys
+                if k not in state.get("params", {})]
+    if missing:
+        raise ValueError(f"reference state lacks {missing}")
 
 
 def context_from_reference(state: Mapping, device) -> BfvContext:
@@ -38,11 +50,7 @@ def context_from_reference(state: Mapping, device) -> BfvContext:
       switching_keys  {"relin" | "galois_<g>": (ksk_b, ksk_a)}, each
                       [α, L+k, n] uint32
     """
-    missing = [k for k in STATE_KEYS if k not in state]
-    missing += [f"params.{k}" for k in PARAM_KEYS
-                if k not in state.get("params", {})]
-    if missing:
-        raise ValueError(f"reference state lacks {missing}")
+    _check(state, PARAM_KEYS)
     p = state["params"]
     params = BfvParams(n=int(p["n"]),
                        coeff_modulus=[int(q) for q in p["coeff_modulus"]],
@@ -50,3 +58,18 @@ def context_from_reference(state: Mapping, device) -> BfvContext:
                        error_std=float(p["error_std"]),
                        ks_digits=int(p["ks_digits"]))
     return BfvContext(params, device, state=state)
+
+
+def ckks_context_from_reference(state: Mapping, device) -> CkksContext:
+    """The port's CkksContext on `device` holding a reference CKKS context's
+    state: the layout of `context_from_reference`, with params {n,
+    coeff_modulus, scale, seed, error_std, ks_digits} (the data primes
+    first, the ks_digits special primes last)."""
+    _check(state, CKKS_PARAM_KEYS)
+    p = state["params"]
+    params = CkksParams(n=int(p["n"]),
+                        coeff_modulus=[int(q) for q in p["coeff_modulus"]],
+                        scale=float(p["scale"]), seed=p["seed"],
+                        error_std=float(p["error_std"]),
+                        ks_digits=int(p["ks_digits"]))
+    return CkksContext(params, device, state=state)

@@ -110,6 +110,38 @@ class NttContext:
             for i in (5, 6))
         self.q = as_residues(np.asarray(self.moduli), self.device)    # [L]
         self.q_col = self.q.reshape(-1, 1)                           # [L, 1]
+        self._subsets: dict = {}
+
+    def subset(self, indices: Sequence[int]) -> "NttContext":
+        """A view of this context restricted to the given limb rows, with no
+        recomputation of the tables: CKKS leveled operations use the rows
+        {0..level-1}, and {0..level-1} ∪ specials for a key switch. Cached
+        per index tuple. The kernels want q [L'] and contiguous [L', n]
+        tables for the view's own L' (they read the limb as row % L'), so a
+        prefix of the rows is a zero-copy slice and any other index set is
+        one row gather, made here once. Make every view a program needs
+        before a CUDA graph is captured: a gather inside a capture would
+        allocate from the graph's pool."""
+        key = tuple(int(i) for i in indices)
+        hit = self._subsets.get(key)
+        if hit is not None:
+            return hit
+        view = object.__new__(NttContext)
+        view.n, view.device = self.n, self.device
+        view.moduli = [self.moduli[i] for i in key]
+        names = ("fwd_tw", "fwd_tw_sh", "inv_tw", "inv_tw_sh", "n_inv",
+                 "n_inv_sh", "q")
+        if key == tuple(range(len(key))):
+            for name in names:
+                setattr(view, name, getattr(self, name)[:len(key)])
+        else:
+            idx = torch.tensor(key, dtype=torch.int64, device=self.device)
+            for name in names:
+                setattr(view, name, getattr(self, name).index_select(0, idx))
+        view.q_col = view.q.reshape(-1, 1)
+        view._subsets = {}
+        self._subsets[key] = view
+        return view
 
     # --- transforms ----------------------------------------------------------
     def fwd(self, a: torch.Tensor) -> torch.Tensor:

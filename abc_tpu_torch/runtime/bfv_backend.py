@@ -12,71 +12,21 @@ encryptions inside the program (`secret int v = 0;`). Under jax.jit these are
 trace constants. A CUDA graph cannot hold a host copy, so the whole-program
 executor records them from one eager run and serves them again, in the same
 order, to the run it captures: HostConstants, switched on with
-`factory.host_constants(tape)`.
+`factory.host_constants(tape)` (runtime/host_constants.py, shared with the
+CKKS factory).
 """
 
 from __future__ import annotations
 
-from contextlib import contextmanager
 from typing import List, Optional, Sequence, Union
 
 import torch
 
 from abc_tpu_torch.crypto.bfv import BfvCiphertext, BfvContext, Plaintext
 from abc_tpu_torch.crypto.params import BfvParams
-from abc_tpu_torch.runtime.backend import AbstractCiphertextFactory
+from abc_tpu_torch.runtime.host_constants import TapedFactory, zero_pad
 from abc_tpu_torch.runtime.values import AbstractCiphertext, Cleartext
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
-
-
-def _zero_pad(data: torch.Tensor, size: int) -> torch.Tensor:
-    """Pad a [k, L, n] ciphertext component stack with zero components."""
-    pad = data.new_zeros((size - data.shape[0],) + tuple(data.shape[1:]))
-    return torch.cat([data, pad])
-
-
-class HostConstants:
-    """The device values a program run makes from host data, in the order
-    the run asks for them. The first run under a tape records; every later
-    run gets the recorded values back, each checked against the key it was
-    recorded under (the program's control flow is cleartext-driven, so
-    every run asks in the same order). The tape keeps the tensors alive for
-    as long as a CUDA graph reads them."""
-
-    def __init__(self):
-        self.items: list = []
-        self._pos: Optional[int] = None          # None: recording
-
-    def take(self, key, make):
-        if self._pos is None:
-            value = make()
-            self.items.append((key, value))
-            return value
-        if self._pos >= len(self.items) or self.items[self._pos][0] != key:
-            raise RuntimeExecutionError(
-                "the program asked for another host-made constant than its "
-                f"recorded run did at position {self._pos}: whole-program "
-                "execution needs cleartext-driven control flow")
-        value = self.items[self._pos][1]
-        self._pos += 1
-        return value
-
-    def end_run(self, completed: bool) -> None:
-        """Ready the tape for the next run: a completed recording turns to
-        serving, a failed one is forgotten; a served run that left recorded
-        values unasked took another path than the recorded one."""
-        if self._pos is None:
-            if completed:
-                self._pos = 0
-            else:
-                self.items.clear()
-            return
-        short = completed and self._pos != len(self.items)
-        self._pos = 0
-        if short:
-            raise RuntimeExecutionError(
-                "the program asked for fewer host-made constants than its "
-                "recorded run did")
 
 
 class TorchBfvCiphertext(AbstractCiphertext):
@@ -104,9 +54,9 @@ class TorchBfvCiphertext(AbstractCiphertext):
     def _aligned(self, other) -> tuple:
         a, b = self.ct.data, other.ct.data
         if a.shape[0] < b.shape[0]:
-            a = _zero_pad(a, b.shape[0])
+            a = zero_pad(a, b.shape[0])
         elif b.shape[0] < a.shape[0]:
-            b = _zero_pad(b, a.shape[0])
+            b = zero_pad(b, a.shape[0])
         return BfvCiphertext(a), BfvCiphertext(b)
 
     def _wrap(self, ct: BfvCiphertext) -> "TorchBfvCiphertext":
@@ -156,7 +106,7 @@ class TorchBfvCiphertext(AbstractCiphertext):
         return self._ctx().noise_budget(self.ct)
 
 
-class BfvCiphertextFactory(AbstractCiphertextFactory):
+class BfvCiphertextFactory(TapedFactory):
     """Factory owning the BFV context + keys, evaluating on `device`."""
 
     def __init__(self, slots: int = 8192, seed: int = None,
@@ -164,7 +114,7 @@ class BfvCiphertextFactory(AbstractCiphertextFactory):
                  context: Optional[BfvContext] = None):
         """context: a pre-built BfvContext (e.g. of auto-chosen parameters);
         the other arguments are then not read."""
-        self._tape: Optional[HostConstants] = None
+        super().__init__()
         if context is not None:
             self.context = context
             self.params = context.params
@@ -176,23 +126,6 @@ class BfvCiphertextFactory(AbstractCiphertextFactory):
     @property
     def slot_count(self) -> int:
         return self.params.slot_count
-
-    @contextmanager
-    def host_constants(self, tape: HostConstants):
-        """Run one program run with its plaintext operands and in-program
-        encryptions going through `tape`: recorded by the tape's first run,
-        served again to every later one."""
-        self._tape = tape
-        completed = False
-        try:
-            yield
-            completed = True
-        finally:
-            self._tape = None
-            tape.end_run(completed)
-
-    def _host_made(self, key, make):
-        return make() if self._tape is None else self._tape.take(key, make)
 
     def encode_cleartext(self, cleartext: Cleartext) -> Plaintext:
         """Cleartext → plaintext with last-element padding to all slots."""

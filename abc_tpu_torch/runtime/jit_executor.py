@@ -18,8 +18,8 @@ the context's side of it):
   `ensure_eval_ready` and the decrypt boundary. Whatever the evaluation
   makes from host data is made by one eager warm-up run first: lazily built
   tables and keys stay in the context, plaintext operands and in-program
-  encryptions go onto a HostConstants tape (runtime/bfv_backend.py) that the
-  capture run reads back. The capture uses the default error mode, so a
+  encryptions go onto a HostConstants tape (runtime/host_constants.py) that
+  the capture run reads back. The capture uses the default error mode, so a
   stray copy raises;
 * the context's identity-keyed caches are emptied around every run
   (BfvContext.fresh_caches), or the capture run would find the warm-up's
@@ -35,9 +35,15 @@ later runs reading it (so in-program encryptions are constants of the
 program on both devices). That is the caller's choice of device, never a
 fallback: a CUDA device captures or raises.
 
+Both schemes run this way: a BfvCiphertextFactory's ciphertexts carry no
+metadata, a CkksCiphertextFactory's carry (level, scale), which are Python
+values and so constants of the captured program, as they are trace-time
+constants in the reference. `run_raw` on fresh inputs needs ciphertexts of
+the inputs' own level and scale, which `encrypt_inputs` gives (full level,
+base scale).
+
 Not ported yet: `mesh=` / `batch_values=` (the dp x limb mesh of the
-reference; multi-GPU slice) and CKKS programs (CKKS slice); both raise
-RuntimeExecutionError.
+reference; multi-GPU slice), which raise RuntimeExecutionError.
 
 Protocol mirrors the reference's three-AST harness: input declarations /
 program / output assignments.
@@ -55,8 +61,9 @@ from abc_tpu_torch.ast_ir.nodes import (
 )
 from abc_tpu_torch.passes.pipeline import CompiledProgram
 from abc_tpu_torch.runtime.backend import AbstractCiphertextFactory
-from abc_tpu_torch.runtime.bfv_backend import (BfvCiphertextFactory,
-                                               HostConstants)
+from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
+from abc_tpu_torch.runtime.host_constants import HostConstants
 from abc_tpu_torch.runtime.executor import RuntimeVisitor
 from abc_tpu_torch.runtime.values import AbstractCiphertext, Cleartext
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
@@ -90,11 +97,12 @@ class JittedProgram:
                 "mesh= / batch_values= (whole-program execution over a "
                 "dp x limb device mesh) are not ported yet: they come with "
                 "the multi-GPU slice of abc_tpu_torch")
-        if not isinstance(factory, BfvCiphertextFactory):
+        if not isinstance(factory, (BfvCiphertextFactory,
+                                    CkksCiphertextFactory)):
             raise RuntimeExecutionError(
                 f"{type(factory).__name__} does not implement the "
                 "whole-program protocol (jit_pack/jit_unpack on device "
-                "tensors); abc_tpu_torch has it for BFV only")
+                "tensors); abc_tpu_torch has it for BFV and CKKS")
         self.factory = factory
         self.compiled = compiled
         self.input_ast = input_ast
@@ -119,7 +127,8 @@ class JittedProgram:
                 (now - _t0) * 1e3
             _t0 = now
 
-        # the BEHZ tables and the kernel library, outside any capture
+        # scheme tables built at first use (BFV's BEHZ context) and the
+        # kernel library, outside any capture
         ctx.ensure_eval_ready()
         _mark("eval_ready")
 
@@ -223,7 +232,8 @@ class JittedProgram:
         """Which switching keys will the encrypted run request? Answered by
         executing the compiled circuit on a recording dummy backend:
         rotate_rows(steps) maps to galois element 3^(steps mod n/2) mod 2n
-        (BfvContext.rotate_rows), any ct·ct multiply implies the relin key
+        over the ring degree n in both schemes (BfvContext.rotate_rows,
+        CkksContext.rotate), any ct·ct multiply implies the relin key
         (lazy relinearization can only ever key-switch toward s²). Returns
         None if the census cannot run.
 
@@ -374,9 +384,11 @@ def jit_compile_program(program_src: str, inputs_src: str, output_src: str,
                         security_strict: bool = False) -> JittedProgram:
     """Parse + compile + capture in one call.
 
-    auto_params=True sizes the BFV parameter set from the compiled
-    circuit's noise profile (crypto/noise.py choose_parameters) and builds
-    the factory itself, on `device`; `factory` must then be None. The chosen
+    auto_params=True sizes the parameter set from the compiled circuit and
+    builds the factory itself, on `device`; `factory` must then be None.
+    Integer inputs go to BFV (crypto/noise.py choose_parameters, from the
+    noise profile), float/double inputs to CKKS (choose_ckks_parameters:
+    levels and scale_bits from the multiplicative depth). The chosen
     set + predicted budget land in CompiledProgram.auto_params and
     JittedProgram.auto_params. With a factory given, the program runs on
     the factory's device and `device` is not read.
@@ -397,17 +409,23 @@ def jit_compile_program(program_src: str, inputs_src: str, output_src: str,
         from abc_tpu_torch.utils.datatype import Type
         if any(dt.type in (Type.FLOAT, Type.DOUBLE)
                for dt in compiled.input_types.values()):
-            raise RuntimeExecutionError(
-                "float/double programs run under CKKS, which abc_tpu_torch "
-                "has not ported yet (it comes with the CKKS slice); "
-                "auto_params sizes BFV parameter sets only")
-        from abc_tpu_torch.crypto.bfv import BfvContext
-        from abc_tpu_torch.crypto.noise import auto_params_report
-        params, report = auto_params_report(
-            compiled, t_bits=plain_bits, seed=seed,
-            security_strict=security_strict)
-        compiled.auto_params = report
-        factory = BfvCiphertextFactory(context=BfvContext(params, device))
+            # approximate circuit → CKKS with per-circuit levels/scale_bits
+            from abc_tpu_torch.crypto.ckks import CkksContext
+            from abc_tpu_torch.crypto.noise import choose_ckks_parameters
+            params, report = choose_ckks_parameters(
+                compiled, seed=seed, security_strict=security_strict)
+            compiled.auto_params = report
+            factory = CkksCiphertextFactory(
+                context=CkksContext(params, device))
+        else:
+            from abc_tpu_torch.crypto.bfv import BfvContext
+            from abc_tpu_torch.crypto.noise import auto_params_report
+            params, report = auto_params_report(
+                compiled, t_bits=plain_bits, seed=seed,
+                security_strict=security_strict)
+            compiled.auto_params = report
+            factory = BfvCiphertextFactory(
+                context=BfvContext(params, device))
     elif factory is None:
         raise RuntimeExecutionError(
             "pass a factory or set auto_params=True")

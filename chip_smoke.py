@@ -65,6 +65,26 @@ Phases, each of which raises on failure (the script then exits nonzero):
    ms/op and device-kernel total. `python -m abc_tpu_torch hamming -
    --backend bfv --slots 8192` as a subprocess.
 
+9. CKKS at the reference's own CKKS size (n=32768, 8 data + 2 special
+   primes of 30 bits, k=2, scale 2^25; abc_tpu/benchsuite.py config 5).
+   Views: ntt_fwd / ntt_inv through leveled NttContext.subset views against
+   their plain versions (torch.equal) at the op's launch shapes (16, 40
+   rows forward; 24, 20 inverse) and at level 3 (9 and 10 rows), with times
+   and the bound at the op's shapes. The op: multiply(a, a, rescale=False),
+   eager: public key, relinearization key, ciphertext and result equal to
+   the port's CPU run and the golden digests; 3 forward launches of 16, 16,
+   40 rows and 2 inverse of 24, 20; ms/op; device time by kernel name. A
+   leveled run at scale 2^29 (multiply with rescale, a second multiply at
+   level 7 with its partial last digit, rotate and hoisted rotations of it,
+   its rescale): words equal to the CPU run, decoded values against numpy. As a graph: the op
+   itself and `p = a *** b; p = rotate(p, 1);` through jit_compile_program
+   (words equal to the eager run and the CPU run, a replay on fresh inputs
+   against numpy, no counter moving across replays, phase_ms, device_bytes,
+   ms per replay), and one float program under auto_params=True. The packed
+   matvec: matvec_bsgs_ckks at n=2048 (1024 x 1024) against numpy, one
+   hoisted decomposition for the baby steps. Kernel launch counts are taken
+   over this phase's driven path alone (the view comparisons come first).
+
 Needs one CUDA device; exits nonzero at once without one. Imports nothing of
 JAX or of abc_tpu. Prints the card's name and power limit, a
 {"kernels": [...]} JSON line, and last {"ok": true, "device": {...}}.
@@ -133,6 +153,24 @@ SOURCE = {"ntt_fwd": "abc_tpu_torch/csrc/ntt.cu",
           "ntt_inv": "abc_tpu_torch/csrc/ntt.cu",
           "ablate_ntt": "abc_tpu_torch/csrc/ntt_ablation.cu",
           "alu_chain": "abc_tpu_torch/csrc/ntt_ablation.cu"}
+# CKKS at the reference's own size (abc_tpu/benchsuite.py config 5): the
+# launches of one multiply(a, a, rescale=False) as (kernel, level, with the
+# special primes, batch): forward 2 x 8 = 16 rows (each operand) and 4 x 10 =
+# 40 (key-switch decomposition), inverse 3 x 8 = 24 (tensor product) and 2 x
+# 10 = 20 (key-switch accumulators); then the shapes of a key switch at
+# level 3 (3 and 5 rows per component)
+CKKS_OP_SHAPES = [("ntt_fwd", 8, False, 2), ("ntt_fwd", 8, True, 4),
+                  ("ntt_inv", 8, False, 3), ("ntt_inv", 8, True, 2)]
+CKKS_LOW_SHAPES = [("ntt_fwd", 3, False, 3), ("ntt_fwd", 3, True, 2),
+                   ("ntt_inv", 3, False, 3), ("ntt_inv", 3, True, 2)]
+CKKS_CENSUS = [("ntt_fwd", 16), ("ntt_fwd", 16), ("ntt_inv", 24),
+               ("ntt_fwd", 40), ("ntt_inv", 20)]       # in launch order
+# the shapes the kernels line reports for CKKS: the largest forward and
+# inverse launch of the op
+CKKS_JSON_SHAPE = {"ntt_fwd": (8, True, 4), "ntt_inv": (8, False, 3)}
+CKKS_MATVEC_N = 2048
+CKKS_DEPTH2 = ("secret double acc = w0 * w1; acc = acc + rotate(w0, 1); "
+               "acc = acc * w1; return acc;")
 ABLATION_SHAPES = [(16384, 14, 1), (8192, 6, 3)]
 ALU_SHAPE, ALU_ITERS = (14, 128, 128), 512
 # where the kernels line times the ablation kernels: mode / kind
@@ -661,44 +699,50 @@ def replay_ms(jp, tensors, reps):
                  f"iqr {(q3 - q1) / med:.3f}")
 
 
+def unchanged_across(jp, tensors):
+    """run_raw(tensors) with every Python-side counter held still."""
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    before = dict(nk.launches), dict(jp.factory.context.counters), \
+        jp._graph
+    raw = jp.run_raw(tensors)
+    torch.cuda.synchronize()
+    check((dict(nk.launches), dict(jp.factory.context.counters),
+           jp._graph) == before,
+          "a replay moved a launch or op counter, or made a new graph")
+    return raw
+
+
+def walk_launches(jp):
+    """Kernel launches of one eager walk of the program."""
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    before = dict(nk.launches)
+    jp.run_eager(jp.secret_inputs)
+    return {k: nk.launches[k] - before[k] for k in before}
+
+
+def replay_profile(jp, tensors, per_walk, reps=5):
+    """kernel_profile of a replay, which must hold exactly the NTT
+    kernels that one walk of the program launches: the hand-written
+    kernels are inside the graph, and nothing else took their place."""
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    prof = kernel_profile(lambda: jp.run_raw(tensors), reps)
+    check(prof is not None,
+          "the profiler saw no device activity in a replay, three times")
+    in_graph = {name: round(sum(
+        c for kernel, c in prof[3].items() if name in kernel))
+        for name in nk.launches}
+    check(in_graph == per_walk,
+          f"a replay runs {in_graph} NTT kernels, one walk of the "
+          f"program launches {per_walk}")
+    return prof
+
+
 def phase_whole_program(dev, gold, hamming_words, laplace_words,
                         laplace_eager_ms, mult_eager):
     from abc_tpu_torch import CompileOptions, jit_compile_program
     from abc_tpu_torch.crypto.bfv import BfvCiphertext
     from abc_tpu_torch.ops import ntt_kernels as nk
     from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
-
-    def unchanged_across(jp, tensors):
-        """run_raw(tensors) with every Python-side counter held still."""
-        before = dict(nk.launches), dict(jp.factory.context.counters), \
-            jp._graph
-        raw = jp.run_raw(tensors)
-        torch.cuda.synchronize()
-        check((dict(nk.launches), dict(jp.factory.context.counters),
-               jp._graph) == before,
-              "a replay moved a launch or op counter, or made a new graph")
-        return raw
-
-    def walk_launches(jp):
-        """Kernel launches of one eager walk of the program."""
-        before = dict(nk.launches)
-        jp.run_eager(jp.secret_inputs)
-        return {k: nk.launches[k] - before[k] for k in before}
-
-    def replay_profile(jp, tensors, per_walk, reps=5):
-        """kernel_profile of a replay, which must hold exactly the NTT
-        kernels that one walk of the program launches: the hand-written
-        kernels are inside the graph, and nothing else took their place."""
-        prof = kernel_profile(lambda: jp.run_raw(tensors), reps)
-        check(prof is not None,
-              "the profiler saw no device activity in a replay, three times")
-        in_graph = {name: round(sum(
-            c for kernel, c in prof[3].items() if name in kernel))
-            for name in nk.launches}
-        check(in_graph == per_walk,
-              f"a replay runs {in_graph} NTT kernels, one walk of the "
-              f"program launches {per_walk}")
-        return prof
 
     # --- the README hamming program as one graph, n=8192
     g = gold["hamming_n8192"]
@@ -856,6 +900,301 @@ def phase_whole_program(dev, gold, hamming_words, laplace_words,
     return launches
 
 
+def ckks_leveled(ctx, vals):
+    """The leveled run on one context: multiply with rescale (level 8 ->
+    7), a second multiply at level 7 (k=2: the last digit holds one prime,
+    alpha = 4 over 7 limbs) left at its product scale, a rotation and
+    hoisted rotations of it (Galois key switches through the same partial
+    digit), and its rescale to level 6. Returns the ciphertexts by name."""
+    x = ctx.encrypt(ctx.encode(vals))
+    m1 = ctx.multiply(x, x)
+    m2 = ctx.multiply(m1, x, rescale=False)
+    out = {"x": x, "x^2": m1, "x^3": m2, "rot1": ctx.rotate(m2, 1)}
+    for steps, ct in zip((2, -3, 0), ctx.hoisted_rotations(m2, [2, -3, 0])):
+        out[f"hoisted{steps}"] = ct
+    out["x^3 rescaled"] = ctx.rescale(m2)
+    return out
+
+
+def phase_ckks(dev, gold):
+    from abc_tpu_torch import jit_compile_program
+    from abc_tpu_torch.crypto.ckks import (CkksCiphertext, CkksContext,
+                                           CkksParams)
+    from abc_tpu_torch.crypto.linalg import matvec_bsgs_ckks
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
+
+    g = gold["ckks_mult_relin_n32768_k2"]
+    n, L, k = g["n"], g["levels"], g["ks_digits"]
+
+    def make_params(**kw):
+        return CkksParams.create(n, levels=L, seed=g["seed"], ks_digits=k,
+                                 **kw)
+
+    params = make_params()
+    ctx, cpu = CkksContext(params, dev), CkksContext(params, "cpu")
+    stats = {}
+
+    # --- views: the kernels through leveled views against their plain
+    # versions, at the op's launch shapes and at level 3
+    for name, level, specials, batch in CKKS_OP_SHAPES + CKKS_LOW_SHAPES:
+        view = (ctx._ntt_cols if specials else ctx._ntt_level)[level]
+        rows = batch * len(view.moduli)
+        x = rand_residues(view.moduli, (batch, len(view.moduli), n),
+                          seed=level + rows, device=dev)
+        x[..., 0] = 0
+        x[..., 1::257] = (view.q - 1).reshape(-1, 1)
+        kern, plain = _transforms(nk, view, x)[name]
+        check(torch.equal(view.fwd(x) if name == "ntt_fwd" else view.inv(x),
+                          plain()),
+              f"{name} through the level-{level} view != plain at {rows} "
+              f"rows")
+        line = (f"  {name} level {level}{' + specials' if specials else ''}"
+                f", {rows} rows x {nk.cluster_size(rows, n)} CTAs = plain")
+        if (name, level, specials, batch) in CKKS_OP_SHAPES:
+            st = {}
+            line += ": " + _timed(
+                st, kern, plain, [n, len(view.moduli), batch],
+                ntt_bound(n, len(view.moduli), rows, name == "ntt_inv"))
+            if CKKS_JSON_SHAPE[name] == (level, specials, batch):
+                stats[name] = st
+        print(line, flush=True)
+
+    # --- the config-5 op, eager; launch counts from here on
+    for name in nk.launches:
+        nk.launches[name] = 0
+    a, ca = ctx.encrypt(ctx.encode(g["a"])), cpu.encrypt(cpu.encode(g["a"]))
+    got = ctx.multiply(a, a, rescale=False)
+    want = cpu.multiply(ca, ca, rescale=False)
+    relin, cpu_relin = ctx.get_relin_key(), cpu.get_relin_key()
+    for name, (on_card, on_cpu) in {
+            "pk_b": (ctx.pk_b_ntt, cpu.pk_b_ntt),
+            "pk_a": (ctx.pk_a_ntt, cpu.pk_a_ntt),
+            "relin_b": (relin[0], cpu_relin[0]),
+            "relin_a": (relin[1], cpu_relin[1]),
+            "ct_a": (a.data, ca.data),
+            "result": (got.data, want.data)}.items():
+        check(torch.equal(on_card.cpu(), on_cpu),
+              f"CKKS {name} on the card != the port's CPU run")
+        check(digest(on_card) == g[name],
+              f"CKKS {name} != golden digest (abc_tpu np64)")
+    check((got.level, got.scale, got.size) == (L, params.scale ** 2, 2),
+          f"CKKS product at level {got.level}, scale {got.scale}")
+    check(np.array_equal(ctx.decode(ctx.decrypt(got)),
+                         cpu.decode(cpu.decrypt(want))),
+          "CKKS decoded product on the card != the port's CPU run")
+
+    def fresh():
+        return CkksCiphertext(a.data.clone(), a.level, a.scale)
+
+    seen, launch = [], nk._launch
+
+    def recording(name, x, args):
+        seen.append((name, x.numel() // x.shape[-1]))
+        return launch(name, x, args)
+
+    nk._launch = recording
+    try:
+        op = fresh()
+        ctx.multiply(op, op, rescale=False)
+    finally:
+        nk._launch = launch
+    torch.cuda.synchronize()
+    check(seen == CKKS_CENSUS, f"CKKS op launched {seen}")
+
+    def one_op():
+        op = fresh()
+        return ctx.multiply(op, op, rescale=False)
+
+    op_ms = cuda_ms(one_op, reps=20)
+    prof = kernel_profile(one_op)
+    print(f"  config-5 op, n={n}, {L}+{k} primes, k={k}: multiply(a, a, "
+          f"rescale=False) with pk, relin key, ciphertext and result "
+          f"word-identical to the CPU run and the golden digests; launches "
+          f"{seen}; {op_ms:.3f} ms/op (CUDA events, median of 20, fresh "
+          f"operands); device: {fmt_ntt(prof)}"
+          + ("" if prof is None else
+             f", busy share {prof[0] / op_ms:.3f}; top: " + "; ".join(
+                 f"{name[:60]} {v:.4f} ms" for name, v in sorted(
+                     prof[2].items(), key=lambda kv: -kv[1])[:6])),
+          flush=True)
+    del ctx, cpu, a, ca, got, want, relin, cpu_relin
+
+    # --- a leveled run, at a prime-sized scale so that a rescaled product
+    # keeps its precision (CkksParams.create's note: at 2^25 one rescale
+    # leaves a scale of 2^20)
+    lv_params = make_params(scale_bits=29)
+    rng = np.random.default_rng(g["seed"])
+    vals = rng.uniform(-1.0, 1.0, 64)
+    lv_ctx = CkksContext(lv_params, dev)
+    lv_card = ckks_leveled(lv_ctx, vals)
+    lv_cpu = ckks_leveled(CkksContext(lv_params, "cpu"), vals)
+    cube = vals ** 3
+    # name: (first slot read, expected values there); a rotation to the
+    # right by 3 puts slot 0 at slot 3
+    oracle = {"x": (0, vals), "x^2": (0, vals ** 2), "x^3": (0, cube),
+              "rot1": (0, cube[1:]), "hoisted2": (0, cube[2:]),
+              "hoisted-3": (3, cube), "hoisted0": (0, cube),
+              "x^3 rescaled": (0, cube)}
+    worst = 0.0
+    for name, ct in lv_card.items():
+        other = lv_cpu[name]
+        check(torch.equal(ct.data.cpu(), other.data)
+              and (ct.level, ct.scale) == (other.level, other.scale),
+              f"CKKS leveled run: {name} on the card != the CPU run")
+        first, want = oracle[name]
+        z = np.real(lv_ctx.decode(lv_ctx.decrypt(ct)))[first:first + len(want)]
+        worst = max(worst, float(np.max(np.abs(z - want))))
+        # the reference tests' tolerance at depth two (tests/test_ckks.py)
+        check(np.allclose(z, want, rtol=2e-2, atol=2e-2),
+              f"CKKS leveled run: {name} decodes {z[:4]}, oracle {want[:4]}")
+    levels = {name: ct.level for name, ct in lv_card.items()}
+    check([levels[name] for name in ("x", "x^2", "x^3", "rot1",
+                                     "x^3 rescaled")]
+          == [L, L - 1, L - 1, L - 1, L - 2],
+          f"CKKS leveled run: levels {levels}")
+    c = dict(lv_ctx.counters)
+    check((c["mult"], c["relin"], c["galois"], c["decomp"], c["decomp_hit"])
+          == (2, 2, 3, 1, 1), f"CKKS leveled run: counters {c}")
+    print(f"  leveled run (scale 2^29): x^2 rescaled to level {L - 1}; x^3 "
+          f"there through the partial-digit key switch ({L - 1} limbs, "
+          f"alpha = {lv_ctx._alpha_at(L - 1)}), one rotation and 3 hoisted "
+          f"rotations of it, its rescale to level {L - 2}: words equal to "
+          f"the CPU run; decoded within 2e-2 of numpy (largest error "
+          f"{worst:.2e}); counters {c}", flush=True)
+    del lv_ctx, lv_card, lv_cpu
+
+    # --- as a graph: the op itself, then multiply + rotate
+    def factory_on(device):
+        return CkksCiphertextFactory(context=CkksContext(params, device))
+
+    def brace(values):
+        return "{" + ", ".join(repr(float(v)) for v in values) + "}"
+
+    factory = factory_on(dev)
+    fctx = factory.context
+    jp = jit_compile_program("secret double p = a *** a; p = rotate(p, 0);",
+                             f"secret double a = {brace(g['a'])};", "y = p;",
+                             factory=factory)
+    per_walk = walk_launches(jp)
+    check(per_walk == {"ntt_fwd": 3, "ntt_inv": 2},
+          f"CKKS op as a program: {per_walk} launches per walk")
+    fresh_in = jp.encrypt_inputs({"a": vals})
+    raw = unchanged_across(jp, fresh_in)
+    op = CkksCiphertext(fresh_in["a"], L, params.scale)
+    check(torch.equal(raw["y"], fctx.multiply(op, op, rescale=False).data),
+          "CKKS op as a graph != CkksContext.multiply on the same operand")
+    z = jp.decrypt_outputs(raw)["y"][:len(vals)]
+    check(np.allclose(z, vals ** 2, rtol=1e-2, atol=1e-2),
+          f"CKKS op as a graph decrypts {z[:4]}")
+    ms, spread = replay_ms(jp, fresh_in, 20)
+    prof = replay_profile(jp, fresh_in, per_walk)
+    print(f"  config-5 op as a graph: words equal to CkksContext.multiply; "
+          f"{ms:.3f} ms per replay (CUDA events, median of 20, fresh "
+          f"operand, {spread}; one copy in, one clone out) beside the eager "
+          f"{op_ms:.3f} ms/op; replay device: {fmt_ntt(prof)}, busy share "
+          f"{prof[0] / ms:.3f}; phase_ms "
+          f"{ {k_: round(v, 1) for k_, v in jp.phase_ms.items()} }; device "
+          f"bytes {jp.device_bytes}", flush=True)
+
+    a_vals, b_vals = [1.5, 2.0, -0.5, 0.25], [0.5, 0.25, 4.0, -2.0]
+    program = dict(program_src="secret double p = a *** b; p = rotate(p, 1);",
+                   inputs_src=f"secret double a = {brace(a_vals)}; "
+                              f"secret double b = {brace(b_vals)};",
+                   output_src="y = p;")
+    jp = jit_compile_program(factory=factory, **program)
+    jp_cpu = jit_compile_program(factory=factory_on("cpu"), **program)
+    raw = jp.run_raw(jp.secret_inputs)
+    eager = fctx.rotate(fctx.relinearize(fctx.multiply(
+        CkksCiphertext(jp.secret_inputs["a"], L, params.scale),
+        CkksCiphertext(jp.secret_inputs["b"], L, params.scale),
+        relinearize=False, rescale=False)), 1)
+    check(torch.equal(raw["y"], eager.data)
+          and torch.equal(raw["y"], jp.run_eager(jp.secret_inputs)["y"]),
+          "CKKS program as a graph != the eager run")
+    want = [x * y for x, y in zip(a_vals, b_vals)][1:]
+    z = jp.run()["y"][:3]
+    check(np.allclose(z, want, atol=1e-2), f"CKKS program decrypts {z}")
+    per_walk = walk_launches(jp)
+    fresh_in = jp.encrypt_inputs({"a": vals, "b": vals[::-1]})
+    raw = unchanged_across(jp, fresh_in)
+    check(torch.equal(raw["y"], jp.run_eager(fresh_in)["y"]),
+          "CKKS program: replay != eager run on the same ciphertexts")
+    z = jp.decrypt_outputs(raw)["y"][:len(vals) - 1]
+    check(np.allclose(z, (vals * vals[::-1])[1:], atol=1e-2),
+          f"CKKS program on fresh inputs decrypts {z[:4]}")
+    # the CPU program on the card's own input ciphertexts: the same words
+    cpu_raw = jp_cpu.run_raw({name: t.cpu() for name, t in fresh_in.items()})
+    check(torch.equal(raw["y"].cpu(), cpu_raw["y"]),
+          "CKKS program: words on the card != the port's CPU run")
+    ms, spread = replay_ms(jp, fresh_in, 20)
+    prof = replay_profile(jp, fresh_in, per_walk)
+    print(f"  `{program['program_src']}` as a graph: words equal to the "
+          f"eager run and to the CPU run on the same ciphertexts; fresh "
+          f"inputs decrypt within 1e-2 of numpy; no launch or op counter "
+          f"moved across the replay; one walk launches {per_walk}; "
+          f"{ms:.3f} ms per replay (CUDA events, median of 20, {spread}); "
+          f"device: {fmt_ntt(prof)}, busy share {prof[0] / ms:.3f}; "
+          f"phase_ms { {k_: round(v, 1) for k_, v in jp.phase_ms.items()} }"
+          f"; device bytes {jp.device_bytes}", flush=True)
+    del jp, jp_cpu, factory, fctx
+
+    # --- one float program under auto_params
+    inputs = "secret double w0 = {1.0,2.0}; secret double w1 = {0.5,0.25};"
+    auto = {d: jit_compile_program(CKKS_DEPTH2, inputs, "out = acc;",
+                                   auto_params=True, device=d, seed=5)
+            for d in (dev, "cpu")}
+    check(auto[dev].auto_params == auto["cpu"].auto_params
+          and auto[dev].auto_params["scheme"] == "ckks",
+          f"auto_params on the card {auto[dev].auto_params} != on the CPU "
+          f"{auto['cpu'].auto_params}")
+    check(auto[dev]._graph is not None, "auto_params: no graph on the card")
+    raw = auto[dev].run_raw(auto[dev].secret_inputs)["out"]
+    check(torch.equal(
+        raw.cpu(), auto["cpu"].run_raw(auto["cpu"].secret_inputs)["out"]),
+        "CKKS auto_params: words on the card != the port's CPU run")
+    z = auto[dev].run()["out"][:2]
+    want = [(1.0 * 0.5 + 2.0) * 0.5, (2.0 * 0.25 + 2.0) * 0.25]
+    check(np.allclose(z, want, atol=1e-2), f"CKKS auto_params decrypts {z}")
+    print(f"  auto_params (float program, depth 2 with a rotation): "
+          f"{auto[dev].auto_params} on card and CPU alike; words equal; "
+          f"decrypts {[round(v, 4) for v in z]}", flush=True)
+    del auto
+
+    # --- the packed matvec: 1024 x 1024 over the slots of n=2048, at a
+    # prime-sized scale (the baby rotations come before the multiplies)
+    mv = CkksContext(CkksParams.create(CKKS_MATVEC_N, levels=3, seed=3,
+                                       scale_bits=29), dev)
+    size = mv.params.slot_count
+    mat, vec = rng.uniform(-1, 1, (size, size)), rng.uniform(-1, 1, size)
+    ct = mv.encrypt(mv.encode(vec))
+    for name in mv.counters:
+        mv.counters[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = matvec_bsgs_ckks(mv, ct, mat)
+    torch.cuda.synchronize()
+    t_mv = time.perf_counter() - t0
+    err = float(np.max(np.abs(np.real(mv.decode(mv.decrypt(y))) - mat @ vec)))
+    check(err < 1e-2, f"matvec_bsgs_ckks: largest error {err}")
+    baby = int(size ** 0.5)
+    giant = -(-size // baby)
+    c = dict(mv.counters)
+    # one hoisted decomposition serves all baby steps; each giant step but
+    # the first rotates its own partial sum
+    check((c["decomp"], c["decomp_hit"], c["galois"])
+          == (1 + giant - 1, 0, baby - 1 + giant - 1),
+          f"matvec_bsgs_ckks: counters {c}")
+    print(f"  matvec_bsgs_ckks n={CKKS_MATVEC_N} ({size} x {size}, scale "
+          f"2^29): largest error {err:.2e} against numpy; counters {c} "
+          f"({baby} baby steps on one decomposition, {giant} giant steps); "
+          f"{t_mv:.1f} s on the host clock", flush=True)
+    launches = dict(nk.launches)
+    check(all(v > 0 for v in launches.values()),
+          f"the CKKS path launched a kernel no time: {launches}")
+    return stats, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -906,6 +1245,9 @@ def main() -> int:
     graph_launches = phase_whole_program(dev, gold, hamming_words,
                                          laplace_words, laplace_eager_ms,
                                          mult_eager[1])
+    announce("phase 9: CKKS (n=32768, 8 + 2 primes; leveled views, the "
+             "config-5 op, float programs as graphs, the packed matvec)")
+    ckks_stats, ckks_launches = phase_ckks(dev, gold)
     announce("phases done")
     loaded = sorted(m for m, v in sys.modules.items() if v is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "abc_tpu"))
@@ -918,6 +1260,10 @@ def main() -> int:
                 # the whole-program path counts while it sets up, warms up
                 # and captures, and never at a replay
                 "launches_whole_program": graph_launches.get(name, 0),
+                # the CKKS path (phase 9), counted alone, and the kernel at
+                # the largest launch shape of the CKKS op
+                "launches_ckks": ckks_launches.get(name, 0),
+                "ckks": ckks_stats.get(name),
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
                 "bound_ms": stats[name]["bound_ms"],

@@ -188,3 +188,72 @@ def test_jit_auto_params_report_equals_the_reference_report():
     assert jp.auto_params["predicted_margin_bits"] > 0
     assert jp.factory.params.n == ref_report["n"]
     assert jp.run()["out"][0] == 2
+
+
+# ------------------------------------------------------------------- CKKS
+
+CKKS_W = "secret double w0 = {1.0,2.0}; secret double w1 = {0.5,0.25};"
+CKKS_DEPTH2 = ("secret double acc = w0 * w1; acc = acc + rotate(w0, 1); "
+               "acc = acc * w1; return acc;")
+# name: (program, inputs, scale_bits, levels)
+CKKS_CIRCUITS = {
+    # rotating depth-2 circuit → prime-sized scale (29), 3 levels
+    "rotating_depth_2": (CKKS_DEPTH2, CKKS_W, 29, 3),
+    # rotation-free depth-1 circuit: scale_bits sized so the FINAL
+    # (post-rescale) scale clears the ~2^17 noise floor with headroom
+    # (2·27 − 30 = 24 bits) while leaving the last limb ≥5 bits of
+    # coefficient capacity
+    "depth_1": ("secret double acc = w0 * w0; return acc;",
+                "secret double w0 = {1.0,2.0};", 27, 2),
+    # depth-0 keeps the headroom default
+    "depth_0": ("secret double acc = w0 + w0; return acc;",
+                "secret double w0 = {1.0,2.0};", 25, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CKKS_CIRCUITS))
+def test_ckks_auto_params_selection(name):
+    """choose_ckks_parameters: the reference test's expectations, and the
+    reference's own parameters and report for the same circuit."""
+    prog, inputs, scale_bits, levels = CKKS_CIRCUITS[name]
+    ours, theirs = _both((inputs, prog, {}))
+    params, rep = noise.choose_ckks_parameters(ours, seed=5)
+    ref_params, ref_rep = ref_noise.choose_ckks_parameters(theirs, seed=5)
+    assert rep["scale_bits"] == scale_bits and rep["levels"] == levels
+    assert rep["he_standard_128bit"]
+    assert rep == ref_rep
+    assert dataclasses.asdict(params) == dataclasses.asdict(ref_params)
+
+
+def test_ckks_auto_params_executes_accurately():
+    from abc_tpu_torch.crypto.ckks import CkksContext
+    from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
+    ia = abc_tpu_torch.Parser.parse(CKKS_W)
+    comp = _compiled(abc_tpu_torch, CKKS_W, CKKS_DEPTH2, {})
+    params, rep = noise.choose_ckks_parameters(comp, seed=5)
+    factory = CkksCiphertextFactory(context=CkksContext(params, "cpu"))
+    rv = RuntimeVisitor(factory, ia, comp.secret_tainted)
+    rv.execute_ast(comp.ast)
+    ((_, v),) = rv.get_output(abc_tpu_torch.Parser.parse("out = acc;"))
+    got = factory.decrypt(v)[:2]
+    want = [(1.0 * 0.5 + 2.0) * 0.5, (2.0 * 0.25 + 2.0) * 0.25]
+    assert all(abs(g - w) <= 1e-2 for g, w in zip(got, want)), got
+
+
+def test_jit_auto_params_routes_float_circuits_to_ckks():
+    """Float inputs under auto_params go to CKKS on the device asked for,
+    with the reference's report; integer inputs still go to BFV."""
+    from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
+    prog, inputs = "secret double acc = w0 * w0; return acc;", \
+        "secret double w0 = {1.5,2.0};"
+    jp = abc_tpu_torch.jit_compile_program(
+        prog, inputs, "out = acc;", auto_params=True, seed=5, device="cpu")
+    assert isinstance(jp.factory, CkksCiphertextFactory)
+    assert jp.auto_params["scheme"] == "ckks"
+    _, ref_rep = ref_noise.choose_ckks_parameters(
+        _compiled(abc_tpu, inputs, prog, {}), seed=5)
+    assert jp.auto_params == jp.compiled.auto_params == ref_rep
+    assert (jp.factory.params.n, jp.factory.params.L) == \
+        (ref_rep["n"], ref_rep["levels"])
+    got = jp.run()["out"][:2]
+    assert all(abs(g - w) <= 1e-2 for g, w in zip(got, [2.25, 4.0])), got

@@ -11,7 +11,10 @@ import pytest
 
 from abc_tpu.crypto.bfv import BfvContext as RefBfvContext
 from abc_tpu.crypto.params import BfvParams as RefBfvParams
-from abc_tpu_torch.convert import context_from_reference
+from abc_tpu.crypto.ckks import CkksContext as RefCkksContext
+from abc_tpu.crypto.ckks import CkksParams as RefCkksParams
+from abc_tpu_torch.convert import (ckks_context_from_reference,
+                                   context_from_reference)
 from abc_tpu_torch.ops.modarith import to_host
 
 pytestmark = pytest.mark.filterwarnings(
@@ -19,9 +22,11 @@ pytestmark = pytest.mark.filterwarnings(
 
 
 def reference_state(ref) -> dict:
-    """The state of an abc_tpu BfvContext as numpy arrays and plain values,
-    in the layout `context_from_reference` documents."""
+    """The state of an abc_tpu BfvContext or CkksContext as numpy arrays and
+    plain values, in the layout `context_from_reference` documents."""
     p = ref.params
+    scheme = ({"scale": p.scale} if isinstance(ref, RefCkksContext)
+              else {"plain_modulus": p.plain_modulus})
     keys = {}
     if ref.relin_key is not None:
         keys["relin"] = ref.relin_key
@@ -29,8 +34,8 @@ def reference_state(ref) -> dict:
         keys[f"galois_{g}"] = key
     return {
         "params": {"n": p.n, "coeff_modulus": list(p.coeff_modulus),
-                   "plain_modulus": p.plain_modulus, "seed": p.seed,
-                   "error_std": p.error_std, "ks_digits": p.ks_digits},
+                   "seed": p.seed, "error_std": p.error_std,
+                   "ks_digits": p.ks_digits, **scheme},
         "master_seed": int(ref._master_seed),
         "rng_state": ref.rng.bit_generator.state,
         "s_coeffs": np.asarray(ref.s_coeffs),
@@ -95,3 +100,52 @@ def test_incomplete_state_is_refused(drop):
         del state[drop]
     with pytest.raises(ValueError, match=drop):
         context_from_reference(state, "cpu")
+
+
+# ------------------------------------------------------------------- CKKS
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_unseeded_ckks_context_evaluates_like_the_reference(k):
+    """ckks_context_from_reference round trip: no seed, so the keys exist
+    only in the reference context. The port, given its state, draws for the
+    next encryption what the reference draws, multiplies, rescales, rotates
+    and decrypts the same words, and builds the same later keys from the
+    carried master seed."""
+    ref = RefCkksContext(RefCkksParams.create(256, levels=4, engine="np64",
+                                              ks_digits=k))
+    ref.get_relin_key()                       # a key built before the copy
+    ref.encrypt(ref.encode([9.0]))            # the generator has moved on
+    state = reference_state(ref)
+    port = ckks_context_from_reference(state, "cpu")
+    assert set(port._keys) == {"relin"}
+    assert port.params.scale == ref.params.scale and port.params.L == 4
+    vals = [1.5, -2.0, 0.25]
+    pa, ra = port.encrypt(port.encode(vals)), ref.encrypt(ref.encode(vals))
+    np.testing.assert_array_equal(to_host(pa.data), ra.data)
+    got = port.rotate(port.multiply(pa, pa), 1)         # galois key: new
+    want = ref.rotate(ref.multiply(ra, ra), 1)
+    np.testing.assert_array_equal(to_host(got.data), want.data)
+    assert (got.level, got.scale) == (want.level, want.scale)
+    np.testing.assert_array_equal(port.decode(port.decrypt(got)),
+                                  ref.decode(ref.decrypt(want)))
+    np.testing.assert_allclose(
+        np.real(port.decode(port.decrypt(got)))[:2], [4.0, 0.0625],
+        atol=1e-2)
+    g = pow(3, 1, 512)
+    np.testing.assert_array_equal(to_host(port.get_galois_key(g)[0]),
+                                  ref.get_galois_key(g)[0])
+    assert port.rng.bit_generator.state == ref.rng.bit_generator.state
+
+
+@pytest.mark.parametrize("drop", ["rng_state", "switching_keys",
+                                  "params.scale"])
+def test_incomplete_ckks_state_is_refused(drop):
+    ref = RefCkksContext(RefCkksParams.create(256, levels=2, engine="np64",
+                                              seed=1))
+    state = reference_state(ref)
+    if drop.startswith("params."):
+        del state["params"][drop.split(".")[1]]
+    else:
+        del state[drop]
+    with pytest.raises(ValueError, match=drop):
+        ckks_context_from_reference(state, "cpu")

@@ -25,6 +25,8 @@ GOLDEN = os.path.join(REPO, "abc_tpu_torch", "testdata", "golden.json")
 
 N = 8192
 MULT = {"seed": 11, "a": [3, 4, 5], "b": [7, -2, 9]}
+CKKS_MULT = {"n": 32768, "levels": 8, "seed": 3, "ks_digits": 2,
+             "a": [1.5, -2.25, 3.0, 0.5, 100.5, -0.001]}
 HAMMING = {
     "seed": 5,
     "inputs": "secret int x = {1,1,0,1}; secret int y = {1,0,1,1};",
@@ -78,10 +80,34 @@ def _hamming():
     return {"n": N, **HAMMING, "result": digest(ct.ct.data)}
 
 
+@functools.lru_cache(maxsize=None)
+def _ckks_mult_relin():
+    """Keys and the multiply(a, a, rescale=False) result of the np64 CKKS
+    context at the reference's own CKKS size (n=32768, 8 + 2 primes of 30
+    bits, k=2)."""
+    from abc_tpu.crypto.ckks import CkksContext, CkksParams
+    r = CKKS_MULT
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        ctx = CkksContext(CkksParams.create(
+            r["n"], levels=r["levels"], seed=r["seed"], engine="np64",
+            ks_digits=r["ks_digits"]))
+    a = ctx.encrypt(ctx.encode(r["a"]))
+    out = ctx.multiply(a, a, rescale=False)
+    relin_b, relin_a = ctx.get_relin_key()
+    return {**r, "pk_b": digest(ctx.pk_b_ntt), "pk_a": digest(ctx.pk_a_ntt),
+            "relin_b": digest(relin_b), "relin_a": digest(relin_a),
+            "ct_a": digest(a.data), "result": digest(out.data)}
+
+
+ENTRIES = {"mult_relin_n8192_k1": lambda: _mult_relin(1),
+           "mult_relin_n8192_k2": lambda: _mult_relin(2),
+           "hamming_n8192": _hamming,
+           "ckks_mult_relin_n32768_k2": _ckks_mult_relin}
+
+
 def compute():
-    return {"mult_relin_n8192_k1": _mult_relin(1),
-            "mult_relin_n8192_k2": _mult_relin(2),
-            "hamming_n8192": _hamming()}
+    return {name: make() for name, make in ENTRIES.items()}
 
 
 def _stored():
@@ -93,15 +119,15 @@ CASES = [("mult_relin_n8192_k1", f) for f in
          ("pk_b", "pk_a", "relin_b", "relin_a", "ct_a", "ct_b", "result")] + \
         [("mult_relin_n8192_k2", f) for f in
          ("pk_b", "pk_a", "relin_b", "relin_a", "ct_a", "ct_b", "result")] + \
-        [("hamming_n8192", "result")]
+        [("hamming_n8192", "result")] + \
+        [("ckks_mult_relin_n32768_k2", f) for f in
+         ("pk_b", "pk_a", "relin_b", "relin_a", "ct_a", "result")]
 
 
 @pytest.mark.parametrize("entry,field", CASES,
                          ids=[f"{e}-{f}" for e, f in CASES])
 def test_stored_digest_is_the_reference_s(entry, field):
-    fresh = (_hamming() if entry == "hamming_n8192"
-             else _mult_relin(int(entry[-1])))
-    assert _stored()[entry][field] == fresh[field]
+    assert _stored()[entry][field] == ENTRIES[entry]()[field]
 
 
 def test_stored_recipes_are_this_file_s():
@@ -115,6 +141,8 @@ def test_stored_recipes_are_this_file_s():
             assert stored[f"mult_relin_n8192_k{k}"][key] == want
     for key in ("n", "seed", "inputs", "program", "output"):
         assert stored["hamming_n8192"][key] == {"n": N, **HAMMING}[key]
+    for key, want in CKKS_MULT.items():
+        assert stored["ckks_mult_relin_n32768_k2"][key] == want
 
 
 if __name__ == "__main__":

@@ -5,10 +5,13 @@ residues are canonical) to the reference of the same seed: abc_tpu's np64
 factory walked eagerly through the same compile pipeline, and once abc_tpu's
 own jit_compile_program (jx32). Plus what a CUDA-graph capture needs of the
 context (identity caches emptied around a run, host-made constants on a
-tape) driven here without a graph, and the refusals (mesh, CKKS, no GPU).
+tape) driven here without a graph, the CKKS cases of the same reference
+file (float programs, values to its tolerance, words against abc_tpu's jx32
+program), and the refusals (mesh, no GPU).
 """
 
 import contextlib
+import warnings
 
 import numpy as np
 import pytest
@@ -23,9 +26,10 @@ from abc_tpu_torch.crypto.bfv import BfvCiphertext
 from abc_tpu_torch.ops import ntt_kernels as nk
 from abc_tpu_torch.ops.modarith import to_host
 from abc_tpu_torch.runtime.bfv_backend import (BfvCiphertextFactory,
-                                               HostConstants,
                                                TorchBfvCiphertext)
+from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
 from abc_tpu_torch.runtime.dummy import DummyCiphertextFactory
+from abc_tpu_torch.runtime.host_constants import HostConstants
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
 HAMMING_LOOP = ("int sum = 0;"
@@ -330,6 +334,131 @@ def test_context_additions_equal_the_reference():
         to_host(squared.ct.data), ref.square(ra, relinearize=False).data)
 
 
+# ------------------------------------------------------------------- CKKS
+
+CKKS_MULT_ROTATE = dict(
+    program_src="secret double p = a *** b; p = rotate(p, 1);",
+    inputs_src="secret double a = {1.5, 2.0, -0.5};"
+               " secret double b = {0.5, 0.25, 4.0};",
+    output_src="yp = p;")
+
+
+def _ckks_port(seed):
+    return CkksCiphertextFactory(n=512, levels=3, seed=seed, device="cpu")
+
+
+def test_jitted_ckks_program():
+    """The whole-program path is backend-generic: a CKKS float program
+    through the jit_pack/jit_unpack protocol with (level, scale) as meta.
+    Values to the reference test's tolerance; words equal to abc_tpu's own
+    jit_compile_program (jx32, one XLA program) of the same seed."""
+    from abc_tpu.runtime.ckks_backend import CkksCiphertextFactory as RefCkks
+    jp = jit_compile_program(factory=_ckks_port(seed=4), **CKKS_MULT_ROTATE)
+    out = jp.run()["yp"]
+    expected = [2.0 * 0.25, -0.5 * 4.0]   # rotated left by 1
+    for g, e in zip(out, expected):
+        assert abs(g - e) <= 1e-2, (out[:2], expected)
+    L, scale = jp.factory.params.L, jp.factory.params.scale
+    assert jp._input_meta == {"a": (L, scale), "b": (L, scale)}
+    assert jp._out_meta == {"yp": (L, scale * scale)}    # lazy rescale
+    ref = ref_jit_compile_program(
+        factory=RefCkks(n=512, levels=3, engine="jx32", seed=4),
+        **CKKS_MULT_ROTATE)
+    for name in ("a", "b"):
+        np.testing.assert_array_equal(to_host(jp.secret_inputs[name]),
+                                      np.asarray(ref.secret_inputs[name]))
+    np.testing.assert_array_equal(
+        to_host(jp.run_raw(jp.secret_inputs)["yp"]),
+        np.asarray(ref.run_raw(ref.secret_inputs)["yp"]))
+    assert out == ref.run()["yp"]
+
+
+def test_ckks_census_discovers_keys(monkeypatch):
+    """The dummy-run key census serves CKKS too (both schemes map
+    rotate(steps) to galois element 3^(steps mod n/2) mod 2n over the ring
+    degree): one multiply + one rotation discovers exactly {relin,
+    galois_3}, and key_build makes them before any run."""
+    seen = {}
+    orig = JittedProgram._census_key_ids
+
+    def spy(self, *a):
+        seen["census"] = orig(self, *a)
+        return seen["census"]
+
+    monkeypatch.setattr(JittedProgram, "_census_key_ids", spy)
+    jp = jit_compile_program(
+        "secret double p = a *** b; p = rotate(p, 1);",
+        "secret double a = {3.0, 1.0, 4.0};"
+        " secret double b = {2.0, 7.0, 1.0};",
+        "y = p;", _ckks_port(seed=3))
+    assert seen["census"] == {"relin", f"galois_{pow(3, 1, 2 * 512)}"}
+    assert set(jp.factory.context._keys) == seen["census"]
+    np.testing.assert_allclose(jp.run()["y"][:2], [7.0, 4.0], atol=1e-2)
+
+
+def test_ckks_streams_fresh_inputs_and_tapes_plain_operands():
+    """encrypt_inputs gives full-level, base-scale ciphertexts (the inputs'
+    own meta), run_raw serves them; a plaintext operand is an encryption
+    under CKKS and goes onto the tape once, keyed by values, level and
+    scale, so a second run draws nothing."""
+    factory = _ckks_port(seed=6)
+    jp = jit_compile_program(
+        "secret double t = x *** w; t = t +++ 1.0; return t;",
+        "secret double x = {1.0, 2.0, 3.0}; double w = {0.5, 0.5, 2.0};",
+        "y = t;", factory=factory)
+    np.testing.assert_allclose(jp.run()["y"][:3], [1.5, 2.0, 7.0], atol=1e-2)
+    L, scale = factory.params.L, factory.params.scale
+    assert [key for key, _ in jp._tape.items] == [
+        ("encrypt", (0.5, 0.5, 2.0), L, scale),
+        ("encrypt", (1.0,), L, scale * scale)]
+    rng_state = factory.context.rng.bit_generator.state
+    again = jp.run_raw(jp.secret_inputs)["y"]
+    assert factory.context.rng.bit_generator.state == rng_state
+    assert torch.equal(again, jp.run_raw(jp.secret_inputs)["y"])
+    fresh = jp.encrypt_inputs({"x": [4.0, -2.0, 0.5]})
+    assert fresh["x"].shape == jp.secret_inputs["x"].shape
+    got = jp.decrypt_outputs(jp.run_raw(fresh))["y"]
+    np.testing.assert_allclose(got[:3], [3.0, 0.0, 2.0], atol=1e-2)
+
+
+@pytest.mark.parametrize("repaired", [True, False])
+def test_ckks_two_runs_on_one_tensor_with_new_contents(monkeypatch, repaired):
+    """The stale-cache trap under CKKS: two run_raw calls on different
+    inputs held in the SAME tensors (what a graph's static inputs are). The
+    program rotates its input, so the run goes through the identity-keyed
+    decomposition cache; with CkksContext.fresh_caches taken out, the second
+    run key-switches the first input's decomposition."""
+    factory = _ckks_port(seed=9)
+    ctx = factory.context
+    if not repaired:
+        monkeypatch.setattr(ctx, "fresh_caches", contextlib.nullcontext)
+    jp = jit_compile_program(
+        "secret double r = rotate(a, 1) +++ rotate(a, 2); return r;",
+        "secret double a = {1.0, 2.0, 3.0, 4.0};", "y = r;", factory=factory)
+    static = {k: v.clone() for k, v in jp.secret_inputs.items()}
+    first = jp.run_raw(static)["y"]
+    fresh = jp.encrypt_inputs({"a": [10.0, 20.0, 30.0, 40.0]})
+    static["a"].copy_(fresh["a"])
+    second = jp.run_raw(static)["y"]
+    a = jp.factory.jit_unpack(fresh["a"].clone(), jp._input_meta["a"]).ct
+    eager = ctx.add(ctx.rotate(a, 1), ctx.rotate(a, 2)).data
+    np.testing.assert_allclose(jp.decrypt_outputs({"y": first})["y"][:2],
+                               [5.0, 7.0], atol=1e-2)
+    if repaired:
+        assert torch.equal(second, eager)
+        np.testing.assert_allclose(
+            jp.decrypt_outputs({"y": second})["y"][:2], [50.0, 70.0],
+            atol=1e-2)
+    else:
+        assert not torch.equal(second, eager)
+
+
+def test_ckks_factory_refuses_mesh_like_bfv():
+    with pytest.raises(RuntimeExecutionError, match="multi-GPU"):
+        jit_compile_program(factory=_ckks_port(seed=4), mesh=object(),
+                            **CKKS_MULT_ROTATE)
+
+
 # ------------------------------------------------------------- refusals
 
 def test_mesh_and_batch_values_wait_for_the_multi_gpu_slice():
@@ -340,10 +469,16 @@ def test_mesh_and_batch_values_wait_for_the_multi_gpu_slice():
 
 
 def test_float_program_under_auto_params_waits_for_ckks():
-    with pytest.raises(RuntimeExecutionError, match="CKKS"):
-        jit_compile_program("secret double acc = w0 * w0; return acc;",
-                            "secret double w0 = {1.5,2.0};", "out = acc;",
-                            auto_params=True, device="cpu", seed=5)
+    """The float program that used to wait for CKKS now runs under it."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jp = jit_compile_program("secret double acc = w0 * w0; return acc;",
+                                 "secret double w0 = {1.5,2.0};",
+                                 "out = acc;", auto_params=True,
+                                 device="cpu", seed=5)
+    assert isinstance(jp.factory, CkksCiphertextFactory)
+    assert jp.factory.context.device.type == "cpu"
+    np.testing.assert_allclose(jp.run()["out"][:2], [2.25, 4.0], atol=1e-2)
 
 
 def test_factory_and_auto_params_exclude_each_other():

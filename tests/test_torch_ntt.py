@@ -141,6 +141,51 @@ def test_wrapper_refuses_other_devices():
         nk.ntt_fwd(a, ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
 
 
+# ------------------------------------------------------- leveled views
+
+@pytest.mark.parametrize("indices", [[0, 1, 2], [0], [0, 1, 5, 6], [3, 6],
+                                     list(range(7))],
+                         ids=["prefix", "one_row", "prefix_and_specials",
+                              "gather", "all_rows"])
+def test_subset_view_equals_a_fresh_context_of_those_moduli(indices):
+    """NttContext.subset(indices): the tables and transforms of a context
+    built for exactly those moduli (and of the reference's own subset view),
+    with contiguous tables of the view's own row count, which is what the
+    kernels take."""
+    n = 1024
+    moduli = gen_ntt_primes(30, 7, n)
+    parent = NttContext(n, moduli, "cpu")
+    view = parent.subset(indices)
+    fresh = NttContext(n, [moduli[i] for i in indices], "cpu")
+    assert view.moduli == fresh.moduli and view.n == n
+    for name in ("fwd_tw", "fwd_tw_sh", "inv_tw", "inv_tw_sh", "n_inv",
+                 "n_inv_sh", "q", "q_col"):
+        got = getattr(view, name)
+        assert torch.equal(got, getattr(fresh, name)), name
+        assert got.is_contiguous() and got.shape[0] == len(indices)
+    rng = np.random.default_rng(7)
+    x = np.stack([rng.integers(0, q, size=(2, n)) for q in view.moduli],
+                 axis=1).astype(np.uint32)                 # [2, L', n]
+    xt = as_residues(x, "cpu")
+    ref_view = RefNttContext(n, moduli, engine="np64").subset(indices)
+    np.testing.assert_array_equal(to_host(view.fwd(xt)), ref_view.fwd(x))
+    np.testing.assert_array_equal(to_host(view.inv(xt)), ref_view.inv(x))
+    assert torch.equal(view.inv(view.fwd(xt)), xt)
+    assert torch.equal(view.pointwise_mul(xt, xt), fresh.pointwise_mul(xt, xt))
+
+
+def test_subset_views_are_cached_and_prefixes_are_zero_copy():
+    n = 1024
+    parent = NttContext(n, gen_ntt_primes(30, 5, n), "cpu")
+    a = parent.subset([0, 1, 2])
+    assert parent.subset((0, 1, 2)) is a and parent.subset(range(3)) is a
+    assert a.fwd_tw.data_ptr() == parent.fwd_tw.data_ptr()     # a slice
+    b = parent.subset([0, 1, 4])
+    assert b is parent.subset([0, 1, 4]) and b is not a
+    assert b.fwd_tw.data_ptr() != parent.fwd_tw.data_ptr()     # one gather
+    assert a.subset([0, 2]).moduli == [parent.moduli[0], parent.moduli[2]]
+
+
 # ---------------------------------------------------------------- on the card
 
 @pytest.mark.gpu
@@ -191,3 +236,27 @@ def test_cluster_size_is_a_function_of_the_shape(cuda, rows, n, ctas):
     """The smallest power of two ≤ 8 that gives rows·C ≥ 96 CTAs, while a
     CTA keeps at least 1024 coefficients."""
     assert nk.cluster_size(rows, n) == ctas
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("indices,batch", [(list(range(8)), 2),
+                                           (list(range(10)), 4),
+                                           ([0, 1, 2, 8, 9], 2),
+                                           ([0, 1, 2], 3)])
+def test_subset_views_run_the_kernels_on_cuda(cuda, indices, batch):
+    """The CKKS shapes at n=32768: a leveled view's tables go to the kernels
+    (no fallback) and give the plain version's words."""
+    n = 32768
+    parent = NttContext(n, gen_ntt_primes(30, 10, n), cuda)
+    view = parent.subset(indices)
+    rng = np.random.default_rng(5)
+    x = as_residues(np.stack(
+        [rng.integers(0, q, size=(batch, n)) for q in view.moduli],
+        axis=1).astype(np.uint32), cuda)
+    before = dict(nk.launches)
+    f, i = view.fwd(x), view.inv(x)
+    assert nk.launches == {"ntt_fwd": before["ntt_fwd"] + 1,
+                           "ntt_inv": before["ntt_inv"] + 1}
+    assert torch.equal(f, nk.fwd_ntt_plain(x, view.q, view.fwd_tw))
+    assert torch.equal(i, nk.inv_ntt_plain(x, view.q, view.inv_tw,
+                                           view.n_inv))
