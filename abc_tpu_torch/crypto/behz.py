@@ -18,7 +18,7 @@ import torch
 from abc_tpu_torch.crypto.ntt import NttContext
 from abc_tpu_torch.crypto.numthy import gen_ntt_primes, modinv
 from abc_tpu_torch.crypto.params import BfvParams
-from abc_tpu_torch.ops.modarith import as_residues, t64
+from abc_tpu_torch.ops.modarith import as_residues, in_chain, t64
 
 M_TILDE_BITS = 16
 M_TILDE = 1 << M_TILDE_BITS
@@ -99,6 +99,7 @@ class BehzContext:
         prod = t64.mul(y[..., :, None, :], table[:, :, None], dst_q[None])
         return t64.sum_mod(prod, dst_q, dim=-3)
 
+    @in_chain("to_bsk")
     def _to_bsk(self, x):
         """Exact base extension q → Bsk of x ∈ [0,q)^n ([..., L, n])."""
         T = self.tab
@@ -119,6 +120,7 @@ class BehzContext:
         return t64.mul(t64.add(conv_b, qr, self.bsk_cols),
                        T["mtilde_inv_mod_bsk"], self.bsk_cols)
 
+    @in_chain("fast_floor")
     def _fast_floor(self, e_q, e_bsk):
         """floor(t·e/q) in base Bsk, inputs in (q, Bsk) coeff domain."""
         T = self.tab
@@ -129,6 +131,7 @@ class BehzContext:
         return t64.mul(t64.sub(tb, conv, self.bsk_cols),
                        T["qinv_mod_bsk"], self.bsk_cols)
 
+    @in_chain("from_bsk")
     def _from_bsk(self, x_bsk):
         """Exact conversion Bsk → q (Shenoy-Kumaresan with m_sk)."""
         T = self.tab
@@ -157,15 +160,19 @@ class BehzContext:
 
     def multiply(self, pre1: Tuple, pre2: Tuple):
         """Tensor product of two ciphertexts given as their precompute_operand
-        forms → [3, L, n] coefficient-domain product over q
-        (pre-relinearization). A square passes the same forms twice."""
+        forms ([..., 2, L, n] and [..., 2, L+2, n]) → [..., 3, L, n]
+        coefficient-domain product over q (pre-relinearization). A square
+        passes the same forms twice."""
         (f1q, f1b), (f2q, f2b) = pre1, pre2
 
+        @in_chain("tensor")
         def tensor(f1, f2, q):
-            e0 = t64.mul(f1[0], f2[0], q)
-            e1 = t64.add(t64.mul(f1[0], f2[1], q), t64.mul(f1[1], f2[0], q), q)
-            e2 = t64.mul(f1[1], f2[1], q)
-            return torch.stack([e0, e1, e2])
+            a0, a1 = f1[..., 0, :, :], f1[..., 1, :, :]
+            b0, b1 = f2[..., 0, :, :], f2[..., 1, :, :]
+            e0 = t64.mul(a0, b0, q)
+            e1 = t64.add(t64.mul(a0, b1, q), t64.mul(a1, b0, q), q)
+            e2 = t64.mul(a1, b1, q)
+            return torch.stack([e0, e1, e2], dim=-3)
 
         eq = self.ntt_q.inv(tensor(f1q, f2q, self.q_cols))
         eb = self.ntt_bsk.inv(tensor(f1b, f2b, self.bsk_cols))

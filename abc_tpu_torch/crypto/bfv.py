@@ -50,7 +50,7 @@ from abc_tpu_torch.crypto.ntt import NttContext, _bit_reverse_vec
 from abc_tpu_torch.crypto.numthy import modinv
 from abc_tpu_torch.crypto.params import BfvParams
 from abc_tpu_torch.crypto.rlwe import RlweKeys
-from abc_tpu_torch.ops.modarith import as_residues, t64, to_host
+from abc_tpu_torch.ops.modarith import as_residues, in_chain, t64, to_host
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
 _M32 = 0xFFFFFFFF
@@ -67,12 +67,15 @@ class Plaintext:
 @dataclass
 class BfvCiphertext:
     """data: [k, L, n] int32 tensor, coefficient domain, k = 2 (or 3
-    before relinearization)."""
+    before relinearization). The evaluation half (add/sub/negate, the plain
+    ops, multiply, relinearize, the rotations) also takes a batch of
+    independent ciphertexts [..., k, L, n] and gives, row for row, the words
+    of separate calls; encrypt and decrypt take one ciphertext."""
     data: torch.Tensor
 
     @property
     def size(self) -> int:
-        return self.data.shape[0]
+        return self.data.shape[-3]
 
 
 class BfvContext(RlweKeys):
@@ -354,17 +357,17 @@ class BfvContext(RlweKeys):
         return t64.mul(self._plain_m(pt), self._tab["delta_mod_q"], self.q_q)
 
     def add_plain(self, a: BfvCiphertext, pt: Plaintext) -> BfvCiphertext:
-        c0 = t64.add(a.data[0], self._plain_dm(pt), self.q_q)
+        c0 = t64.add(a.data[..., 0, :, :], self._plain_dm(pt), self.q_q)
         return BfvCiphertext(_set0(a.data, c0))
 
     def sub_plain(self, a: BfvCiphertext, pt: Plaintext) -> BfvCiphertext:
-        c0 = t64.sub(a.data[0], self._plain_dm(pt), self.q_q)
+        c0 = t64.sub(a.data[..., 0, :, :], self._plain_dm(pt), self.q_q)
         return BfvCiphertext(_set0(a.data, c0))
 
     def sub_from_plain(self, a: BfvCiphertext, pt: Plaintext) -> BfvCiphertext:
         """Δ·m − ct (plain minus ciphertext, non-commutative case)."""
         neg = t64.neg(a.data, self.q_q)
-        c0 = t64.add(neg[0], self._plain_dm(pt), self.q_q)
+        c0 = t64.add(neg[..., 0, :, :], self._plain_dm(pt), self.q_q)
         return BfvCiphertext(_set0(neg, c0))
 
     def multiply_plain(self, a: BfvCiphertext, pt: Plaintext) -> BfvCiphertext:
@@ -405,56 +408,66 @@ class BfvContext(RlweKeys):
         if ct.size != 3:
             raise RuntimeExecutionError(f"cannot relinearize size-{ct.size}")
         self.counters["relin"] += 1
-        k0, k1 = self._key_switch(ct.data[2], self.get_relin_key())
-        c0 = t64.add(ct.data[0], k0, self.q_q)
-        c1 = t64.add(ct.data[1], k1, self.q_q)
-        return BfvCiphertext(torch.stack([c0, c1]))
+        d = ct.data
+        k0, k1 = self._key_switch(d[..., 2, :, :], self.get_relin_key())
+        c0 = t64.add(d[..., 0, :, :], k0, self.q_q)
+        c1 = t64.add(d[..., 1, :, :], k1, self.q_q)
+        return BfvCiphertext(torch.stack([c0, c1], dim=-3))
 
     # ----------------------------------------------------------- key switching
+    @in_chain("decompose")
     def _decompose_ntt(self, d):
-        """RNS-decompose d ([L, n] coeff domain over q) into α hybrid digits
-        lifted to the full base q∪P in NTT domain: D [α, L+k, n]."""
+        """RNS-decompose d ([..., L, n] coeff domain over q) into α hybrid
+        digits lifted to the full base q∪P in NTT domain: D [..., α, L+k,
+        n]."""
         L, full, n = self.params.L, self.full, self.params.n
         k, alpha = self.params.ks_digits, self.params.num_ks_digits
+        batch = tuple(d.shape[:-2])
         q_full = self._tab["q_full"].reshape(1, full, 1)
         if k == 1:
             # single-limb digits: the lift is a conditional subtract
             # (uniform 30-bit primes)
-            lifted = d[:, None, :].expand(L, full, n)
+            lifted = d[..., :, None, :].expand(batch + (L, full, n))
             return self.ntt_qp.fwd(
                 torch.where(lifted >= q_full, lifted - q_full, lifted))
         # k ≥ 2: fast base conversion of each digit [d]_{Q_j} to q∪P
         T = self._tab
-        y_src = d[self._dec_gather].reshape(alpha, k, n)
+        y_src = d.index_select(-2, self._dec_gather).reshape(
+            batch + (alpha, k, n))
         y = t64.mul(y_src, T["dec_inv_qhat"], T["dec_q_src"])
         D = None
         for i in range(k):
-            term = t64.mul(y[:, i:i + 1, :], T["dec_qhat_full"][:, i], q_full)
+            term = t64.mul(y[..., i:i + 1, :], T["dec_qhat_full"][:, i],
+                           q_full)
             D = term if D is None else t64.add(D, term, q_full)
         return self.ntt_qp.fwd(D)
 
+    @in_chain("ks_inner")
     def _ks_inner(self, D, ksk_b, ksk_a) -> Tuple:
         """Inner product of a decomposition D with a switching key, then
         mod-switch down: the cheap half of a key switch."""
         q_full = self._tab["q_full"]
         q3 = q_full.reshape(1, self.full, 1)
-        acc_b = t64.sum_mod(t64.mul(D, ksk_b, q3), q_full)
-        acc_a = t64.sum_mod(t64.mul(D, ksk_a, q3), q_full)
-        acc = self.ntt_qp.inv(torch.stack([acc_b, acc_a]))
-        return self._mod_switch_down(acc[0]), self._mod_switch_down(acc[1])
+        acc_b = t64.sum_mod(t64.mul(D, ksk_b, q3), q_full, dim=-3)
+        acc_a = t64.sum_mod(t64.mul(D, ksk_a, q3), q_full, dim=-3)
+        acc = self.ntt_qp.inv(torch.stack([acc_b, acc_a], dim=-3))
+        return (self._mod_switch_down(acc[..., 0, :, :]),
+                self._mod_switch_down(acc[..., 1, :, :]))
 
     def _key_switch(self, d, ksk) -> Tuple:
-        """d: [L, n] coeff-domain poly over q → (k0, k1) over q with
+        """d: [..., L, n] coeff-domain poly over q → (k0, k1) over q with
         k0 + k1·s ≈ d·s2 (both coeff domain)."""
         return self._ks_inner(self._decompose_ntt(d), *ksk)
 
+    @in_chain("mod_switch_down")
     def _mod_switch_down(self, x):
-        """[L+k, n] over q∪P → [L, n] over q: k successive exact centered
-        divisions (x − centered([x]_{p_s}))·p_s^{-1}, last special first."""
+        """[..., L+k, n] over q∪P → [..., L, n] over q: k successive exact
+        centered divisions (x − centered([x]_{p_s}))·p_s^{-1}, last special
+        first."""
         L, k = self.params.L, self.params.ks_digits
         for s in reversed(range(k)):
             rest = L + s
-            x_rest, x_p = x[:rest], x[rest]
+            x_rest, x_p = x[..., :rest, :], x[..., rest:rest + 1, :]
             qv = self._tab["q_full"][:rest]
             x_p_red = torch.where(x_p >= qv, x_p - qv, x_p)
             corr = torch.where(x_p > self._msd_half[s],
@@ -471,7 +484,8 @@ class BfvContext(RlweKeys):
         cache: rotations of the same ciphertext share the α·(L+k) forward
         NTT rows."""
         return self._cached(self._dec_cache, ct_data, "decomp",
-                            lambda: self._decompose_ntt(ct_data[1]))
+                            lambda: self._decompose_ntt(
+                                ct_data[..., 1, :, :]))
 
     def _rotate_with(self, ct: BfvCiphertext, D, g: int) -> BfvCiphertext:
         """Galois automorphism g of ct given c1's decomposition D: permute D
@@ -480,9 +494,10 @@ class BfvContext(RlweKeys):
         k0, k1 = self._ks_inner(D.index_select(-1, self._galois_perm_eval(g)),
                                 *self.get_galois_key(g))
         gather, sign_pos = self._galois_perm(g)
-        c0g = ct.data[0].index_select(-1, gather)
+        c0g = ct.data[..., 0, :, :].index_select(-1, gather)
         c0g = torch.where(sign_pos, c0g, t64.neg(c0g, self.q_q))
-        return BfvCiphertext(torch.stack([t64.add(c0g, k0, self.q_q), k1]))
+        return BfvCiphertext(torch.stack([t64.add(c0g, k0, self.q_q), k1],
+                                         dim=-3))
 
     def apply_galois(self, ct: BfvCiphertext, g: int) -> BfvCiphertext:
         """Galois automorphism + key switch, in the hoisted formulation."""
@@ -523,7 +538,8 @@ class BfvContext(RlweKeys):
 
 
 def _set0(data, c0):
-    return torch.cat([c0[None], data[1:]], dim=0)
+    """data ([..., k, L, n]) with its first component replaced by c0."""
+    return torch.cat([c0[..., None, :, :], data[..., 1:, :, :]], dim=-3)
 
 
 def _build_slot_map(n: int) -> np.ndarray:

@@ -48,7 +48,8 @@ import torch
 from abc_tpu_torch.crypto.ntt import NttContext
 from abc_tpu_torch.crypto.numthy import centered, gen_ntt_primes, modinv
 from abc_tpu_torch.crypto.rlwe import RlweKeys
-from abc_tpu_torch.ops.modarith import as_residues, t64, to_host
+from abc_tpu_torch.ops.modarith import (as_residues, chain_range, in_chain,
+                                          t64, to_host)
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
 
@@ -548,10 +549,13 @@ class CkksContext(RlweKeys):
         ntt, q = self._ntt_at(level), self._q_at(level)
         self.counters["mult"] += 1
         fa, fb = ntt.fwd(a.data), ntt.fwd(b.data)
-        d0 = t64.mul(fa[0], fb[0], q)
-        d1 = t64.add(t64.mul(fa[0], fb[1], q), t64.mul(fa[1], fb[0], q), q)
-        d2 = t64.mul(fa[1], fb[1], q)
-        data = ntt.inv(torch.stack([d0, d1, d2]))
+        with chain_range("tensor"):
+            d0 = t64.mul(fa[0], fb[0], q)
+            d1 = t64.add(t64.mul(fa[0], fb[1], q), t64.mul(fa[1], fb[0], q),
+                         q)
+            d2 = t64.mul(fa[1], fb[1], q)
+            d = torch.stack([d0, d1, d2])
+        data = ntt.inv(d)
         ct = CkksCiphertext(data, level, a.scale * b.scale)
         if relinearize:
             ct = self.relinearize(ct)
@@ -582,6 +586,7 @@ class CkksContext(RlweKeys):
         c1 = t64.add(ct.data[1], k1, q)
         return CkksCiphertext(torch.stack([c0, c1]), ct.level, ct.scale)
 
+    @in_chain("rescale")
     def rescale(self, ct: CkksCiphertext) -> CkksCiphertext:
         """Exact RNS rescale: drop the last data limb and divide by its prime
         (centered), scale /= q_dropped."""
@@ -633,6 +638,7 @@ class CkksContext(RlweKeys):
         """Number of hybrid digits intersecting the active limbs."""
         return -(-level // self.params.ks_digits)
 
+    @in_chain("decompose")
     def _decompose_ntt(self, d: torch.Tensor, level: int) -> torch.Tensor:
         """RNS-decompose d ([level, n]) into α(level) = ⌈level/k⌉ hybrid
         digits and lift each to base q^(level)∪P in NTT domain:
@@ -658,6 +664,7 @@ class CkksContext(RlweKeys):
             D = term if D is None else t64.add(D, term, q_cols)
         return self._ntt_cols[level].fwd(D)
 
+    @in_chain("ks_inner")
     def _ks_inner(self, D: torch.Tensor, ksk_b, ksk_a, level: int) -> Tuple:
         """Inner product of a decomposition D with a switching key's
         per-level slices, one batched inverse NTT, then mod-switch down."""
@@ -676,6 +683,7 @@ class CkksContext(RlweKeys):
         return self._ks_inner(self._decompose_ntt(d, level), ksk_b, ksk_a,
                               level)
 
+    @in_chain("mod_switch_down")
     def _mod_switch_down(self, x: torch.Tensor, level: int) -> torch.Tensor:
         """[level+k, n] over q^(level)∪P → [level, n]: k successive exact
         centered divisions (x − centered([x]_{p_s}))·p_s^{-1}, last special

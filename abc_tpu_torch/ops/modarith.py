@@ -12,9 +12,34 @@ typically a `[L, 1]` column of an `[..., L, n]` polynomial.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+CHAIN_PREFIX = "chain::"
+
+
+def chain_range(name: str):
+    """A named torch.profiler range around one elementwise chain (a BEHZ
+    conversion, the tensor product, the digit lift, the key-switch inner
+    product, a mod switch, a rescale): `with chain_range("to_bsk"): ...`.
+    An eager profile then sums device time per chain (the kernels themselves
+    are anonymous elementwise kernels). It launches nothing and records
+    nothing while no profiler runs."""
+    return torch.profiler.record_function(CHAIN_PREFIX + name)
+
+
+def in_chain(name: str):
+    """Decorator: the whole call runs inside chain_range(name). Transform
+    launches made inside it are told apart by their kernels' names."""
+    def decorate(fn):
+        @functools.wraps(fn)
+        def ranged(*args, **kwargs):
+            with chain_range(name):
+                return fn(*args, **kwargs)
+        return ranged
+    return decorate
 
 
 def barrett_mu(q: int) -> int:

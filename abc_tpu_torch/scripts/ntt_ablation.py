@@ -44,7 +44,6 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import statistics
 import sys
 from collections import Counter
 
@@ -56,9 +55,9 @@ from abc_tpu_torch.crypto.ntt import NttContext
 from abc_tpu_torch.ops import _build
 from abc_tpu_torch.ops import ntt_ablation as na
 from abc_tpu_torch.ops.modarith import as_residues
+from abc_tpu_torch.utils.timing import chain_of, estimates, timed_per_iter
 
 N = 16384
-REPEATS = 3
 MAIN_MODES = ("zero", "masks_only", "rolls_only", "muls_only", "full",
               "reformed")
 ALU_ITERS = 512
@@ -76,52 +75,14 @@ def _require_cuda():
                            "none is available")
 
 
-def setup(device):
-    """The NTT context of the measurement and a [L, N] input below min q."""
-    moduli = list(BfvParams.create(N, seed=5).coeff_modulus)
-    ctx = NttContext(N, moduli, device)
+def setup(device, n=N):
+    """The NTT context of the measurement and a [L, n] input below min q."""
+    moduli = list(BfvParams.create(n, seed=5).coeff_modulus)
+    ctx = NttContext(n, moduli, device)
     rng = np.random.default_rng(0)
-    x0 = as_residues(rng.integers(0, min(moduli), size=(len(moduli), N),
+    x0 = as_residues(rng.integers(0, min(moduli), size=(len(moduli), n),
                                   dtype=np.uint64), device)
     return ctx, x0
-
-
-# ------------------------------------------------------------------ timing
-
-def _graph(step, x0, c):
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        v = x0
-        for _ in range(c):
-            v = step(v)
-    return g
-
-
-def _replay_s(g):
-    """Least time of one replay of g in seconds, between CUDA events."""
-    g.replay()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(REPEATS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        g.replay()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / 1e3)
-    return best
-
-
-def timed_per_iter(step, x0, chain):
-    """(seconds per launch, fixed seconds per replay) of x -> step(x) from
-    graphs of `chain` and `chain // 2` launches. The warm-up builds the
-    kernels and opts into large shared memory outside the capture."""
-    step(x0)
-    torch.cuda.synchronize()
-    full, half = _graph(step, x0, chain), _graph(step, x0, chain // 2)
-    t_full, t_half = _replay_s(full), _replay_s(half)
-    return (t_full - t_half) / (chain // 2), 2 * t_half - t_full
 
 
 def profiled_s(step, x0, reps=20):
@@ -351,33 +312,32 @@ def run(quick=False, chain=0, log=print):
     return out
 
 
-def batched(quick=False, log=print):
+def batched(quick=False, log=print, device=None, n=N, batches=BATCHES):
     """`ntt_fwd` and `ntt_inv` at B in {1, 8, 16, 64}: median of 5 (3 with
-    quick) two-point estimates per batch; returns the rows."""
-    _require_cuda()
-    ctx, x0 = setup(torch.device("cuda", 0))
+    quick) two-point estimates per batch; returns the rows. On the first
+    CUDA device unless the caller names a device (the CPU, at a small n and
+    short chains, times the plain versions on the host clock)."""
+    if device is None:
+        _require_cuda()
+        device = torch.device("cuda", 0)
+    ctx, x0 = setup(torch.device(device), n)
     L = len(ctx.moduli)
-    bf = L * (N // 2) * (N.bit_length() - 1)
+    bf = L * (n // 2) * (n.bit_length() - 1)
     k_est = 3 if quick else 5
     log(json.dumps({"note": ONE_KERNEL}))
     rows = []
-    for B, chain in BATCHES:
+    for B, chain in batches:
         if quick:
-            chain //= 4
-        xB = x0 if B == 1 else x0.expand(B, L, N).contiguous()
+            chain = max(2, chain // 4)
+        xB = x0 if B == 1 else x0.expand(B, L, n).contiguous()
         row = {"B": B, "chain": chain}
         for name, step in (("ntt_fwd", ctx.fwd), ("ntt_inv", ctx.inv)):
-            step(xB)
-            torch.cuda.synchronize()
-            full, half = _graph(step, xB, chain), _graph(step, xB,
-                                                         chain // 2)
-            ests = sorted((_replay_s(full) - _replay_s(half))
-                          / (chain // 2) / B for _ in range(k_est))
-            med = statistics.median(ests)
+            med, lo, hi, fixed = (t / B for t in estimates(
+                lambda c, step=step: chain_of(step, c), xB, chain, k_est))
             row[name] = {"us_per_transform": med * 1e6,
                          "Gbf_s": bf / med / 1e9,
-                         "spread_us": [ests[0] * 1e6, ests[-1] * 1e6]}
-            del full, half
+                         "spread_us": [lo * 1e6, hi * 1e6],
+                         "fixed_dispatch_ms": fixed * B * 1e3}
         log(json.dumps(row))
         rows.append(row)
     return rows

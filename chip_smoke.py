@@ -19,7 +19,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    the card (torch.equal) at every n in {1024 .. 32768} x rows in {1, 12,
    14, 16, 18, 24, 42, 112, 896}, inputs holding 0 and q-1, so that every
    cluster size (1, 2, 4, 8 CTAs per row) is launched; inv(fwd(x)) == x;
-   every main-path launch shape runs on at least 96 CTAs. Then, at the main
+   every main-path launch shape runs on at least 96 CTAs; the launch shapes
+   of a batched mult+relin at n=8192 (B x 12, 16, 42, 18, 24, 14 rows at B
+   in {8, 16, 64}: up to 2688 rows). Then, at the main
    path's launch shapes and the ablation's, kernel and plain times in CUDA
    events (median of 10 calls, warm L2) and the profiler's device time,
    beside the bound: the larger of bytes moved over 3.35 TB/s and integer
@@ -28,7 +30,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    ciphertexts and result on the card equal to the port's CPU context of
    the same seed and to the golden digests; one multiply of fresh operands
    launches exactly 5 forward and 3 inverse transforms (154 limb rows at
-   k=1); ms per op.
+   k=1); ms per op; device time per named elementwise chain (the
+   torch.profiler ranges of ops/modarith.chain_range), with the kernels
+   under the ranges counted against all kernels of the profile.
 4. The main path: the README hamming program, compiled by the port's passes
    and run encrypted through run_compiled with the port's factory at
    n=8192. Kernel launch counts are taken over this run alone. Its output
@@ -85,6 +89,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
    hoisted decomposition for the baby steps. Kernel launch counts are taken
    over this phase's driven path alone (the view comparisons come first).
 
+10. The measurement entry point. The batch contract on the card: at B=8,
+   multiply and rotate_rows of [B, 2, L, n] equal B separate calls word for
+   word, and row 0 of the product equals the golden digest. Then `python -m
+   abc_tpu_torch.bench --quick` in process (abc_tpu_torch/bench.py: the NTT
+   and mult+relin batch curves at B in {1, 8, 16, 64}, the mult+relin floor,
+   the six staged configs of abc_tpu_torch/benchsuite.py, every chain step
+   held to its 5 + 3 launches while it is captured): no config may carry
+   an error, config 3 must be correct, config 4's variants must decrypt
+   alike, config 6 must equal the plain oracle, no headline value may be
+   nan, the compact line must stay under 1500 characters. Its two lines are
+   printed; kernel launch counts are taken over the bench alone.
+
 Needs one CUDA device; exits nonzero at once without one. Imports nothing of
 JAX or of abc_tpu. Prints the card's name and power limit, a
 {"kernels": [...]} JSON line, and last {"ok": true, "device": {...}}.
@@ -133,6 +149,10 @@ MAIN_ROWS = (12, 14, 16, 18, 24, 42)     # per launch on the main path
 SWEEP_N = (1024, 2048, 4096, 8192, 16384, 32768)
 SWEEP_ROWS = ((1, 1), (12, 6), (14, 7), (16, 8), (18, 6), (24, 8), (42, 7),
               (112, 14), (896, 14))      # (rows, L)
+# the launches of one n=8192 mult+relin on a batch of B ciphertexts, (rows
+# per ciphertext, L): the bench's mult+relin curve launches B times these
+BATCH_ROWS = ((12, 6), (16, 8), (42, 7), (18, 6), (24, 8), (14, 7))
+BATCH_SIZES = (8, 16, 64)
 # The card's rates for the bound: device memory (NVIDIA's data sheet) and
 # 32-bit integer multiply-adds, 132 SMs x 64 per clock x 1.98 GHz (the SM
 # clock read under load), the ceiling that alu_chain calibrates against.
@@ -200,6 +220,7 @@ def kernel_profile(fn, reps=5):
     where the profiler saw no device activity in three tries (a trace now
     and then comes back empty)."""
     from torch.profiler import ProfilerActivity, profile
+    from abc_tpu_torch.ops.modarith import CHAIN_PREFIX
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -211,7 +232,8 @@ def kernel_profile(fn, reps=5):
         for ev in prof.events():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            if "memcpy" in ev.name.lower() or "memset" in ev.name.lower():
+            if "memcpy" in ev.name.lower() or "memset" in ev.name.lower() \
+                    or ev.name.startswith(CHAIN_PREFIX):
                 continue
             launches += 1
             by_name[ev.name] = by_name.get(ev.name, 0.0) + \
@@ -220,6 +242,67 @@ def kernel_profile(fn, reps=5):
         if launches:
             return sum(by_name.values()), launches / reps, by_name, counts
     return None
+
+
+def chain_profile(fn, reps=3):
+    """Device time of eager fn() per named elementwise chain, per call:
+    {chain: [ms, kernels]} and the number of device kernels in the profile.
+    A kernel belongs to the innermost ops/modarith.chain_range that was open
+    when it was launched (matched through the launch call of the same
+    correlation id); the hand-written NTT kernels are one row of their own,
+    kernels launched outside every range another, and kernels whose launch
+    call the profiler did not record a third (it loses events on long eager
+    runs), so that the rows always add up to the kernels seen."""
+    from torch.profiler import ProfilerActivity, profile
+    from abc_tpu_torch.ops.modarith import CHAIN_PREFIX
+    on_card = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ranges = [(ev.time_range.start, ev.time_range.end, ev.name[len(
+        CHAIN_PREFIX):]) for ev in events
+        if ev.device_type != on_card and ev.name.startswith(CHAIN_PREFIX)]
+    launched_at = {ev.id: ev.time_range.start for ev in events
+                   if ev.device_type != on_card
+                   and ev.name.startswith(("cudaLaunch", "cuLaunch"))}
+    table, kernels = {}, 0
+    for ev in events:
+        if ev.device_type != on_card or ev.name.startswith(CHAIN_PREFIX) \
+                or "memcpy" in ev.name.lower() or "memset" in ev.name.lower():
+            continue
+        kernels += 1
+        at = launched_at.get(ev.id)
+        if "ntt_" in ev.name:
+            where = "NTT kernels"
+        elif at is None:
+            where = "(launch not recorded)"
+        else:
+            inside = [r for r in ranges if r[0] <= at <= r[1]]
+            where = min(inside, key=lambda r: r[1] - r[0])[2] if inside \
+                else "(outside the ranges)"
+        row = table.setdefault(where, [0.0, 0.0])
+        row[0] += ev.device_time_total / 1e3 / reps
+        row[1] += 1 / reps
+    return table, kernels / reps, len(ranges) / reps
+
+
+def fmt_chains(chains, expect_kernels):
+    """The per-chain table on one line, largest first, and whether its
+    kernels add up to what one op launches."""
+    table, kernels, n_ranges = chains
+    total = sum(ms for ms, _ in table.values())
+    rows = "; ".join(f"{name} {ms:.4f} ms ({100 * ms / total:.1f}%) in "
+                     f"{count:.1f}" for name, (ms, count) in sorted(
+                         table.items(), key=lambda kv: -kv[1][0]))
+    lost = table.get("(launch not recorded)", [0.0, 0.0])[1]
+    return (f"{total:.4f} ms in {kernels:.1f} kernels per op under "
+            f"{n_ranges:.0f} ranges ({expect_kernels} kernels expected; "
+            f"{lost:.1f} without a launch record): {rows}")
 
 
 def fmt(prof):
@@ -331,6 +414,22 @@ def phase_kernels(dev):
               f"rows:CTAs-per-row {' '.join(seen)}", flush=True)
     check(set(clusters) == {1, 2, 4, 8},
           f"cluster sizes launched: {clusters}")
+    # the launch shapes of a batched mult+relin (the bench's curve)
+    seen = []
+    for B in BATCH_SIZES:
+        for rows, L in BATCH_ROWS:
+            moduli = gen_ntt_primes(30, L, MAIN_N)
+            ctx = NttContext(MAIN_N, moduli, dev)
+            x = rand_residues(moduli, (B * rows // L, L, MAIN_N),
+                              seed=B + rows, device=dev)
+            x[..., 0] = 0
+            x[..., 1::257] = (ctx.q - 1).reshape(L, 1)
+            for name, (kern, plain) in _transforms(nk, ctx, x).items():
+                hold(name, kern(), plain(), (MAIN_N, B * rows))
+            seen.append(f"{B * rows}:{nk.cluster_size(B * rows, MAIN_N)}")
+    print(f"  n={MAIN_N}, batched mult+relin shapes (B in {BATCH_SIZES}): "
+          f"ntt_fwd, ntt_inv = plain at rows:CTAs-per-row {' '.join(seen)}",
+          flush=True)
     ctas = {rows: rows * nk.cluster_size(rows, MAIN_N) for rows in MAIN_ROWS}
     check(min(ctas.values()) >= 96, f"main-path launches on {ctas} CTAs")
     print(f"  shapes per cluster size {clusters}; main-path launches "
@@ -405,6 +504,10 @@ def phase_mult_relin(dev, k, gold):
     prof = kernel_profile(lambda: ctx.multiply(BfvCiphertext(a.data.clone()),
                                                BfvCiphertext(b.data.clone())))
     print(f"  k={k} device kernels per op: {fmt(prof)}", flush=True)
+    chains = chain_profile(lambda: ctx.multiply(
+        BfvCiphertext(a.data.clone()), BfvCiphertext(b.data.clone())))
+    print(f"  k={k} device time per chain (eager profile with host ranges): "
+          + fmt_chains(chains, "385" if k == 1 else "463"), flush=True)
     if prof is None:
         return ms, None
     ntt = sum(v for name, v in prof[2].items() if "ntt_" in name)
@@ -1018,6 +1121,8 @@ def phase_ckks(dev, gold):
                  f"{name[:60]} {v:.4f} ms" for name, v in sorted(
                      prof[2].items(), key=lambda kv: -kv[1])[:6])),
           flush=True)
+    print("  config-5 op, device time per chain (eager profile with host "
+          "ranges): " + fmt_chains(chain_profile(one_op), "213"), flush=True)
     del ctx, cpu, a, ca, got, want, relin, cpu_relin
 
     # --- a leveled run, at a prime-sized scale so that a rescaled product
@@ -1195,6 +1300,110 @@ def phase_ckks(dev, gold):
     return stats, launches
 
 
+BENCH_BATCH = 8
+
+
+def phase_bench(dev, gold):
+    """The batch contract on the card, then the measurement entry point in
+    process. Returns (NTT kernel launches, ablation kernel launches) of the
+    bench run alone."""
+    import contextlib
+    import io
+
+    from abc_tpu_torch import bench
+    from abc_tpu_torch.crypto.bfv import BfvCiphertext, BfvContext
+    from abc_tpu_torch.crypto.params import BfvParams
+    from abc_tpu_torch.ops import ntt_ablation as na
+    from abc_tpu_torch.ops import ntt_kernels as nk
+
+    # --- B ciphertexts through one call against B calls; row 0 holds the
+    # golden operands
+    g = gold["mult_relin_n8192_k1"]
+    ctx = BfvContext(BfvParams.create(g["n"], seed=g["seed"]), dev)
+    ctx.ensure_eval_ready()
+    ctx.materialize_keys(["relin", f"galois_{pow(3, 3, 2 * g['n'])}"])
+    rng = np.random.default_rng(g["seed"])
+    extra = rng.integers(-99, 100, size=(2 * BENCH_BATCH - 2, 6)).tolist()
+    cts = ctx.encrypt_many([ctx.encode(v) for v in [g["a"], g["b"]] + extra])
+    xs = torch.stack([ct.data for ct in cts[0::2]])
+    ys = torch.stack([ct.data for ct in cts[1::2]])
+    ops = {"multiply": lambda x, y: ctx.multiply(BfvCiphertext(x),
+                                                 BfvCiphertext(y)),
+           "rotate_rows": lambda x, y: ctx.rotate_rows(BfvCiphertext(x), 3)}
+    census = {"multiply": {"ntt_fwd": 5, "ntt_inv": 3},
+              "rotate_rows": {"ntt_fwd": 1, "ntt_inv": 1}}
+    for name, op in ops.items():
+        before = dict(nk.launches)
+        with ctx.fresh_caches():
+            got = op(xs, ys).data
+        made = {k: nk.launches[k] - before[k] for k in before}
+        check(got.shape == xs.shape, f"batched {name}: shape {got.shape}")
+        for i in range(BENCH_BATCH):
+            with ctx.fresh_caches():
+                want = op(xs[i], ys[i]).data
+            check(torch.equal(got[i], want),
+                  f"batched {name}: row {i} != a separate call")
+        if name == "multiply":
+            check(digest(got[0]) == g["result"],
+                  "batched multiply: row 0 != golden digest (abc_tpu np64)")
+        check(made == census[name], f"batched {name} launched {made}")
+        print(f"  {name} on [{BENCH_BATCH}, 2, {ctx.params.L}, {g['n']}]: "
+              f"every row equal to a separate call"
+              + (", row 0 equal to the golden digest"
+                 if name == "multiply" else "")
+              + f"; launches of the batched call {made}", flush=True)
+    del ctx, cts, xs, ys
+
+    # --- python -m abc_tpu_torch.bench --quick, in process
+    for counts in (nk.launches, na.launches):
+        for name in counts:
+            counts[name] = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--quick"])
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(nk.launches), dict(na.launches)
+    lines = out.getvalue().strip().splitlines()
+    check(len(lines) >= 2, f"bench printed {len(lines)} lines")
+    full, line = json.loads(lines[-2]), json.loads(lines[-1])
+    suite = full["suite"]
+    check(rc == 0 and not full["problems"],
+          f"bench exit {rc}: {full['problems']}")
+    check(sorted(suite) == [f"config{i}" for i in range(1, 7)]
+          and not any("error" in rec for rec in suite.values()),
+          f"bench suite: { {k: v.get('error') for k, v in suite.items()} }")
+    check(suite["config3"]["correct"] is True, "config 3: slot 0 != 2")
+    check(suite["config4"]["measured"]["decrypt_equal"] is True,
+          "config 4: the rewritten circuit decrypts differently")
+    check(suite["config6"]["correct"] is True, "config 6: oracle")
+    check(all(suite[f"config{i}"]["correct"] is True for i in (1, 2, 5)),
+          "config 1, 2 or 5 incorrect")
+    check(not full["nan_headlines"],
+          f"bench headline values that are nan: {full['nan_headlines']}")
+    check(len(lines[-1]) < 1500 and line["ok"] is True,
+          f"bench compact line: {len(lines[-1])} characters")
+    check(full["device"]["kind"] == torch.cuda.get_device_name(0)
+          and full["timer"] == "cuda_graph", f"bench ran on {full['device']}")
+    check(sorted(full["mult_relin"]["batch_curve"]) == ["1", "16", "64", "8"]
+          and all(row["ntt_launches_per_step"] == [5, 3]
+                  for row in full["mult_relin"]["batch_curve"].values()),
+          "mult+relin curve: batches or the per-step census")
+    check(all(v > 0 for v in launches[0].values()),
+          f"the bench launched a kernel no time: {launches[0]}")
+    sol = full["mult_relin"]["speed_of_light"]
+    print(f"  bench --quick: {seconds:.1f} s, exit 0, six configs without "
+          f"error, config 3 correct, config 4 decrypt_equal, config 6 equal "
+          f"to the oracle, no nan; NTT launches {launches[0]}; mult+relin "
+          f"floor {sol['floor_us']:.3f} us by {sol['bound_by']} "
+          f"({sol['ntt_rows']} NTT rows), op at "
+          f"{sol['pct_of_floor']:.3f}% of it at B=1", flush=True)
+    print(lines[-2], flush=True)
+    print(lines[-1], flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1248,6 +1457,10 @@ def main() -> int:
     announce("phase 9: CKKS (n=32768, 8 + 2 primes; leveled views, the "
              "config-5 op, float programs as graphs, the packed matvec)")
     ckks_stats, ckks_launches = phase_ckks(dev, gold)
+    announce("phase 10: the measurement entry point (batch contract, "
+             "python -m abc_tpu_torch.bench --quick in process)")
+    bench_launches, bench_abl_launches = phase_bench(dev, gold)
+    bench_launches.update(bench_abl_launches)
     announce("phases done")
     loaded = sorted(m for m, v in sys.modules.items() if v is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "abc_tpu"))
@@ -1263,6 +1476,9 @@ def main() -> int:
                 # the CKKS path (phase 9), counted alone, and the kernel at
                 # the largest launch shape of the CKKS op
                 "launches_ckks": ckks_launches.get(name, 0),
+                # the measurement entry point (phase 10), counted alone: it
+                # times ntt_fwd / ntt_inv and never the ablation's kernels
+                "launches_bench": bench_launches.get(name, 0),
                 "ckks": ckks_stats.get(name),
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],

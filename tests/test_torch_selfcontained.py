@@ -47,7 +47,10 @@ def test_the_walk_sees_the_package():
     assert {"chip_smoke.py", "abc_tpu_torch/crypto/bfv.py",
             "abc_tpu_torch/passes/pipeline.py",
             "abc_tpu_torch/runtime/jit_executor.py", "abc_tpu_torch/cli.py",
-            "abc_tpu_torch/scripts/ntt_ablation.py"} <= names
+            "abc_tpu_torch/scripts/ntt_ablation.py",
+            "abc_tpu_torch/bench.py", "abc_tpu_torch/benchsuite.py",
+            "abc_tpu_torch/entry.py", "abc_tpu_torch/utils/timing.py",
+            "abc_tpu_torch/scripts/hybrid_ks_ab.py"} <= names
 
 
 def test_import_detection_sees_nested_imports(tmp_path):
