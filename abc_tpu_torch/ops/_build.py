@@ -20,7 +20,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = [os.path.join(_CSRC, f) for f in ("ntt.cu", "ntt_ablation.cu")]
-HEADERS = [os.path.join(_CSRC, "ntt_common.cuh")]
+HEADERS = [os.path.join(_CSRC, f) for f in ("ntt_common.cuh",
+                                             "ntt_passes.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SO = os.path.join(BUILD_DIR, "libabc_ntt.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -90,7 +91,8 @@ def build() -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built first if missing or older than a source."""
+    """The kernel library, built first if missing or older than a source,
+    with every kernel allowed the shared memory its largest launch takes."""
     global _LIB
     if _LIB is not None:
         return _LIB
@@ -111,6 +113,14 @@ def load() -> ctypes.CDLL:
     lib.abc_alu_chain.restype = i32
     lib.abc_cuda_error_string.argtypes = [i32]
     lib.abc_cuda_error_string.restype = ctypes.c_char_p
+    # the kernels' shared-memory limit, set once (csrc/ntt_passes.cuh:
+    # allow_max_smem)
+    for init in (lib.abc_ntt_init, lib.abc_ablate_init):
+        init.argtypes, init.restype = [], i32
+        err = init()
+        if err != 0:
+            raise RuntimeError(f"{init.__name__} failed: "
+                               f"{lib.abc_cuda_error_string(err).decode()}")
     _LIB = lib
     return lib
 

@@ -3,8 +3,11 @@ kernels) and their plain torch versions.
 
 `ablate_ntt(a, ctx, mode)` runs the forward NTT of `[..., L, n]` int32
 residues with one class of work removed, chosen by `mode` (one of `MODES`),
-with the ψ^brv tables of a crypto/ntt.NttContext. Every mode writes the
-words of the TPU kernel's mode, canonical in [0, q):
+with the ψ^brv tables of a crypto/ntt.NttContext. On a CUDA tensor that is
+the shipping `ntt_fwd` kernel taken apart (csrc/ntt_ablation.cu on the
+skeleton of csrc/ntt_passes.cuh, with ntt_fwd's launch geometry; `full` is
+ntt_fwd itself). Every mode writes the words of the TPU kernel's mode,
+canonical in [0, q):
 
     zero                            x
     masks_only                      (x + popcount(p)) mod q, p the position

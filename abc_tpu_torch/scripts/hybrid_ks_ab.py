@@ -45,7 +45,7 @@ def run(device="cuda", n=N, chain=CHAIN, k_est=K_EST, log=print):
     variant the median ops/s of k_est two-point estimates taken in turns
     (nan where no pair of a variant was valid)."""
     dev = require_device(device)
-    variants = {}
+    timers = {}
     for k in (1, 2):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")      # k=2 is over budget (above)
@@ -57,20 +57,17 @@ def run(device="cuda", n=N, chain=CHAIN, k_est=K_EST, log=print):
         got = ctx.decode(ctx.decrypt(ctx.multiply(a, b)))[:4]
         assert got == [5, 12, 21, 32], f"k={k} correctness: {got}"
         y = BfvCiphertext(b.data)
-        variants[k] = (whole_op_chain(
+        timers[k] = chain_timers(whole_op_chain(
             ctx, lambda x, ctx=ctx, y=y: ctx.multiply(BfvCiphertext(x),
                                                       y).data, CENSUS),
-            a.data)
-    # In turns, one pair each. Every estimate captures its two graphs anew
-    # and drops them before the other variant's turn, so that one pair of
-    # graphs is alive at a time and both variants meet the same states of
-    # the device.
+            a.data, chain)
+    # Both variants' graphs stay alive and are replayed in turns, one pair
+    # each: each graph holds the tensors it reads (utils/timing.graph_of).
     pairs = {1: [], 2: []}
     for _ in range(3 * k_est):
-        for k, (make_chain, x0) in variants.items():
+        for k in (1, 2):
             if len(pairs[k]) < k_est:
-                pairs[k] += valid_pairs(chain_timers(make_chain, x0, chain),
-                                        chain, 1, attempts=1)
+                pairs[k] += valid_pairs(timers[k], chain, 1, attempts=1)
     out = {"device": device_label(dev), "n": n, "chain": chain,
            "k_est": k_est, "timer": timer_of(a.data)}
     for k in (1, 2):

@@ -6,25 +6,32 @@ scripts/ntt_ablation.py).
 
 At n = 16384 with the L = 14 moduli of `BfvParams.create(16384, seed=5)`:
 
-  ablation   the kernels of ops/ntt_ablation.py (csrc/ntt_ablation.cu), each
-             the forward transform with one class of work removed:
-               zero        global load + store + launch   (the floor)
-               masks_only  per-stage index arithmetic, in the thread
-               rolls_only  per-stage shared-memory exchange + barrier
-               muls_only   Shoup products with their twiddle loads
-               full        the transform, one stage and one barrier at a
-                           time in shared memory: the loop of the port's
-                           first ntt_fwd, kept as the record of that design
-               reformed    multiply first, then exchange the product
-             then "shipping": `NttContext.fwd`, the kernel the port runs
-             (clusters, three stages per pass in registers; csrc/ntt.cu),
-             so "full" against "shipping" is that design's before and after.
+  ablation   the kernels of ops/ntt_ablation.py (csrc/ntt_ablation.cu): the
+             shipping forward transform, ntt_fwd's design (csrc/ntt.cu and
+             csrc/ntt_passes.cuh: C CTAs per row, the gather of the stages
+             across CTAs, three stages per pass in registers, 16-byte loads
+             and stores), with one class of work removed, as the TPU script
+             took apart the kernel that shipped there:
+               zero        the geometry's load + store + launch (the floor)
+               masks_only  per-stage position arithmetic, no exchange
+               rolls_only  every data movement of the shipping kernel, w = 1
+               muls_only   Shoup products with their twiddle loads, no
+                           exchange
+               full        the shipping kernel itself, compiled from the
+                           same source
+               reformed, rolls_sub, rolls_lane, split0, splitk
+                           the TPU's other modes, restated on the same
+                           passes (csrc/ntt_ablation.cu says what each
+                           changes there)
+             then "shipping": `NttContext.fwd`, the kernel the port runs, in
+             the same process: `full_over_shipping` near 1 says that the
+             ablation took apart the kernel that ships.
   calibration  `alu_chain` mac and shoup: the card's sustained u32 rate on
              the butterfly's own multiply mix, from instruction counts read
              out of the SASS.
   census     instructions per butterfly, counted in the SASS of the
-             butterfly loop of `full` and of ntt_fwd_kernel's three-stage
-             pass ("shipping").
+             three-stage register pass of `full` and of ntt_fwd_kernel
+             ("shipping"): the same code, so the same counts.
   reconciled achieved ALU rate of `full` against the calibrated ceiling.
   --batched  `ntt_fwd` and `ntt_inv` at B in {1, 8, 16, 64}: the median of
              5 two-point estimates, in us per transform and Gbf/s.
@@ -58,8 +65,6 @@ from abc_tpu_torch.ops.modarith import as_residues
 from abc_tpu_torch.utils.timing import chain_of, estimates, timed_per_iter
 
 N = 16384
-MAIN_MODES = ("zero", "masks_only", "rolls_only", "muls_only", "full",
-              "reformed")
 ALU_ITERS = 512
 ALU_UNROLL = 8          # `#pragma unroll 8` on both chains, csrc/ntt_ablation.cu
 BATCHES = ((1, 2048), (8, 256), (16, 128), (64, 32))
@@ -183,17 +188,19 @@ def _innermost(body, pick):
     return hits[-1]
 
 
-FULL_KERNEL = "ablate_ntt_kernelILi4EE"     # Mode kFull of csrc/ntt_ablation.cu
-SHIPPING_KERNEL = "ntt_fwd_kernelILi0EE"   # the C = 1 instantiation
+# the C = 1 instantiations of Mode kFull of csrc/ntt_ablation.cu and of
+# csrc/ntt.cu's forward kernel
+FULL_KERNEL = "ablate_ntt_kernelILi4ELi0EE"
+SHIPPING_KERNEL = "ntt_fwd_kernelILi0EE"
 
 
 def butterfly_census(funcs, kernel, n=N):
     """Instructions per butterfly of `kernel`'s butterfly loop, counted in
     its SASS: the largest innermost loop that holds Shoup products and
-    shared-memory stores (the one-stage loop of `full`; the three-stage
-    register pass of ntt_fwd_kernel). One IMAD.HI per butterfly. The
-    barriers are those of the loop around it: per stage in `full`, per
-    three-stage pass in ntt_fwd_kernel."""
+    shared-memory stores (the three-stage register pass of ntt_fwd_kernel
+    and of `full`; a one-stage loop in a kernel of that shape). One IMAD.HI
+    per butterfly. The barriers are those of the loop around it, where there
+    is one."""
     body = _find(funcs, kernel)
     lo, hi = _innermost(body, lambda ops: any(o.startswith("IMAD.HI")
                                               for o in ops)
@@ -241,7 +248,7 @@ def alu_chain_census(funcs):
 def census(n=N):
     """The SASS census of the built library: the butterfly loop of `full`
     (top-level keys, what `reconciled` reads), of ntt_fwd_kernel
-    ("shipping") and both ALU chains."""
+    ("shipping", the same code) and both ALU chains."""
     funcs = sass_functions(_build.sass())
     return {**butterfly_census(funcs, FULL_KERNEL, n),
             "shipping": butterfly_census(funcs, SHIPPING_KERNEL, n),
@@ -261,8 +268,10 @@ def _row(step, x0, chain, bf_per_fwd):
 
 
 def run(quick=False, chain=0, log=print):
-    """The ablation, the ALU calibration, the census and the reconciled
-    ceiling; returns the result dict."""
+    """The ablation (every mode, then the shipping transform), the ALU
+    calibration, the census and the reconciled ceiling; returns the result
+    dict, with `full_over_shipping` and `attribution_us` (the time each
+    class of work adds to the floor)."""
     _require_cuda()
     dev = torch.device("cuda", 0)
     chain = chain or (64 if quick else 256)
@@ -272,12 +281,26 @@ def run(quick=False, chain=0, log=print):
     bf_per_fwd = L * (N // 2) * logn
     out = {"device": torch.cuda.get_device_name(0), "n": N, "L": L,
            "chain": chain, "census": census(N)}
-    for mode in MAIN_MODES:
+    for mode in na.MODES:
         out[mode] = _row(lambda v, m=mode: na.ablate_ntt(v, ctx, m), x0,
                          chain, bf_per_fwd)
         log(mode, json.dumps(out[mode]))
     out["shipping"] = _row(ctx.fwd, x0, chain, bf_per_fwd)
     log("shipping", json.dumps(out["shipping"]))
+    out["full_over_shipping"] = out["full"]["us_per_fwd"] / \
+        out["shipping"]["us_per_fwd"]
+    floor = out["zero"]["us_per_fwd"]
+    out["attribution_us"] = {
+        "floor (zero)": floor,
+        "data movement (rolls_only - zero)":
+            out["rolls_only"]["us_per_fwd"] - floor,
+        "products and twiddle loads (muls_only - zero)":
+            out["muls_only"]["us_per_fwd"] - floor,
+        "position arithmetic (masks_only - zero)":
+            out["masks_only"]["us_per_fwd"] - floor,
+        "the transform above the floor (full - zero)":
+            out["full"]["us_per_fwd"] - floor}
+    log("full_over_shipping", out["full_over_shipping"])
 
     # ALU calibration: [L, N/128, 128] words, ALU_ITERS chained per launch
     xa = x0.reshape(L, N // 128, 128)

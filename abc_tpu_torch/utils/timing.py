@@ -50,10 +50,20 @@ def timer_of(x: torch.Tensor) -> str:
 
 def graph_of(run: Callable, x0: torch.Tensor) -> "torch.cuda.CUDAGraph":
     """run(x0) captured in a CUDA graph (default error mode: a host
-    synchronisation or a host-to-device copy inside `run` raises)."""
+    synchronisation or a host-to-device copy inside `run` raises), with
+    `output` the tensor a replay writes.
+
+    A replay reads whatever device memory the capture read: x0, and the
+    tensors `run` reaches (a context's keys and tables, a second operand).
+    So the graph holds x0 and `run` for as long as it lives. A graph whose
+    input was freed replays into memory that the next capture frees with
+    cudaFree (`torch.cuda.graph` empties the allocator's cache as it
+    starts): a segmentation fault in cudaGraphLaunch, an illegal address or
+    wrong words."""
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        run(x0)
+        g.output = run(x0)
+    g.held = (run, x0)
     return g
 
 
@@ -96,9 +106,7 @@ def chain_timers(make_chain: Callable, x0: torch.Tensor, chain: int):
     make_chain(1)(x0)
     torch.cuda.synchronize()
     g_full, g_half = graph_of(full, x0), graph_of(half, x0)
-    # the graphs read x0's memory at every replay: the timers keep it alive
-    return (lambda keep=x0: replay_s(g_full)), \
-        (lambda keep=x0: replay_s(g_half))
+    return (lambda: replay_s(g_full)), (lambda: replay_s(g_half))
 
 
 def timed_per_iter(step: Callable, x0: torch.Tensor, chain: int

@@ -42,14 +42,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
    decomposition, both kernels launched; phase times.
 6. Keys on the card: a fresh factory (keygen) and every Galois key that
    LaplaceSharpening used, timed, equal to phase 5's keys.
-7. NTT ablation and ALU calibration: every mode of ablate_ntt torch.equal to
-   its plain version at (n, L, B) = (16384, 14, 1) and (8192, 6, 3), the
-   four NTT modes also equal to ntt_fwd; both alu_chain kinds at
-   [14, 128, 128] x 512 iterations equal to their plain versions. Then the
-   path itself: `python -m abc_tpu_torch.scripts.ntt_ablation --quick`'s
-   measurement, with the ablation module's launch counts taken over it
-   alone, the SASS check that the ALU chains were not folded, and its JSON
-   on one line.
+7. NTT ablation and ALU calibration: every mode of ablate_ntt (the shipping
+   ntt_fwd design with one class of work removed) torch.equal to its plain
+   version at (n, L, B) = (16384, 14, 1), (8192, 6, 3), (16384, 14, 8),
+   (8192, 16, 4) and (8192, 12, 3), which reach every cluster size, so that
+   every ablate_ntt_kernel<Mode, LOGC> runs; the four NTT modes also equal
+   to ntt_fwd; both alu_chain kinds at [14, 128, 128] x 512 iterations equal
+   to their plain versions. Then the path itself: `python -m
+   abc_tpu_torch.scripts.ntt_ablation --quick`'s measurement, with the
+   ablation module's launch counts taken over it alone, the SASS checks
+   that the ALU chains were not folded and that `full` has ntt_fwd's
+   instructions per butterfly, full_over_shipping, and its JSON on one
+   line.
 8. Whole-program execution (jit_compile_program / JittedProgram: the
    program as one CUDA graph). The README hamming program at n=8192 with
    phase 4's seed: run() decrypts to 2, the raw output words equal phase
@@ -68,6 +72,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
    equal to phase 3's op on the same operands): ms per replay beside phase 3's eager
    ms/op and device-kernel total. `python -m abc_tpu_torch hamming -
    --backend bfv --slots 8192` as a subprocess.
+8b. Two captured programs of two contexts alive at once, replayed in turns:
+   (i) the README hamming program (BFV n=8192) and the config-5 CKKS op
+   (n=32768) through jit_compile_program, 20 rounds of fresh inputs through
+   encrypt_inputs, every replay equal to its program's eager run on the
+   same ciphertexts and to the oracle, no counter moving, and hamming's
+   words on one input pair equal before the CKKS program existed and after
+   the rounds; (ii) hybrid_ks_ab's first form (scripts/graph_lifetime.py,
+   "held"): k=1 and k=2 contexts at n=8192, an eager multiply + decrypt on
+   each, chain graphs of 16 and 8 steps of each on an input only the graphs
+   hold, replayed in turns, equal to eager chains; (iii) ntt_inv captured at
+   n=32768 on 48 rows (147456 B of shared memory), launched eagerly at
+   n=16384 on 48 rows (73728 B), then replayed: equal to an eager run.
 
 9. CKKS at the reference's own CKKS size (n=32768, 8 data + 2 special
    primes of 30 bits, k=2, scale 2^25; abc_tpu/benchsuite.py config 5).
@@ -191,7 +207,11 @@ CKKS_JSON_SHAPE = {"ntt_fwd": (8, True, 4), "ntt_inv": (8, False, 3)}
 CKKS_MATVEC_N = 2048
 CKKS_DEPTH2 = ("secret double acc = w0 * w1; acc = acc + rotate(w0, 1); "
                "acc = acc * w1; return acc;")
-ABLATION_SHAPES = [(16384, 14, 1), (8192, 6, 3)]
+# (n, L, batch) of the ablation: the measurement's own shape first, then one
+# shape per cluster size, so that every ablate_ntt_kernel<Mode, LOGC> runs:
+# C = 8 (14 and 18 rows), 1 (112 rows), 2 (64), 4 (36)
+ABLATION_SHAPES = [(16384, 14, 1), (8192, 6, 3), (16384, 14, 8),
+                   (8192, 16, 4), (8192, 12, 3)]
 ALU_SHAPE, ALU_ITERS = (14, 128, 128), 512
 # where the kernels line times the ablation kernels: mode / kind
 ABLATION_TIMED = {"ablate_ntt": "full", "alu_chain": "shoup"}
@@ -709,11 +729,13 @@ def phase_ablation(dev):
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
         check(torch.equal(got, want), what)
 
+    clusters = set()
     for n, L, batch in ABLATION_SHAPES:
         moduli = gen_ntt_primes(30, L, n)
         ctx = NttContext(n, moduli, dev)
         x = rand_residues(moduli, (batch, L, n), seed=n + 2 * L + batch,
                           device=dev)
+        clusters.add(nk.cluster_size(L * batch, n))
         fwd = nk.ntt_fwd(x, ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
         for mode in na.MODES:
             got = na.ablate_ntt(x, ctx, mode)
@@ -723,7 +745,9 @@ def phase_ablation(dev):
             if mode in na.NTT_MODES:
                 hold("ablate_ntt", got, fwd,
                      f"ablate_ntt {mode} != ntt_fwd at {n, L, batch}")
-        line = f"  n={n} L={L} batch={batch}: {len(na.MODES)} modes = plain"
+        line = (f"  n={n} L={L} batch={batch} ({L * batch} rows x "
+                f"{nk.cluster_size(L * batch, n)} CTAs): {len(na.MODES)} "
+                f"modes = plain, the NTT modes = ntt_fwd")
         if (n, L, batch) == ABLATION_SHAPES[0]:
             mode = ABLATION_TIMED["ablate_ntt"]
             line += f"; {mode}: " + _timed(
@@ -731,6 +755,8 @@ def phase_ablation(dev):
                 lambda: na.ablate_ntt_plain(x, ctx.q, ctx.fwd_tw, mode),
                 [n, L, batch], ntt_bound(n, L, L * batch, False))
         print(line, flush=True)
+    check(clusters == {1, 2, 4, 8},
+          f"ablation shapes reach cluster sizes {clusters}")
 
     rng = np.random.default_rng(12)
     xa = as_residues(rng.integers(0, 1 << 32, size=ALU_SHAPE,
@@ -761,22 +787,28 @@ def phase_ablation(dev):
     chains = result["census"]["alu_chain"]
     check(not any(c["folded"] for c in chains.values()),
           f"ALU chains folded by the compiler: {chains}")
-    times = [result[m]["us_per_fwd"] for m in script.MAIN_MODES + (
-        "shipping",)] + [result[f"alu_{k}"]["us_per_launch"]
-                         for k in na.ALU_KINDS]
+    times = [result[m]["us_per_fwd"] for m in na.MODES + ("shipping",)] + \
+        [result[f"alu_{k}"]["us_per_launch"] for k in na.ALU_KINDS]
     check(all(np.isfinite(t) and t > 0 for t in times),
           f"ablation times not positive: {times}")
+    # `full` is ntt_fwd_kernel compiled from the same source: the same
+    # instructions in its butterfly loop
+    same = ("instructions_per_butterfly", "alu_per_butterfly",
+            "imad_per_butterfly")
+    census = result["census"]
+    check(all(census[key] == census["shipping"][key] for key in same),
+          "full's SASS census != ntt_fwd's: " + str(
+              {key: (census[key], census["shipping"][key]) for key in same}))
     print("  SASS: " + ", ".join(
         f"alu_{k} {c['ops_per_iter']} IMAD / {c['instructions_per_iter']} "
         f"instructions per iteration (not folded)"
         for k, c in chains.items()) + "; per butterfly: " + ", ".join(
-            f"{what} {c['instructions_per_butterfly']:.1f} instructions, "
-            f"{c['alu_per_butterfly']:.1f} ALU"
-            for what, c in (("full (one stage per barrier)",
-                             result["census"]),
-                            ("ntt_fwd (three stages per pass)",
-                             result["census"]["shipping"])))
-        + f"; launches {launches}", flush=True)
+            f"{what} {c['instructions_per_butterfly']:.2f} instructions, "
+            f"{c['alu_per_butterfly']:.2f} ALU, {c['imad_per_butterfly']:.2f}"
+            f" IMAD" for what, c in (("full", census),
+                                     ("ntt_fwd", census["shipping"])))
+        + f"; full_over_shipping {result['full_over_shipping']:.3f} (graph "
+        f"two-point, same process); launches {launches}", flush=True)
     print(json.dumps({"ntt_ablation": result}), flush=True)
     return stats, launches
 
@@ -1001,6 +1033,101 @@ def phase_whole_program(dev, gold, hamming_words, laplace_words,
           f"{MAIN_N}: exit 0, {lines[0]} = {lines[1]} (ms, host clock, "
           f"first run of its process), sum: [2 ...", flush=True)
     return launches
+
+
+TWO_PROGRAM_ROUNDS = 20
+
+
+def phase_two_programs(dev, gold):
+    """Captured graphs of two contexts alive at once, replayed in turns
+    (ROADMAP Queue 3: the graphs of two contexts replayed in turns once
+    crashed in cudaGraphLaunch)."""
+    from abc_tpu_torch import CompileOptions, jit_compile_program
+    from abc_tpu_torch.crypto.ckks import CkksContext, CkksParams
+    from abc_tpu_torch.crypto.ntt import NttContext
+    from abc_tpu_torch.crypto.numthy import gen_ntt_primes
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+    from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
+    from abc_tpu_torch.scripts import graph_lifetime
+    from abc_tpu_torch.utils.timing import graph_of
+
+    # (i) two programs: the README hamming program under BFV at n=8192 and
+    # the config-5 CKKS op at n=32768, fresh inputs every round
+    g = gold["hamming_n8192"]
+    bfv = jit_compile_program(
+        g["program"], g["inputs"], g["output"],
+        factory=BfvCiphertextFactory(slots=g["n"], seed=g["seed"],
+                                     device=dev),
+        options=CompileOptions(vectorize=True))
+    out_b = next(iter(bfv.run_raw(bfv.secret_inputs)))
+    first = bfv.encrypt_inputs({"x": [1, 0, 0, 1], "y": [0, 0, 1, 1]})
+    alone = bfv.run_raw(first)[out_b]       # the CKKS program not yet made
+    c = gold["ckks_mult_relin_n32768_k2"]
+    params = CkksParams.create(c["n"], levels=c["levels"], seed=c["seed"],
+                               ks_digits=c["ks_digits"])
+    ckks = jit_compile_program(
+        "secret double p = a *** a; p = rotate(p, 0);",
+        "secret double a = {" + ", ".join(map(repr, c["a"])) + "};",
+        "y = p;", factory=CkksCiphertextFactory(
+            context=CkksContext(params, dev)))
+    rng = np.random.default_rng(c["seed"])
+    for r in range(TWO_PROGRAM_ROUNDS):
+        x, y = rng.integers(0, 2, size=(2, 4)).tolist()
+        vals = rng.uniform(-1.0, 1.0, 8)
+        fresh_b = bfv.encrypt_inputs({"x": x, "y": y})
+        fresh_c = ckks.encrypt_inputs({"a": vals})
+        raw_b = unchanged_across(bfv, fresh_b)[out_b]
+        raw_c = unchanged_across(ckks, fresh_c)["y"]
+        check(torch.equal(raw_b, bfv.run_eager(fresh_b)[out_b])
+              and torch.equal(raw_c, ckks.run_eager(fresh_c)["y"]),
+              f"round {r}: a replay != its program's eager run on the same "
+              "ciphertexts")
+        hd = bfv.decrypt_outputs({out_b: raw_b})[out_b][0]
+        check(hd == sum(int(u != v) for u, v in zip(x, y)),
+              f"round {r}: hamming {x} {y} decrypts to {hd}")
+        z = ckks.decrypt_outputs({"y": raw_c})["y"][:len(vals)]
+        check(np.allclose(z, vals ** 2, rtol=1e-2, atol=1e-2),
+              f"round {r}: the CKKS op decrypts {z[:4]}")
+    check(torch.equal(bfv.run_raw(first)[out_b], alone),
+          "hamming after the rounds != hamming before the CKKS program "
+          "existed, on the same ciphertexts")
+    print(f"  (i) hamming (BFV n={g['n']}) and the config-5 op (CKKS "
+          f"n={c['n']}) as two graphs alive together: {TWO_PROGRAM_ROUNDS} "
+          f"rounds in turns on fresh inputs, every replay equal to its "
+          f"program's eager run and to the oracle, no counter moving; "
+          f"hamming's words on its first inputs equal before and after",
+          flush=True)
+    del bfv, ckks
+
+    # (ii) hybrid_ks_ab's first form: k=1 and k=2 contexts, eager multiply
+    # + decrypt, chain graphs of each on an input only the graphs hold
+    print("  (ii) " + graph_lifetime.replay_in_turns(
+        "held", log=lambda _: None), flush=True)
+
+    # (iii) a graph that needs more shared memory than the eager launch
+    # after it: ntt_inv at n=32768 on 48 rows (C = 2, 147 456 B) captured,
+    # ntt_inv at n=16384 on 48 rows (C = 2, 73 728 B) eager, the replay
+    ctxs = {n: NttContext(n, gen_ntt_primes(30, 8, n), dev)
+            for n in (32768, 16384)}
+    xs = {n: rand_residues(ctx.moduli, (6, 8, n), seed=n, device=dev)
+          for n, ctx in ctxs.items()}
+    check([nk.cluster_size(48, n) for n in ctxs] == [2, 2],
+          "48 rows at n = 32768, 16384 no longer run at C = 2")
+    want = ctxs[32768].inv(xs[32768])
+    graph = graph_of(ctxs[32768].inv, xs[32768])
+    small = ctxs[16384]
+    check(torch.equal(small.inv(xs[16384]), nk.inv_ntt_plain(
+        xs[16384], small.q, small.inv_tw, small.n_inv)),
+        "ntt_inv at n=16384 != plain")
+    graph.output.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(graph.output, want),
+          "ntt_inv graph at n=32768 after an eager n=16384 launch != eager")
+    print("  (iii) ntt_inv captured at n=32768 (48 rows x 2 CTAs, 147456 B "
+          "of shared memory), launched eagerly at n=16384 (73728 B), then "
+          "replayed: equal to the eager run", flush=True)
 
 
 def ckks_leveled(ctx, vals):
@@ -1454,6 +1581,9 @@ def main() -> int:
     graph_launches = phase_whole_program(dev, gold, hamming_words,
                                          laplace_words, laplace_eager_ms,
                                          mult_eager[1])
+    announce("phase 8b: two captured programs of two contexts, replayed in "
+             "turns")
+    phase_two_programs(dev, gold)
     announce("phase 9: CKKS (n=32768, 8 + 2 primes; leveled views, the "
              "config-5 op, float programs as graphs, the packed matvec)")
     ckks_stats, ckks_launches = phase_ckks(dev, gold)

@@ -400,3 +400,42 @@ def test_suite_entry_and_ab_raise_without_a_card(no_card):
         entry.entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hybrid_ks_ab.run()
+
+
+def test_graph_lifetime_raises_without_a_card(no_card):
+    from abc_tpu_torch.scripts import graph_lifetime
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graph_lifetime.main([])
+
+
+# ---------------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_graph_of_holds_what_it_reads(cuda):
+    """A graph captured on an input that nothing else holds, replayed after
+    another capture emptied the allocator's cache: graph_of keeps the input
+    alive, so the replay reads it (utils/timing.graph_of's note)."""
+    x = torch.arange(1 << 16, device=cuda, dtype=torch.int32)
+    want = x * 3 + 1
+    g = timing.graph_of(lambda v: v * 3 + 1, x.clone())
+    timing.graph_of(lambda v: v + 1, x)      # its capture empties the cache
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g.output, want)
+
+
+@pytest.mark.gpu
+def test_two_contexts_chain_graphs_replay_in_turns(cuda):
+    """hybrid_ks_ab's first form (scripts/graph_lifetime.py, "held"): the
+    k=1 and k=2 chain graphs alive together, replayed in turns, equal to
+    their eager chains."""
+    from abc_tpu_torch.scripts import graph_lifetime
+    assert "every replay equal" in graph_lifetime.replay_in_turns(
+        "held", rounds=2, log=lambda _: None)

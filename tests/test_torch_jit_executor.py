@@ -373,6 +373,48 @@ def test_jitted_ckks_program():
     assert out == ref.run()["yp"]
 
 
+def test_two_programs_of_two_contexts_run_in_turns():
+    """Two whole programs of different contexts alive at once (BFV hamming
+    at n=1024, a CKKS program at n=512) run in turns for 5 rounds on fresh
+    inputs: every run's words equal that program's run alone on the same
+    ciphertexts, and abc_tpu's jit_compile_program of the same seed on
+    them."""
+    from abc_tpu.runtime.ckks_backend import CkksCiphertextFactory as RefCkks
+    rng = np.random.default_rng(11)
+    bfv = jit_compile_program(HAMMING_LOOP, XY, "out = sum;",
+                              factory=_port(seed=11))
+    pairs = rng.integers(0, 2, size=(5, 2, 4)).tolist()
+    in_b = [bfv.encrypt_inputs({"x": x, "y": y}) for x, y in pairs]
+    alone_b = [bfv.run_raw(i)["out"] for i in in_b]
+    ckks = jit_compile_program(factory=_ckks_port(seed=12),
+                               **CKKS_MULT_ROTATE)
+    vals = rng.uniform(-1.0, 1.0, size=(5, 2, 3))
+    in_c = [ckks.encrypt_inputs({"a": list(a), "b": list(b)})
+            for a, b in vals]
+    alone_c = [ckks.run_raw(i)["yp"] for i in in_c]
+    for r in range(5):
+        got_b, got_c = bfv.run_raw(in_b[r])["out"], ckks.run_raw(in_c[r])["yp"]
+        assert torch.equal(got_b, alone_b[r]) and torch.equal(got_c,
+                                                              alone_c[r]), r
+        x, y = pairs[r]
+        assert bfv.decrypt_outputs({"out": got_b})["out"][0] == \
+            sum(u != v for u, v in zip(x, y))
+        np.testing.assert_allclose(
+            ckks.decrypt_outputs({"yp": got_c})["yp"][:2],
+            (vals[r, 0] * vals[r, 1])[1:], atol=1e-2)
+    refs = {"out": (ref_jit_compile_program(
+                HAMMING_LOOP, XY, "out = sum;",
+                factory=RefFactory(slots=1024, engine="jx32", seed=11)),
+                in_b, alone_b),
+            "yp": (ref_jit_compile_program(
+                factory=RefCkks(n=512, levels=3, engine="jx32", seed=12),
+                **CKKS_MULT_ROTATE), in_c, alone_c)}
+    for name, (ref, inputs, alone) in refs.items():
+        for i, words in zip(inputs, alone):
+            want = ref.run_raw({k: to_host(v) for k, v in i.items()})[name]
+            np.testing.assert_array_equal(to_host(words), np.asarray(want))
+
+
 def test_ckks_census_discovers_keys(monkeypatch):
     """The dummy-run key census serves CKKS too (both schemes map
     rotate(steps) to galois element 3^(steps mod n/2) mod 2n over the ring

@@ -309,6 +309,31 @@ def test_sass_census_counts_butterflies_by_their_shoup_products():
     assert c["barriers_per_outer_loop"] is None
 
 
+def test_sass_census_reads_full_as_the_shipping_pass():
+    """`full` is the C = 1 instantiation ablate_ntt_kernel<kFull, 0>, the
+    shipping pass compiled again: the census finds its three-stage pass
+    under FULL_KERNEL's name and counts what it counts for SHIPPING_KERNEL
+    on the same body."""
+    from abc_tpu_torch.scripts import ntt_ablation as script
+    shoup = ["IMAD.HI.U32 R25, R23, R6, RZ", "IMAD R25, R10, R25, RZ",
+             "IMAD R25, R8, R23, -R25", "IADD3 R7, R7, R25, RZ",
+             "LOP3.LUT R9, R9, 0xff, RZ, 0xc0, !PT"]
+    body = ["MOV R0, RZ"] + ["LDS R22, [R20]"] * 8 + shoup * 12 + \
+        ["STS [R20], R7"] * 8 + ["@!P1 BRA 0x10", "EXIT", "BRA 0x400"]
+    text = "\n".join(
+        _sass_function(name, body) for name in (
+            script.FULL_KERNEL, script.SHIPPING_KERNEL,
+            script.FULL_KERNEL.replace("Li0EE", "Li3EE")))
+    funcs = script.sass_functions(text)
+    full = script.butterfly_census(funcs, script.FULL_KERNEL)
+    shipping = script.butterfly_census(funcs, script.SHIPPING_KERNEL)
+    assert full["kernel"] == "ablate_ntt_kernelILi4ELi0EE"
+    assert full["butterflies_per_loop_body"] == 12
+    assert full["instructions_per_butterfly"] == (8 + 60 + 8 + 1) / 12
+    assert {k: v for k, v in full.items() if k != "kernel"} == \
+        {k: v for k, v in shipping.items() if k != "kernel"}
+
+
 @pytest.mark.parametrize("kind,ops,unroll,folded", [
     ("mac", _MAC, 8, False), ("shoup", _SHOUP, 8, False),
     ("mac", _MAC, 4, True)])
@@ -330,10 +355,16 @@ def test_sass_census_of_the_alu_chains(kind, ops, unroll, folded):
 # ---------------------------------------------------------------- on the card
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,L,batch", [(16384, 14, 1), (8192, 6, 3)])
-def test_ablate_kernels_match_plain_on_cuda(cuda, n, L, batch):
+@pytest.mark.parametrize("n,L,batch,ctas", [
+    (16384, 14, 1, 8), (8192, 6, 3, 8), (16384, 14, 8, 1), (8192, 16, 4, 2),
+    (8192, 12, 3, 4)])
+def test_ablate_kernels_match_plain_on_cuda(cuda, n, L, batch, ctas):
+    """Every ablate_ntt_kernel<Mode, LOGC>: each mode at a shape of each
+    cluster size against its plain version, the NTT modes against
+    ntt_fwd."""
     moduli = gen_ntt_primes(30, L, n)
     ctx = NttContext(n, moduli, cuda)
+    assert nk.cluster_size(L * batch, n) == ctas
     a = as_residues(_rand(moduli, n, batch=(batch,), seed=n + L), cuda)
     fwd = nk.ntt_fwd(a, ctx.q, ctx.fwd_tw, ctx.fwd_tw_sh)
     for mode in na.MODES:
