@@ -42,6 +42,9 @@ Layout (module for module the reference's):
   convert.py           — context_from_reference, ckks_context_from_reference:
                          a reference context's state (numpy arrays, plain
                          values) → a port context
+  utils/checkpoint.py  — circuits, contexts (keys, seeded or full, with or
+                         without the secret) and ciphertexts in files, in
+                         the reference's format: a client/server split
 """
 
 __version__ = "0.3.0"

@@ -238,7 +238,7 @@ class BfvContext(RlweKeys):
     def _dot_secret(self, ct: BfvCiphertext) -> torch.Tensor:
         """v = Σ_k c_k·s^k mod q, [L, n] coefficient-domain residues
         (size-3 ciphertexts before relinearization included)."""
-        s = self.s_ntt_full[:self.params.L]
+        s = self._secret()[:self.params.L]
         c_ntt = self.ntt_q.fwd(ct.data)
         acc = t64.add(c_ntt[0], t64.mul(c_ntt[1], s, self.q_q), self.q_q)
         if ct.size == 3:

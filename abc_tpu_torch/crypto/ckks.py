@@ -399,7 +399,7 @@ class CkksContext(RlweKeys):
         host, where decode (exact CRT + float embedding) reads them."""
         level = ct.level
         ntt, q = self._ntt_at(level), self._q_at(level)
-        s = self.s_ntt_full[:level]
+        s = self._secret()[:level]
         f = ntt.fwd(ct.data)
         v, s_pow = f[0], None
         for k in range(1, ct.size):
@@ -435,6 +435,11 @@ class CkksContext(RlweKeys):
             yield
         finally:
             self._dec_cache.clear()
+
+    def _forget_key_tables(self) -> None:
+        """The identity-keyed cache and the per-level slices of the keys."""
+        super()._forget_key_tables()
+        self._ksk_dev_cache.clear()
 
     def add(self, a: CkksCiphertext, b: CkksCiphertext) -> CkksCiphertext:
         a, b = self._align(a, b)

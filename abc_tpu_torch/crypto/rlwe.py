@@ -47,6 +47,7 @@ from abc_tpu_torch.crypto.ntt import eval_perm_tables
 from abc_tpu_torch.crypto.prng import (derive_key, seeded_rng, split_domain,
                                        uniform_rns)
 from abc_tpu_torch.ops.modarith import as_residues, t64
+from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
 _CACHE_CAP = 8
 
@@ -147,14 +148,26 @@ class RlweKeys:
             * np.float32(self.params.error_std))
         return np.clip(e, -19, 19).astype(np.int64)
 
+    def _secret(self) -> torch.Tensor:
+        """The secret in NTT form over q∪P; raises where the context holds
+        none (restored from a file saved without it): decryption and key
+        builds need it, encryption and evaluation with the held keys do
+        not."""
+        if self.s_ntt_full is None:
+            raise RuntimeExecutionError(
+                "this context holds no secret key (it was restored from a "
+                "file saved without one): it encrypts and evaluates with the "
+                "keys it holds, and cannot decrypt or build a switching key")
+        return self.s_ntt_full
+
     def _ksk_target(self, key_id: str) -> torch.Tensor:
         """NTT-domain target secret for a key id: s² for "relin", τ_g(s) for
         "galois_<g>", the latter as the evaluation-domain permutation."""
+        s = self._secret()
         if key_id == "relin":
-            return t64.mul(self.s_ntt_full, self.s_ntt_full,
-                           self._tab["q_full"])
+            return t64.mul(s, s, self._tab["q_full"])
         g = int(key_id[len("galois_"):])
-        return self.s_ntt_full.index_select(-1, self._galois_perm_eval(g))
+        return s.index_select(-1, self._galois_perm_eval(g))
 
     def _build_key(self, key_id: str) -> Tuple:
         """One switching key toward the target secret of `key_id`, on the
@@ -162,17 +175,23 @@ class RlweKeys:
         batch: one Threefry call, one forward NTT of α·(L+k) rows. The
         stream label is the key id, so any engine regenerates the same key
         from (seed, id) alone."""
-        alpha, q_full = self.params.num_ks_digits, self._tab["q_full"]
-        a = self._uniform_rns(self.full,
-                              [f"{key_id}/d{i}" for i in range(alpha)])
+        q_full = self._tab["q_full"]
+        target = self._ksk_target(key_id)
+        a = self._ksk_uniform(key_id)
         e_ntt = self.ntt_qp.fwd(
             self._lift_signed(self._ksk_errors(key_id), q_full))
-        term = t64.mul(self._ksk_target(key_id)[None],
-                       self._tab["ks_factors"], q_full)
+        term = t64.mul(target[None], self._tab["ks_factors"], q_full)
         a_s = t64.mul(a, self.s_ntt_full[None], q_full)
         b = t64.add(t64.sub(t64.neg(a_s, q_full), e_ntt, q_full), term,
                     q_full)
         return b, a
+
+    def _ksk_uniform(self, key_id: str) -> torch.Tensor:
+        """The uniform halves [α, L+k, n] of a switching key: one stream
+        "<key id>/d<i>" per digit at the public seed."""
+        return self._uniform_rns(
+            self.full,
+            [f"{key_id}/d{i}" for i in range(self.params.num_ks_digits)])
 
     def materialize_keys(self, key_ids: Sequence[str]) -> Dict[str, Tuple]:
         """Device key pairs for a set of key ids ("relin" / "galois_<g>"),
@@ -188,6 +207,58 @@ class RlweKeys:
     def get_galois_key(self, galois_elt: int) -> Tuple:
         key_id = f"galois_{galois_elt}"
         return self.materialize_keys([key_id])[key_id]
+
+    # --------------------------------------------------------- restored keys
+    def install_keys(self, s_coeffs: Optional[np.ndarray], pk_b_ntt,
+                     pk_a_ntt, switching_keys: Mapping,
+                     public_seed: Optional[int] = None) -> None:
+        """Replace the keys of this context by restored ones (a checkpoint's,
+        utils/checkpoint.py): the counterpart of the reference's
+        sync_device_keys after its loader overwrote the constructor's keys.
+        The secret generator is left as the constructor's keygen left it, so
+        a context built from the file's master seed draws, encryption for
+        encryption, what the reference's restored context draws.
+
+        s_coeffs None: the context holds no secret from here on (decrypt and
+        key builds raise). public_seed: the seed the file's uniform halves
+        come from; it becomes this context's public seed, so that keys built
+        later and a second seeded save agree with the restored keys. An `a`
+        half given as None (pk_a_ntt, or the second of a switching key's
+        pair) is regenerated on the device from that seed."""
+        dev = self.device
+        if public_seed is not None:
+            self._prng_seed = int(public_seed)
+        elif pk_a_ntt is None or any(a is None for _, a in
+                                     switching_keys.values()):
+            raise ValueError("uniform key halves to regenerate, but no "
+                             "public seed to regenerate them from")
+        if s_coeffs is None:
+            self.s_coeffs = self.s_ntt_full = None
+        else:
+            self.s_coeffs = np.asarray(s_coeffs, dtype=np.int64)
+            self.s_ntt_full = self.ntt_qp.fwd(
+                self._lift_signed(self.s_coeffs, self._tab["q_full"]))
+        self.pk_b_ntt = as_residues(pk_b_ntt, dev)
+        self.pk_a_ntt = (self._uniform_rns(self.params.L, "pk")
+                         if pk_a_ntt is None else as_residues(pk_a_ntt, dev))
+        self._keys = {
+            key_id: (as_residues(ksk_b, dev),
+                     self._ksk_uniform(key_id) if ksk_a is None
+                     else as_residues(ksk_a, dev))
+            for key_id, (ksk_b, ksk_a) in switching_keys.items()}
+        self._forget_key_tables()
+
+    def _forget_key_tables(self) -> None:
+        """Empty every table derived from the keys (the identity-keyed
+        caches; a context with per-key tables of its own extends this)."""
+        with self.fresh_caches():
+            pass
+
+    def uniform_halves_from_public_seed(self) -> bool:
+        """Whether the public key's uniform half is the one this context's
+        public seed regenerates: what a seeded save relies on."""
+        return torch.equal(self._uniform_rns(self.params.L, "pk"),
+                           self.pk_a_ntt)
 
     # ------------------------------------------------------- Galois tables
     def _galois_perm(self, g: int) -> Tuple[torch.Tensor, torch.Tensor]:

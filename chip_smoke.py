@@ -23,7 +23,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    of a batched mult+relin at n=8192 (B x 12, 16, 42, 18, 24, 14 rows at B
    in {8, 16, 64}: up to 2688 rows). Then, at the main
    path's launch shapes and the ablation's, kernel and plain times in CUDA
-   events (median of 10 calls, warm L2) and the profiler's device time,
+   events (median of 10 calls, of 3 for the plain versions, warm L2) and
+   the profiler's device time,
    beside the bound: the larger of bytes moved over 3.35 TB/s and integer
    multiply-adds over 132 SMs x 64 per clock x 1.98 GHz.
 3. BFV mult+relin at n=8192 (6 data primes, k=1 and k=2): keys,
@@ -74,7 +75,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    --backend bfv --slots 8192` as a subprocess.
 8b. Two captured programs of two contexts alive at once, replayed in turns:
    (i) the README hamming program (BFV n=8192) and the config-5 CKKS op
-   (n=32768) through jit_compile_program, 20 rounds of fresh inputs through
+   (n=32768) through jit_compile_program, 10 rounds of fresh inputs through
    encrypt_inputs, every replay equal to its program's eager run on the
    same ciphertexts and to the oracle, no counter moving, and hamming's
    words on one input pair equal before the CKKS program existed and after
@@ -116,6 +117,34 @@ Phases, each of which raises on failure (the script then exits nonzero):
    alike, config 6 must equal the plain oracle, no headline value may be
    nan, the compact line must stay under 1500 characters. Its two lines are
    printed; kernel launch counts are taken over the bench alone.
+
+11. Checkpoint / resume as a serving path (abc_tpu_torch/utils/
+   checkpoint.py). A client (this process) compiles and captures the README
+   hamming program at n=8192 (phase 4's seed; the capture builds the keys
+   the program needs) and the config-5 CKKS op at n=32768 (8 + 2 primes,
+   k=2, scale 2^25), and writes the circuits, the public contexts (seeded,
+   without the secret: no master seed either) and two requests each. The
+   server is a child process, `python3 chip_smoke.py --serve DIR`, that
+   reads only those files: load_circuit -> load_context(device="cuda") ->
+   JittedProgram -> run_raw, outputs written back. Its context holds no
+   secret and builds no key; its launches of both NTT kernels are counted
+   in its own process. The client decrypts every output to the oracle, and
+   its words equal the client's own graph on the same ciphertexts (and, for
+   CKKS, CkksContext.multiply on the operand). Seeded against full file
+   bytes (under 0.65), the server's load time and ms per replay. Then
+   abc_tpu's own checkpoint file (testdata, n=1024): restored keys equal to
+   the stored digests, the stored ciphertext decrypts to its plaintext, one
+   multiply + relin of it equals the golden product.
+12. The reference-scale workloads of tests/test_e2e_reference_scale.py at
+   its own parameters and seeds, each as one graph through
+   jit_compile_program: the SoK batched cardio risk score at n=16384 (also
+   through run_compiled; galois >= 4 and no ct x ct multiply), hamming over
+   16 bits, boxblur, matvec_bsgs, roberts_cross, the linear and polynomial
+   kernels, Gx, Gy, l2_distance and dot_product at n=8192, and the smoke
+   program at n=4096: decrypts equal to the plain oracle, replay words
+   equal to an eager walk on the same ciphertexts, no counter moving across
+   replays, ms and kernels per replay. Kernel launches are counted over
+   this phase alone.
 
 Needs one CUDA device; exits nonzero at once without one. Imports nothing of
 JAX or of abc_tpu. Prints the card's name and power limit, a
@@ -702,8 +731,9 @@ def phase_keys(dev, used):
 def _timed(stats, kern, plain, at, bound_of):
     """Kernel and plain times (CUDA events and profiler) and the bound into
     stats."""
-    stats["ms"], stats["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
-    prof, plain_prof = kernel_profile(kern), kernel_profile(plain)
+    # the plain versions are 50-5000 times slower: fewer calls time them
+    stats["ms"], stats["plain_ms"] = cuda_ms(kern), cuda_ms(plain, reps=3)
+    prof, plain_prof = kernel_profile(kern), kernel_profile(plain, reps=1)
     stats["device_ms"] = prof and prof[0]
     stats["plain_device_ms"] = plain_prof and plain_prof[0]
     stats["bound_ms"], stats["bound_by"] = bound_of
@@ -1035,7 +1065,8 @@ def phase_whole_program(dev, gold, hamming_words, laplace_words,
     return launches
 
 
-TWO_PROGRAM_ROUNDS = 20
+# cut from 20 when phases 11-12 came (the script's time budget)
+TWO_PROGRAM_ROUNDS = 10
 
 
 def phase_two_programs(dev, gold):
@@ -1531,6 +1562,586 @@ def phase_bench(dev, gold):
     return launches
 
 
+# ------------------------------------------------- phase 11: checkpoint serving
+
+SERVE_PAIRS = (([1, 0, 1, 1], [0, 0, 1, 1]), ([1, 1, 1, 1], [0, 0, 0, 0]))
+SERVE_REPS = 20
+CKKS_SERVE_PROGRAM = "secret double p = a *** a; p = rotate(p, 0);"
+
+
+def serving_inputs(compiled):
+    """The input declarations a server makes for a circuit from its input
+    types alone: one placeholder value per secret input (the constructor
+    encrypts it under the public key; run_raw then takes the client's
+    ciphertexts). A plain input's value belongs to the client's program,
+    which the files do not carry: such a circuit is refused."""
+    from abc_tpu_torch import Parser
+    decls = []
+    for name, dt in compiled.input_types.items():
+        check(dt.secret, f"plain input {name!r}: a server cannot serve it "
+              "from the files alone")
+        zero = "0.0" if str(dt.type) in ("float", "double") else "0"
+        decls.append(f"{dt} {name} = {{{zero}}};")
+    return Parser.parse(" ".join(decls))
+
+
+def serve(directory, device="cuda"):
+    """The server: reads only the files of `directory` (manifest.json, a
+    circuit, a public context, the request ciphertexts), serves every
+    request through one JittedProgram per scheme, and writes the output
+    ciphertexts and serve.json (load time, ms per replay, kernel launches,
+    op counters) back. Nothing here can decrypt: the context holds no
+    secret."""
+    from abc_tpu_torch import Parser
+    from abc_tpu_torch.crypto.bfv import BfvCiphertext
+    from abc_tpu_torch.crypto.ckks import CkksCiphertext
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+    from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
+    from abc_tpu_torch.runtime.jit_executor import JittedProgram
+    from abc_tpu_torch.utils import checkpoint as ckpt
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def path(name):
+        return os.path.join(directory, name)
+
+    with open(path("manifest.json")) as f:
+        manifest = json.load(f)
+    report = {}
+    for scheme, job in manifest.items():
+        for name in nk.launches:
+            nk.launches[name] = 0
+        sync()
+        t0 = time.perf_counter()
+        compiled = ckpt.load_circuit(path(job["circuit"]))
+        if scheme == "bfv":
+            ctx = ckpt.load_context(path(job["context"]), device=dev)
+            factory = BfvCiphertextFactory(context=ctx)
+        else:
+            ctx = ckpt.load_ckks_context(path(job["context"]), device=dev)
+            factory = CkksCiphertextFactory(context=ctx)
+        sync()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        check(ctx.s_ntt_full is None, "the server's context holds a secret")
+        keys = sorted(ctx._keys)
+        jp = JittedProgram(compiled, factory, serving_inputs(compiled),
+                           Parser.parse(job["output"]))
+        check(sorted(ctx._keys) == keys,
+              f"the server built keys {sorted(set(ctx._keys) - set(keys))}")
+        requests = []
+        for i, request in enumerate(job["requests"]):
+            tensors = {}
+            for name, fname in request.items():
+                if scheme == "bfv":
+                    tensors[name] = ckpt.load_ciphertext(path(fname),
+                                                         device=dev).data
+                    continue
+                ct = ckpt.load_ckks_ciphertext(path(fname), device=dev)
+                check((ct.level, ct.scale) == jp._input_meta[name],
+                      f"request {i} {name}: (level, scale) "
+                      f"{(ct.level, ct.scale)}, the program takes "
+                      f"{jp._input_meta[name]}")
+                tensors[name] = ct.data
+            raw = jp.run_raw(tensors)
+            for name, tensor in raw.items():
+                out = f"{scheme}_out{i}_{name}" + \
+                    (".npy" if scheme == "bfv" else ".npz")
+                if scheme == "bfv":
+                    ckpt.save_ciphertext(BfvCiphertext(tensor), path(out))
+                else:
+                    ckpt.save_ckks_ciphertext(CkksCiphertext(
+                        tensor, *jp._out_meta[name]), path(out))
+                requests.append(out)
+        sync()
+        launches = dict(nk.launches)
+        rec = {"load_ms": load_ms, "phase_ms": jp.phase_ms,
+               "launches": launches, "counters": dict(ctx.counters),
+               "keys": keys, "outputs": requests}
+        if on_card:
+            rec["replay_ms"], rec["spread"] = replay_ms(jp, tensors,
+                                                        SERVE_REPS)
+            check(dict(nk.launches) == launches,
+                  "a replay on the server launched a kernel")
+        report[scheme] = rec
+    with open(path("serve.json"), "w") as f:
+        json.dump(report, f)
+    return report
+
+
+def client_files(directory, dev, gold, size_check=True):
+    """The client: a seeded context of its own on `dev`, the program
+    compiled and captured there (which builds the keys it needs), then the
+    circuit, the public context (seeded, without the secret) and two
+    requests written into `directory` with a manifest. Returns {scheme:
+    (JittedProgram, [request tensors])}."""
+    from abc_tpu_torch import CompileOptions, jit_compile_program
+    from abc_tpu_torch.crypto.bfv import BfvCiphertext
+    from abc_tpu_torch.crypto.ckks import (CkksCiphertext, CkksContext,
+                                           CkksParams)
+    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+    from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
+    from abc_tpu_torch.utils import checkpoint as ckpt
+
+    g, c = gold["hamming_n8192"], gold["ckks_mult_relin_n32768_k2"]
+    outputs = {"bfv": g["output"], "ckks": "y = p;"}
+    programs = {
+        "bfv": jit_compile_program(
+            g["program"], g["inputs"], g["output"],
+            factory=BfvCiphertextFactory(slots=g["n"], seed=g["seed"],
+                                         device=dev),
+            options=CompileOptions(vectorize=True)),
+        "ckks": jit_compile_program(
+            CKKS_SERVE_PROGRAM, "secret double a = {" + ", ".join(
+                map(repr, c["a"])) + "};", outputs["ckks"],
+            factory=CkksCiphertextFactory(context=CkksContext(
+                CkksParams.create(c["n"], levels=c["levels"], seed=c["seed"],
+                                  ks_digits=c["ks_digits"]), dev)))}
+    rng = np.random.default_rng(c["seed"])
+    ckks_requests = [{"a": rng.uniform(-1.0, 1.0, 16)} for _ in SERVE_PAIRS]
+    requests = {"bfv": [{"x": x, "y": y} for x, y in SERVE_PAIRS],
+                "ckks": ckks_requests}
+    manifest, out, sizes = {}, {}, {}
+    for scheme, jp in programs.items():
+        ctx = jp.factory.context
+        save = ckpt.save_context if scheme == "bfv" else \
+            ckpt.save_ckks_context
+        ckpt.save_circuit(jp.compiled,
+                          os.path.join(directory, f"{scheme}_circuit.json"))
+        for kind, seeded in (("seeded", True), ("full", False)):
+            save(ctx, os.path.join(directory, f"{scheme}_{kind}.npz"),
+                 include_secret_key=False, seeded=seeded)
+        sizes[scheme] = {kind: os.path.getsize(os.path.join(
+            directory, f"{scheme}_{kind}.npz")) for kind in ("seeded", "full")}
+        if size_check:
+            check(sizes[scheme]["seeded"] < 0.65 * sizes[scheme]["full"],
+                  f"{scheme}: seeded file {sizes[scheme]} not under 0.65 of "
+                  "the full one")
+        files, tensors = [], []
+        for i, values in enumerate(requests[scheme]):
+            t = jp.encrypt_inputs(values)
+            entry = {}
+            for name, tensor in t.items():
+                entry[name] = f"{scheme}_in{i}_{name}" + \
+                    (".npy" if scheme == "bfv" else ".npz")
+                target = os.path.join(directory, entry[name])
+                if scheme == "bfv":
+                    ckpt.save_ciphertext(BfvCiphertext(tensor), target)
+                else:
+                    ckpt.save_ckks_ciphertext(CkksCiphertext(
+                        tensor, *jp._input_meta[name]), target)
+            files.append(entry)
+            tensors.append(t)
+        manifest[scheme] = {"circuit": f"{scheme}_circuit.json",
+                            "context": f"{scheme}_seeded.npz",
+                            "output": outputs[scheme], "requests": files}
+        out[scheme] = (jp, tensors, requests[scheme])
+    with open(os.path.join(directory, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    return out, sizes
+
+
+def check_served(directory, client, report, device):
+    """The client again: every output file decrypts to the plain oracle and
+    holds the words of the same program run in the client's process on the
+    same ciphertexts, without files; the CKKS outputs also the words of
+    CkksContext.multiply on the request operand (phase 9's op)."""
+    from abc_tpu_torch.crypto.ckks import CkksCiphertext
+    from abc_tpu_torch.utils import checkpoint as ckpt
+
+    for scheme, (jp, tensors, requests) in client.items():
+        outputs = report[scheme]["outputs"]
+        check(len(outputs) == len(tensors),
+              f"{scheme}: {len(outputs)} outputs for {len(tensors)} requests")
+        for i, (fname, t, values) in enumerate(zip(outputs, tensors,
+                                                   requests)):
+            target = os.path.join(directory, fname)
+            raw = jp.run_raw(t)
+            name = next(iter(raw))
+            here = raw[name]
+            if scheme == "bfv":
+                served = ckpt.load_ciphertext(target, device=device).data
+                got = jp.decrypt_outputs({name: served})[name][0]
+                want = sum(int(a != b) for a, b in zip(values["x"],
+                                                       values["y"]))
+                check(got == want, f"served hamming {values}: {got} != {want}")
+            else:
+                ct = ckpt.load_ckks_ciphertext(target, device=device)
+                check((ct.level, ct.scale) == jp._out_meta[name],
+                      f"served CKKS output at {(ct.level, ct.scale)}")
+                served = ct.data
+                ctx = jp.factory.context
+                op = CkksCiphertext(t["a"], *jp._input_meta["a"])
+                check(torch.equal(served, ctx.multiply(op, op,
+                                                       rescale=False).data),
+                      f"served CKKS request {i} != CkksContext.multiply")
+                z = jp.decrypt_outputs({name: served})[name][:16]
+                check(np.allclose(z, values["a"] ** 2, rtol=1e-2, atol=1e-2),
+                      f"served CKKS request {i} decrypts {z[:4]}")
+            check(torch.equal(served, here),
+                  f"served {scheme} request {i} != the client's own run on "
+                  "the same ciphertexts")
+
+
+def fixture_on(dev, gold):
+    """abc_tpu's checkpoint file (testdata) loaded on `dev`: the restored
+    keys equal the stored digests, the stored ciphertext decrypts to the
+    stored plaintext, and one multiply + relin of it equals the golden
+    product."""
+    import abc_tpu_torch
+    from abc_tpu_torch.utils import checkpoint as ckpt
+    g = gold["checkpoint_bfv_n1024"]
+    here = os.path.join(os.path.dirname(abc_tpu_torch.__file__), "testdata")
+    ctx = ckpt.load_context(os.path.join(here, g["context"]), device=dev)
+    ct = ckpt.load_ciphertext(os.path.join(here, g["ciphertext"]), device=dev)
+    relin, gal = ctx.get_relin_key(), ctx.get_galois_key(g["galois"])
+    got = {"s_coeffs": hashlib.sha256(np.ascontiguousarray(
+        np.asarray(ctx.s_coeffs).astype(np.uint32), dtype="<u4").tobytes()
+    ).hexdigest(), "pk_b": digest(ctx.pk_b_ntt), "pk_a": digest(ctx.pk_a_ntt),
+        "relin_b": digest(relin[0]), "relin_a": digest(relin[1]),
+        f"galois_{g['galois']}_b": digest(gal[0]),
+        f"galois_{g['galois']}_a": digest(gal[1]), "ct": digest(ct.data)}
+    check(got == {k: g[k] for k in got},
+          f"abc_tpu's checkpoint restored to other words: "
+          f"{[k for k in got if got[k] != g[k]]}")
+    plain = ctx.decode(ctx.decrypt(ct))[:len(g["values"])]
+    check(plain == g["values"], f"fixture decrypts to {plain}")
+    prod = ctx.multiply(ct, ct)
+    check(digest(prod.data) == g["product"],
+          "fixture: multiply + relin != the golden product")
+    check(ctx.decode(ctx.decrypt(prod))[:len(g["values"])]
+          == g["product_plain"], "fixture: the product decrypts wrong")
+
+
+def phase_checkpoint(dev, gold):
+    """Checkpoint / resume as a serving path: the client here, the server a
+    child process (`python chip_smoke.py --serve DIR`) that reads only the
+    client's files; then abc_tpu's own checkpoint file on the card. Returns
+    the server's kernel launches (both schemes)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="abc_serve_") as directory:
+        t0 = time.perf_counter()
+        client, sizes = client_files(directory, dev, gold)
+        t_client = time.perf_counter() - t0
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--serve", directory],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(proc.returncode == 0,
+              f"the server exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+              f"\n{proc.stderr[-3000:]}")
+        with open(os.path.join(directory, "serve.json")) as f:
+            report = json.load(f)
+        check_served(directory, client, report, dev)
+    launches = {}
+    for scheme, rec in report.items():
+        check(all(rec["launches"].get(k, 0) > 0 for k in
+                  ("ntt_fwd", "ntt_inv")),
+              f"the server's {scheme} path launched {rec['launches']}")
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        s = sizes[scheme]
+        print(f"  {scheme}: public context {s['seeded']} B seeded against "
+              f"{s['full']} B full ({s['seeded'] / s['full']:.3f}); server "
+              f"load {rec['load_ms']:.1f} ms (circuit + context, keys "
+              f"{rec['keys']}, host clock); {rec['replay_ms']:.3f} ms per "
+              f"replay (CUDA events, median of {SERVE_REPS}, "
+              f"{rec['spread']}); server phase_ms "
+              f"{ {k: round(v, 1) for k, v in rec['phase_ms'].items()} }; "
+              f"server launches {rec['launches']}; every output decrypts "
+              f"to the oracle and equals the client's own run", flush=True)
+    print(f"  client: contexts, keys, capture and files {t_client:.1f} s "
+          f"(host clock); the server, a child process reading only the "
+          f"files, held no secret and built no key", flush=True)
+    fixture_on(dev, gold)
+    print("  abc_tpu's checkpoint (testdata, n=1024, seeded): keys equal "
+          "to the stored digests, decrypts to the stored plaintext, its "
+          "multiply + relin equal to the golden product", flush=True)
+    return launches
+
+
+# ------------------------------------------ phase 12: reference-scale workloads
+
+def _brace(values):
+    return "{" + ",".join(map(str, values)) + "}"
+
+
+def _image(seed, size, high):
+    import random
+    rng = random.Random(seed)
+    return [rng.randrange(0, high) for _ in range(size * size)]
+
+
+def _stencil_program(array, weights):
+    return f"""
+      int {array} = {_brace(weights)};
+      secret int img2 = img;
+      for (int x = 1; x < imgSize-1; x = x + 1) {{
+        for (int y = 1; y < imgSize-1; y = y + 1) {{
+          secret int value = 0;
+          for (int j = -1; j < 2; j = j + 1) {{
+            for (int i = -1; i < 2; i = i + 1) {{
+              value = value + {array}[(i + 1)*3 + j + 1]
+                  *img[((x + i)*imgSize + (y + j))];
+            }}
+          }}
+          img2[imgSize*x + y] = value;
+        }}
+      }}
+      return img2;
+    """
+
+
+def _stencil(seed, high, array, weights):
+    size = 8
+    img = _image(seed, size, high)
+    want = list(img)
+    for x in range(1, size - 1):
+        for y in range(1, size - 1):
+            want[x * size + y] = sum(
+                weights[(i + 1) * 3 + (j + 1)] * img[(x + i) * size + (y + j)]
+                for j in range(-1, 2) for i in range(-1, 2))
+    return dict(n=8192, inputs=f"secret int img = {_brace(img)}; int "
+                f"imgSize = {size};", program=_stencil_program(array, weights),
+                output="out = img2;", vectorize=False, want={"out": want})
+
+
+def _reduction(name, seed, lo, hi, term, out):
+    import random
+    rng = random.Random(seed)
+    xs = [rng.randrange(lo, hi) for _ in range(16)]
+    ys = [rng.randrange(lo, hi) for _ in range(16)]
+    program = f"""
+      int sum = 0;
+      for (int i = 0; i < 16; i = i + 1) {{
+        sum = sum + {term};
+      }}
+      return sum;
+    """
+    value = {"hamming": sum(int(a != b) for a, b in zip(xs, ys)),
+             "l2": sum((a - b) ** 2 for a, b in zip(xs, ys)),
+             "dot": sum(a * b for a, b in zip(xs, ys))}[name]
+    return dict(n=8192, inputs=f"secret int x = {_brace(xs)}; secret int y "
+                f"= {_brace(ys)};", program=program, output=f"{out} = sum;",
+                vectorize=True, want={out: [value]})
+
+
+def _cardio():
+    """The SoK batched cardio risk score at n=16384 (tests/
+    test_e2e_reference_scale.py:47-100): ten client-evaluated flags packed
+    in one ciphertext, padded to 16."""
+    v = dict(man=1, woman=0, age=55, smoking=1, diabetic=0,
+             high_blood_pressure=1, cholesterol=35, weight=120, height=180,
+             daily_physical_activity=20, alcohol=4)
+    flags = [int(v["man"] and v["age"] > 50), int(v["woman"] and v["age"] > 40),
+             v["smoking"], v["diabetic"], v["high_blood_pressure"],
+             int(v["cholesterol"] < 40), int(v["weight"] > v["height"] - 90),
+             int(v["daily_physical_activity"] < 30),
+             int(v["man"] and v["alcohol"] > 3),
+             int(v["woman"] and v["alcohol"] > 2)]
+    program = """
+      int risk = 0;
+      for (int i = 0; i < 10; i = i + 1) {
+        risk = risk + flags[i];
+      }
+      return risk;
+    """
+    return dict(n=16384, seed=23, program=program,
+                inputs=f"secret int flags = {_brace(flags + [0] * 6)};",
+                output="out = risk;", vectorize=True,
+                want={"out": [sum(flags)]})
+
+
+def _matvec():
+    k = 16
+    rng = np.random.default_rng(17)
+    m = rng.integers(0, 9, size=(k, k))
+    x = [int(v) for v in rng.integers(0, 5, size=k)]
+    terms = " + ".join(f"M[16*s+{j}]*x[{j}]" for j in range(k))
+    program = f"""
+      int y = 0;
+      for (int s = 0; s < {k}; s = s + 1) {{
+        y[s] = {terms};
+      }}
+      return y;
+    """
+    return dict(n=8192, inputs=f"int M = "
+                f"{_brace(int(v) for v in m.reshape(-1))}; secret int x = "
+                f"{_brace(x + x)};", program=program, output="out = y;",
+                vectorize=True,
+                want={"out": [int(sum(m[s][j] * x[j] for j in range(k)))
+                              for s in range(k)]})
+
+
+def _roberts():
+    size = 8
+    img = _image(13, size, 16)
+    want = list(img)
+    for x in range(size - 1):
+        for y in range(size - 1):
+            g1 = img[x * size + y] - img[(x + 1) * size + (y + 1)]
+            g2 = img[(x + 1) * size + y] - img[x * size + (y + 1)]
+            want[x * size + y] = g1 * g1 + g2 * g2
+    program = """
+      secret int img2 = img;
+      for (int x = 0; x < imgSize-1; x = x + 1) {
+        for (int y = 0; y < imgSize-1; y = y + 1) {
+          secret int g1 = img[x*imgSize+y] - img[(x+1)*imgSize+(y+1)];
+          secret int g2 = img[(x+1)*imgSize+y] - img[x*imgSize+(y+1)];
+          img2[x*imgSize+y] = g1*g1 + g2*g2;
+        }
+      }
+      return img2;
+    """
+    return dict(n=8192, inputs=f"secret int img = {_brace(img)}; int "
+                f"imgSize = {size};", program=program, output="out = img2;",
+                vectorize=False, want={"out": want})
+
+
+def _kernel(poly):
+    x, y, c = [2, -1, 3, 0], [5, 4, -2, 1], 7
+    dot = sum(a * b for a, b in zip(x, y))
+    program = """
+      int sum = 0;
+      for (int i = 0; i < n; i = i + 1) { sum = sum + x[i]*y[i]; }
+      sum = sum + c;
+      return sum;
+    """
+    if poly:
+        program = program.replace("return sum;",
+                                  "sum = sum * sum;\n      return sum;")
+    return dict(n=8192, inputs=f"secret int x = {_brace(x)}; secret int y = "
+                f"{_brace(y)}; int n = 4; int c = 7;", program=program,
+                output="k = sum;", vectorize=True,
+                want={"k": [(dot + c) ** 2 if poly else dot + c]})
+
+
+def _smoke():
+    pad = [3, 1, 4, 1, 5, 5]                 # last-element padding
+    yv = [v * v + 2 * v for v in pad]
+    program = """
+      secret int y = x*x + 2*x;
+      y = y + rotate(y, 1);
+      return y;
+    """
+    return dict(n=4096, inputs="secret int x = {3, 1, 4, 1, 5};",
+                program=program, output="out = y;", vectorize=False,
+                want={"out": [yv[i] + yv[i + 1] for i in range(5)]})
+
+
+# name: () -> {n, inputs, program, output, vectorize, want: {output: leading
+# slots}[, seed]}: the workloads of tests/test_e2e_reference_scale.py at its
+# own parameters and seeds (factory seed 31, its _jit_run's, unless `seed`)
+REFERENCE_SCALE = {
+    "cardio_n16384": _cardio,
+    "hamming16_n8192": lambda: _reduction("hamming", 5, 0, 2,
+                                          "(x[i]-y[i])*(x[i]-y[i])", "hd"),
+    "boxblur_n8192": lambda: _stencil(11, 256, "weightMatrix", [1] * 9),
+    "matvec_bsgs_n8192": _matvec,
+    "roberts_cross_n8192": _roberts,
+    "linear_kernel_n8192": lambda: _kernel(False),
+    "polynomial_kernel_n8192": lambda: _kernel(True),
+    "gx_n8192": lambda: _stencil(29, 64, "w", [-1, 0, 1, -2, 0, 2, -1, 0, 1]),
+    "gy_n8192": lambda: _stencil(31, 64, "w", [1, 0, -1, 2, 0, -2, 1, 0, -1]),
+    "l2_distance_n8192": lambda: _reduction("l2", 37, -20, 20,
+                                            "(x[i]-y[i])*(x[i]-y[i])", "d"),
+    "dot_product_n8192": lambda: _reduction("dot", 41, -10, 10,
+                                            "x[i]*y[i]", "p"),
+    "smoke_n4096": _smoke,
+}
+REFERENCE_SEED = 31
+
+
+def reference_scale_run(name, dev, reps=3):
+    """One workload as a JittedProgram on `dev`: decrypts equal to the
+    oracle, the replay's words equal to an eager walk on the same
+    ciphertexts, no counter moving across replays. Returns (ms per replay,
+    spread, kernels per replay or None, counters after set-up, host-clock
+    seconds of set-up / eager walk / replays and profile)."""
+    from abc_tpu_torch import CompileOptions, jit_compile_program
+    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+
+    w = REFERENCE_SCALE[name]()
+    t0 = time.perf_counter()
+    factory = BfvCiphertextFactory(slots=w["n"], device=dev,
+                                   seed=w.get("seed", REFERENCE_SEED))
+    jp = jit_compile_program(w["program"], w["inputs"], w["output"],
+                             factory=factory,
+                             options=CompileOptions(vectorize=w["vectorize"]))
+    on_card = jp._graph is not None
+    raw = unchanged_across(jp, jp.secret_inputs) if on_card else \
+        jp.run_raw(jp.secret_inputs)
+    t1 = time.perf_counter()
+    eager = jp.run_eager(jp.secret_inputs)
+    t2 = time.perf_counter()
+    for out in raw:
+        check(torch.equal(raw[out], eager[out]),
+              f"{name}: replay != eager walk on the same ciphertexts")
+    got = jp.decrypt_outputs(raw)
+    for out, values in w["want"].items():
+        check(got[out][:len(values)] == values,
+              f"{name}: {out} decrypts {got[out][:len(values)]} != oracle "
+              f"{values}")
+    counters = dict(factory.context.counters)
+    if not on_card:
+        return None, "", None, counters, None
+    ms, spread = replay_ms(jp, jp.secret_inputs, reps)
+    prof = kernel_profile(lambda: jp.run_raw(jp.secret_inputs), reps=1)
+    seconds = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    return ms, spread, None if prof is None else prof[1], counters, seconds
+
+
+def phase_reference_scale(dev):
+    """The workloads of tests/test_e2e_reference_scale.py on the card, each
+    as one graph; cardio also through run_compiled. Kernel launches are
+    counted over this phase alone."""
+    from abc_tpu_torch import (CompileOptions, Parser, compile_program,
+                               input_types_from_ast, run_compiled)
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+
+    for name in nk.launches:
+        nk.launches[name] = 0
+    # cardio through the per-op executor, as the reference test runs it
+    w = _cardio()
+    ia = Parser.parse(w["inputs"])
+    compiled = compile_program(w["program"], input_types_from_ast(ia),
+                               CompileOptions(vectorize=True))
+    check("rotate" in str(compiled.ast), "cardio: no rotate-reduce")
+    factory = BfvCiphertextFactory(slots=w["n"], seed=w["seed"], device=dev)
+    _, pairs = run_compiled(compiled, ia, Parser.parse(w["output"]), factory)
+    got = factory.decrypt(pairs[0][1])[0]
+    c = factory.context.counters
+    check(got == w["want"]["out"][0], f"cardio run_compiled: {got} != "
+          f"{w['want']}")
+    check(c["galois"] >= 4 and c["mult"] == 0, f"cardio counters {c}")
+    print(f"  cardio_n16384 through run_compiled: {got} = oracle; counters "
+          f"{dict(c)}", flush=True)
+    for name in REFERENCE_SCALE:
+        ms, spread, kernels, c, secs = reference_scale_run(name, dev)
+        if name.startswith("cardio"):
+            check(c["galois"] >= 4 and c["mult"] == 0,
+                  f"cardio as a graph: counters {c}")
+        print(f"  {name}: decrypts equal to the oracle, replay equal to an "
+              f"eager walk, no counter moving; {ms:.3f} ms per replay (CUDA "
+              f"events, median of 3, {spread}); "
+              f"{'not measured' if kernels is None else f'{kernels:.0f}'} "
+              f"kernels per replay; host clock s: set-up (keys, warm-up, "
+              f"capture, first replay) {secs[0]:.1f}, eager walk "
+              f"{secs[1]:.1f}, replays and profile {secs[2]:.1f}",
+              flush=True)
+    launches = dict(nk.launches)
+    check(all(v > 0 for v in launches.values()),
+          f"phase 12 launched a kernel no time: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1591,6 +2202,11 @@ def main() -> int:
              "python -m abc_tpu_torch.bench --quick in process)")
     bench_launches, bench_abl_launches = phase_bench(dev, gold)
     bench_launches.update(bench_abl_launches)
+    announce("phase 11: checkpoint / resume as a serving path (a client "
+             "here, a server process that reads only its files)")
+    serving_launches = phase_checkpoint(dev, gold)
+    announce("phase 12: the reference-scale workloads as graphs")
+    reference_scale_launches = phase_reference_scale(dev)
     announce("phases done")
     loaded = sorted(m for m, v in sys.modules.items() if v is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "abc_tpu"))
@@ -1609,6 +2225,11 @@ def main() -> int:
                 # the measurement entry point (phase 10), counted alone: it
                 # times ntt_fwd / ntt_inv and never the ablation's kernels
                 "launches_bench": bench_launches.get(name, 0),
+                # the server of phase 11 (its own process, both schemes) and
+                # the reference-scale workloads of phase 12, each alone
+                "launches_serving": serving_launches.get(name, 0),
+                "launches_reference_scale":
+                    reference_scale_launches.get(name, 0),
                 "ckks": ckks_stats.get(name),
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
@@ -1627,4 +2248,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve"]:
+        # phase 11's server, in a process of its own
+        serve(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -50,7 +50,8 @@ def test_the_walk_sees_the_package():
             "abc_tpu_torch/scripts/ntt_ablation.py",
             "abc_tpu_torch/bench.py", "abc_tpu_torch/benchsuite.py",
             "abc_tpu_torch/entry.py", "abc_tpu_torch/utils/timing.py",
-            "abc_tpu_torch/scripts/hybrid_ks_ab.py"} <= names
+            "abc_tpu_torch/scripts/hybrid_ks_ab.py",
+            "abc_tpu_torch/utils/checkpoint.py"} <= names
 
 
 def test_import_detection_sees_nested_imports(tmp_path):
