@@ -45,6 +45,10 @@ Layout (module for module the reference's):
   utils/checkpoint.py  — circuits, contexts (keys, seeded or full, with or
                          without the secret) and ciphertexts in files, in
                          the reference's format: a client/server split
+  parallel/            — meshes of shards (mesh.py: LocalComm on one device,
+                         DistComm over torch.distributed), the limb-sharded
+                         key switch, the coefficient-sharded NTT and CKKS
+                         multiply, the dryrun, multi-process workers
 """
 
 __version__ = "0.3.0"

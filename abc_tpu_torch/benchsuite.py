@@ -357,12 +357,35 @@ def config4_cone_rewriting(measure_runtime: bool = True, device="cuda",
     return rec
 
 
+def sharded_word_exact(device="cuda", n: int = 32768, levels: int = 8,
+                       coeff_shards: int = 8) -> Dict:
+    """The coefficient-sharded multiply + relin (parallel/dist_ckks.py) at
+    k=1 on `coeff_shards` shards of one device (LocalComm): its words
+    against CkksContext.multiply(a, b, rescale=False) on the same
+    encryptions. Untimed, as in the reference."""
+    from abc_tpu_torch.crypto.ckks import CkksContext, CkksParams
+    from abc_tpu_torch.parallel.dist_ckks import DistCkksMultiplier
+    from abc_tpu_torch.parallel.mesh import coeff_mesh
+
+    dev = require_device(device)
+    ctx = CkksContext(CkksParams.create(n, levels=levels, seed=3), dev)
+    dist = DistCkksMultiplier(ctx, coeff_mesh(coeff_shards, device=dev))
+    vals = np.random.default_rng(1).uniform(-1.0, 1.0, 16)
+    a = ctx.encrypt(ctx.encode(vals))
+    b = ctx.encrypt(ctx.encode(vals[::-1].copy()))
+    want = ctx.multiply(a, b, rescale=False).data
+    return {"word_exact": bool(torch.equal(dist(a.data, b.data), want)),
+            "k": 1, "n": n, "levels": levels, "coeff_shards": coeff_shards,
+            "collectives": dict(dist.mesh.census)}
+
+
 def config5_ckks_sharded(chain: int = _CHAIN[5], device="cuda",
                          n: int = 32768, levels: int = 8, k_est: int = 5
                          ) -> Dict:
-    """The CKKS ct·ct multiply + relinearization on one device. (The name is
-    the reference's: its second half validates the coefficient-sharded
-    multiply on a device mesh, which comes with the multi-GPU modules.)"""
+    """The CKKS ct·ct multiply + relinearization: timed on one device at
+    k=2, and, as the reference's second half, the coefficient-sharded
+    multiply held word for word at k=1 on 8 shards of the device
+    (sharded_word_exact; untimed)."""
     from abc_tpu_torch.crypto.ckks import (CkksCiphertext, CkksContext,
                                            CkksParams)
     from abc_tpu_torch.ops.modarith import as_residues
@@ -389,10 +412,14 @@ def config5_ckks_sharded(chain: int = _CHAIN[5], device="cuda",
     sq = ctx.multiply(enc, enc, rescale=False)
     z = np.real(ctx.decode(ctx.decrypt(sq)))[:len(vals)]
     rec = chain_ops_per_s(ctx, step, ct, chain, k_est, census=(3, 2))
+    sharded = sharded_word_exact(dev, n, levels)
     rec.update(metric=f"config5_ckks_n{n}_mult_relin ({device_label(dev)})",
-               correct=bool(np.allclose(z, vals ** 2, atol=1e-2)),
-               note="hybrid ks_digits=2 relin; single device (the "
-                    "coefficient-sharded multiply is not ported yet)")
+               correct=bool(np.allclose(z, vals ** 2, atol=1e-2))
+               and sharded["word_exact"],
+               sharded=sharded,
+               note="hybrid ks_digits=2 relin timed on one device; the "
+                    "coefficient-sharded multiply word-exact at k=1 on 8 "
+                    "shards of it (`sharded`), untimed")
     return rec
 
 

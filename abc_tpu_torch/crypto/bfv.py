@@ -415,21 +415,97 @@ class BfvContext(RlweKeys):
         return BfvCiphertext(torch.stack([c0, c1], dim=-3))
 
     # ----------------------------------------------------------- key switching
+    # --------------------------------------------- mesh (limb-sharded) mode
+    #
+    # With a "limb" axis set (runtime/jit_executor.py mesh mode,
+    # parallel/sharding.py), the key-switch contraction Σ_i D_i ⊙ ksk_i is
+    # sharded over that axis: each shard decomposes and transforms only its
+    # α/limb digit rows against its rows of the switching key, and one
+    # modular psum over the axis combines the [..., L+k, n] accumulators.
+    # The shards are laid out as parallel/mesh.py says: under LocalComm a
+    # shard axis in front of the digit rows, on a rank its own rows. It
+    # applies to every key switch the context performs (relinearization,
+    # rotations, hoisted rotations).
+
+    _limb_axis: Optional[str] = None
+    _limb_size: int = 1
+    _limb_mesh = None
+
+    def set_limb_sharding(self, axis_name: Optional[str], size: int = 1,
+                          mesh=None) -> None:
+        """Enable (axis_name, its size, the mesh that has it) or disable
+        (None) limb-sharded key switching. Requires ks_digits == 1 (one digit
+        per limb) and size | L."""
+        if axis_name is not None:
+            if self.params.ks_digits != 1:
+                raise RuntimeExecutionError(
+                    "limb-sharded execution implements the ks_digits=1 "
+                    "layout; build the context with ks_digits=1")
+            if self.params.L % size:
+                raise RuntimeExecutionError(
+                    f"limb mesh axis ({size}) must divide L "
+                    f"({self.params.L})")
+            if mesh is None or mesh.shape.get(axis_name) != size:
+                raise RuntimeExecutionError(
+                    f"limb sharding over {axis_name!r} of size {size} needs "
+                    "the mesh that has that axis")
+            from abc_tpu_torch.parallel.mesh import same_device
+            if not same_device(mesh.device, self.device):
+                raise RuntimeExecutionError(
+                    f"the mesh's shards are on {mesh.device}, the context "
+                    f"on {self.device}")
+        self._limb_axis = axis_name
+        self._limb_size = size if axis_name is not None else 1
+        self._limb_mesh = mesh if axis_name is not None else None
+        # a cached decomposition has the other mode's layout
+        self._dec_cache.clear()
+
+    def shard_keys(self, mesh, axis: str = "limb") -> None:
+        """Keep only this rank's digit rows of every switching key held:
+        the per-card memory saving of limb sharding for a DistComm rank
+        (under LocalComm every shard's rows live in one process anyway).
+        From here on the context key-switches only limb-sharded over
+        `axis` of `mesh`; a key built later is whole, and cut at each key
+        switch."""
+        self._keys = {
+            key_id: tuple(mesh.scatter(h, axis, dim=-3).clone() for h in ksk)
+            for key_id, ksk in self._keys.items()}
+
+    @contextmanager
+    def limb_sharded(self, mesh, axis: str = "limb"):
+        """A block in which every key switch is limb-sharded over `axis` of
+        `mesh`."""
+        self.set_limb_sharding(axis, mesh.shape[axis], mesh)
+        try:
+            yield
+        finally:
+            self.set_limb_sharding(None)
+
+    def _lift_ntt(self, d):
+        """k = 1 digits d ([..., Lk, n] coefficient domain) lifted to the
+        full base q∪P by a conditional subtract (uniform 30-bit primes) and
+        transformed: [..., Lk, L+k, n]."""
+        full = self.full
+        q_full = self._tab["q_full"].reshape(1, full, 1)
+        lifted = d[..., :, None, :].expand(tuple(d.shape[:-1]) + (full,) +
+                                           tuple(d.shape[-1:]))
+        return self.ntt_qp.fwd(
+            torch.where(lifted >= q_full, lifted - q_full, lifted))
+
     @in_chain("decompose")
     def _decompose_ntt(self, d):
         """RNS-decompose d ([..., L, n] coeff domain over q) into α hybrid
         digits lifted to the full base q∪P in NTT domain: D [..., α, L+k,
-        n]."""
+        n]. Limb-sharded: this process's shards of the digit rows only."""
         L, full, n = self.params.L, self.full, self.params.n
         k, alpha = self.params.ks_digits, self.params.num_ks_digits
         batch = tuple(d.shape[:-2])
         q_full = self._tab["q_full"].reshape(1, full, 1)
+        if self._limb_axis is not None:
+            return self._lift_ntt(
+                self._limb_mesh.scatter(d, self._limb_axis, dim=-2))
         if k == 1:
-            # single-limb digits: the lift is a conditional subtract
-            # (uniform 30-bit primes)
-            lifted = d[..., :, None, :].expand(batch + (L, full, n))
-            return self.ntt_qp.fwd(
-                torch.where(lifted >= q_full, lifted - q_full, lifted))
+            return self._lift_ntt(d)
         # k ≥ 2: fast base conversion of each digit [d]_{Q_j} to q∪P
         T = self._tab
         y_src = d.index_select(-2, self._dec_gather).reshape(
@@ -442,14 +518,36 @@ class BfvContext(RlweKeys):
             D = term if D is None else t64.add(D, term, q_full)
         return self.ntt_qp.fwd(D)
 
+    def _ks_partials(self, D, ksk_b, ksk_a) -> Tuple:
+        """Σ_i D_i ⊙ ksk_i over the digit rows D and the key hold:
+        ([..., L+k, n], [..., L+k, n]). Limb-sharded, a shard's partial
+        accumulators before the psum."""
+        q_full = self._tab["q_full"]
+        q3 = q_full.reshape(1, self.full, 1)
+        return (t64.sum_mod(t64.mul(D, ksk_b, q3), q_full, dim=-3),
+                t64.sum_mod(t64.mul(D, ksk_a, q3), q_full, dim=-3))
+
     @in_chain("ks_inner")
     def _ks_inner(self, D, ksk_b, ksk_a) -> Tuple:
         """Inner product of a decomposition D with a switching key, then
-        mod-switch down: the cheap half of a key switch."""
-        q_full = self._tab["q_full"]
-        q3 = q_full.reshape(1, self.full, 1)
-        acc_b = t64.sum_mod(t64.mul(D, ksk_b, q3), q_full, dim=-3)
-        acc_a = t64.sum_mod(t64.mul(D, ksk_a, q3), q_full, dim=-3)
+        mod-switch down: the cheap half of a key switch. Limb-sharded, a
+        whole key is cut to this process's digit rows (a key of
+        shard_keys already holds only them) and the shards' partial
+        contractions are combined by one modular psum."""
+        mesh, axis = self._limb_mesh, self._limb_axis
+        alpha = self.params.num_ks_digits
+        if axis is None and ksk_b.shape[-3] != alpha:
+            raise RuntimeExecutionError(
+                "this context's switching keys hold one rank's limb rows "
+                "(shard_keys): it key-switches only under that sharding")
+        if axis is not None and ksk_b.shape[-3] == alpha:
+            ksk_b = mesh.scatter(ksk_b, axis, dim=-3)
+            ksk_a = mesh.scatter(ksk_a, axis, dim=-3)
+        acc_b, acc_a = self._ks_partials(D, ksk_b, ksk_a)
+        if axis is not None:
+            q_full = self._tab["q_full"]
+            acc_b = mesh.psum_mod(acc_b, q_full, axis)
+            acc_a = mesh.psum_mod(acc_a, q_full, axis)
         acc = self.ntt_qp.inv(torch.stack([acc_b, acc_a], dim=-3))
         return (self._mod_switch_down(acc[..., 0, :, :]),
                 self._mod_switch_down(acc[..., 1, :, :]))
@@ -487,12 +585,13 @@ class BfvContext(RlweKeys):
                             lambda: self._decompose_ntt(
                                 ct_data[..., 1, :, :]))
 
-    def _rotate_with(self, ct: BfvCiphertext, D, g: int) -> BfvCiphertext:
+    def _rotate_with(self, ct: BfvCiphertext, D, g: int,
+                     ksk: Optional[Tuple] = None) -> BfvCiphertext:
         """Galois automorphism g of ct given c1's decomposition D: permute D
-        in the NTT domain, key-switch, and apply the signed coefficient
-        gather to c0."""
+        in the NTT domain, key-switch (with the context's key for g, or
+        `ksk`), and apply the signed coefficient gather to c0."""
         k0, k1 = self._ks_inner(D.index_select(-1, self._galois_perm_eval(g)),
-                                *self.get_galois_key(g))
+                                *(ksk or self.get_galois_key(g)))
         gather, sign_pos = self._galois_perm(g)
         c0g = ct.data[..., 0, :, :].index_select(-1, gather)
         c0g = torch.where(sign_pos, c0g, t64.neg(c0g, self.q_q))

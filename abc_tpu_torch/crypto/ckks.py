@@ -690,13 +690,14 @@ class CkksContext(RlweKeys):
 
     @in_chain("mod_switch_down")
     def _mod_switch_down(self, x: torch.Tensor, level: int) -> torch.Tensor:
-        """[level+k, n] over q^(level)∪P → [level, n]: k successive exact
-        centered divisions (x − centered([x]_{p_s}))·p_s^{-1}, last special
-        first (rows ordered [active data..., specials...])."""
+        """[..., level+k, n] over q^(level)∪P → [..., level, n]: k
+        successive exact centered divisions (x − centered([x]_{p_s}))·
+        p_s^{-1}, last special first (rows ordered [active data...,
+        specials...])."""
         for s in reversed(range(self.params.ks_digits)):
             rows = level + s
             qv, p_mod, p_inv = self._msd[level][s]
-            x_rest, x_p = x[:rows], x[rows]
+            x_rest, x_p = x[..., :rows, :], x[..., rows:rows + 1, :]
             x_p_red = torch.where(x_p >= qv, x_p - qv, x_p)
             corr = torch.where(x_p > self._msd_half[s],
                                t64.sub(x_p_red, p_mod, qv), x_p_red)

@@ -5,11 +5,13 @@ __graft_entry__.py): BFV n=8192 ct·ct multiply + relinearization
     fn, example_args = entry()          # on the card; raises without one
     out = fn(*example_args)             # [2, L, n] int32 ciphertext words
 
-The reference's second entry point, `dryrun_multichip(n)`, builds a dp x limb
-device mesh and runs the sharded step, the compiled hamming workload and the
-coefficient-sharded CKKS multiply on it. It has no counterpart here yet: it
-comes with the port of the `parallel/` modules (multi-GPU over
-torch.distributed), and until then this module has no such function.
+The reference's second entry point, `dryrun_multichip(n)`, builds a mesh of n
+shards and runs the sharded step, the compiled hamming workload and the
+coefficient-sharded CKKS multiply on it, at small and at production shapes
+(parallel/dryrun.py). Here the n shards live on one card (parallel/mesh.py:
+LocalComm), as the reference's n virtual devices lived on one host:
+
+    python -m abc_tpu_torch.entry dryrun [n]     # on the card; n = 8
 """
 
 from __future__ import annotations
@@ -46,11 +48,26 @@ def entry(device="cuda") -> Tuple[Callable, Tuple[torch.Tensor, torch.Tensor]]:
     return fn, (a.data, b.data)
 
 
+def dryrun_multichip(n_devices: int) -> dict:
+    """parallel.dryrun.run_dryrun on a mesh of n_devices shards of the card
+    (LocalComm), production shapes included; returns its report. There is
+    no CPU fallback: without a CUDA device it raises."""
+    from abc_tpu_torch.parallel.dryrun import run_dryrun
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("dryrun_multichip runs on a CUDA device; none is "
+                           "available")
+    return run_dryrun(n_devices, device="cuda")
+
+
 if __name__ == "__main__":
     import sys
 
     from abc_tpu_torch.crypto.bfv import BfvCiphertext
 
+    if sys.argv[1:2] == ["dryrun"]:
+        dryrun_multichip(int(sys.argv[2]) if len(sys.argv) > 2 else 8)
+        sys.exit(0)
     fn, args = entry(sys.argv[1] if len(sys.argv) > 1 else "cuda")
     out = fn(*args)
     ctx = fn.context

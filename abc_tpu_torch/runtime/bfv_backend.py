@@ -53,10 +53,10 @@ class TorchBfvCiphertext(AbstractCiphertext):
 
     def _aligned(self, other) -> tuple:
         a, b = self.ct.data, other.ct.data
-        if a.shape[0] < b.shape[0]:
-            a = zero_pad(a, b.shape[0])
-        elif b.shape[0] < a.shape[0]:
-            b = zero_pad(b, a.shape[0])
+        if a.shape[-3] < b.shape[-3]:
+            a = zero_pad(a, b.shape[-3])
+        elif b.shape[-3] < a.shape[-3]:
+            b = zero_pad(b, a.shape[-3])
         return BfvCiphertext(a), BfvCiphertext(b)
 
     def _wrap(self, ct: BfvCiphertext) -> "TorchBfvCiphertext":

@@ -21,9 +21,11 @@ from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
 
 def zero_pad(data: torch.Tensor, size: int) -> torch.Tensor:
-    """Pad a [k, L, n] ciphertext component stack with zero components."""
-    pad = data.new_zeros((size - data.shape[0],) + tuple(data.shape[1:]))
-    return torch.cat([data, pad])
+    """Pad a [..., k, L, n] ciphertext component stack with zero
+    components."""
+    pad = data.new_zeros(tuple(data.shape[:-3]) + (size - data.shape[-3],) +
+                         tuple(data.shape[-2:]))
+    return torch.cat([data, pad], dim=-3)
 
 
 class HostConstants:

@@ -42,8 +42,19 @@ constants in the reference. `run_raw` on fresh inputs needs ciphertexts of
 the inputs' own level and scale, which `encrypt_inputs` gives (full level,
 base scale).
 
-Not ported yet: `mesh=` / `batch_values=` (the dp x limb mesh of the
-reference; multi-GPU slice), which raise RuntimeExecutionError.
+Mesh execution (`mesh=`, `batch_values=`; parallel/mesh.py): a BATCH of
+independent input sets is sharded over the mesh's "dp" axis and, for BFV,
+every key switch of the program over its "limb" axis
+(BfvContext.set_limb_sharding: each shard lifts, transforms and multiplies
+its digit rows of the switching key, one modular psum combines them). The dp
+axis is the leading batch axis of BfvContext's evaluation half, so a BFV
+program is walked once over [B, 2, L, n] tensors; CKKS contexts take one
+ciphertext, so a CKKS program is walked once per row of the batch (and is
+dp-only, as in the reference: the leveled digit count varies per switch).
+On a LocalComm mesh the walk is captured as ONE CUDA graph like any other;
+a DistComm rank runs its share eagerly (its collectives are NCCL or gloo
+calls, which the graph does not hold) and, limb-sharded, holds only its
+digit rows of each switching key (BfvContext.shard_keys).
 
 Protocol mirrors the reference's three-AST harness: input declarations /
 program / output assignments.
@@ -52,6 +63,7 @@ program / output assignments.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Dict, List
 
 import torch
@@ -92,11 +104,12 @@ class JittedProgram:
                  factory: AbstractCiphertextFactory,
                  input_ast: Block, output_ast: Block,
                  mesh=None, batch_values=None):
-        if mesh is not None or batch_values is not None:
-            raise RuntimeExecutionError(
-                "mesh= / batch_values= (whole-program execution over a "
-                "dp x limb device mesh) are not ported yet: they come with "
-                "the multi-GPU slice of abc_tpu_torch")
+        """mesh: an optional parallel.mesh.Mesh with axes ("dp", "limb") on
+        the factory's device (module note). batch_values: {input_name: [B
+        value-vectors]}, per-row secret input values (names omitted repeat
+        the input AST's declaration); B must be divisible by the dp axis.
+        A rank of a DistComm mesh holds, encrypts into its inputs and
+        returns its own dp rows (`rows`: their indices in the batch)."""
         if not isinstance(factory, (BfvCiphertextFactory,
                                     CkksCiphertextFactory)):
             raise RuntimeExecutionError(
@@ -112,6 +125,27 @@ class JittedProgram:
         ctx = factory.context
         self.device = ctx.device
         on_card = self.device.type == "cuda"
+        self.mesh = mesh
+        self.batch: int = 0
+        self.rows = None
+        if mesh is not None:
+            from abc_tpu_torch.parallel.mesh import Mesh, same_device
+            if not isinstance(mesh, Mesh) or "dp" not in mesh.shape \
+                    or "limb" not in mesh.shape:
+                raise RuntimeExecutionError(
+                    'mesh execution needs a parallel.mesh.Mesh with axes '
+                    '("dp", "limb")')
+            if not same_device(mesh.device, self.device):
+                raise RuntimeExecutionError(
+                    f"the mesh's shards are on {mesh.device}, the factory's "
+                    f"context on {self.device}")
+        elif batch_values is not None:
+            raise RuntimeExecutionError(
+                "batch_values= needs mesh= (the batch is sharded over its "
+                "dp axis)")
+        # a DistComm rank's collectives are process-group calls: it runs
+        # eagerly, a LocalComm mesh is captured like a single device
+        capture = on_card and (mesh is None or mesh.is_local)
         self.phase_ms: Dict[str, float] = {}
         if on_card:
             torch.cuda.synchronize(self.device)
@@ -150,7 +184,7 @@ class JittedProgram:
                 secret_decls.append((name, decl.datatype, cleartext))
             else:
                 self._plain_entries.append((name, decl.datatype, cleartext))
-        if secret_decls:
+        if secret_decls and mesh is None:
             handles = factory.create_many([c for _, _, c in secret_decls])
             for (name, dt, ctext), handle in zip(secret_decls, handles):
                 tensor, meta = factory.jit_pack(handle)
@@ -158,6 +192,28 @@ class JittedProgram:
                 self._input_meta[name] = meta
                 self._secret_types[name] = dt
                 self._input_dtype[name] = ctext.dtype
+        elif mesh is not None:
+            batch_values = dict(batch_values or {})
+            dp = int(mesh.shape["dp"])
+            sizes = {len(v) for v in batch_values.values()}
+            if len(sizes) > 1:
+                raise RuntimeExecutionError(
+                    f"batch_values row counts differ: {sorted(sizes)}")
+            B = sizes.pop() if sizes else dp
+            if B % dp:
+                raise RuntimeExecutionError(
+                    f"batch {B} must be divisible by dp={dp}")
+            self.batch = B
+            self._rows = mesh.local_slice("dp", B)
+            self.rows = list(range(B))[self._rows]
+            for name, dt, ctext in secret_decls:
+                self._secret_types[name] = dt
+                self._input_dtype[name] = ctext.dtype
+            # every process encrypts the whole batch in one order (the same
+            # words on every rank) and keeps its dp rows
+            self.secret_inputs = self._encrypt_batch(
+                {name: batch_values.get(name) or [list(ctext.values)] * B
+                 for name, _, ctext in secret_decls})
         _mark("encrypt")
 
         tainted = compiled.secret_tainted
@@ -186,7 +242,7 @@ class JittedProgram:
                         f"unsupported output value for {name!r}")
             return out
 
-        self._fn = fn
+        self._fn = fn if mesh is None else self._mesh_walk(fn)
 
         # Keys are not arguments of the graph: it reads the context's key
         # tensors. Which keys the program needs is answered by a run on the
@@ -195,9 +251,29 @@ class JittedProgram:
         _mark("key_census")
         ctx.materialize_keys(sorted(requests or ()))
         _mark("key_build")
+        self._limb_ok = mesh is not None and \
+            isinstance(factory, BfvCiphertextFactory)
+        if self._limb_ok:
+            # the "limb" axis shards each switching key's α digit rows; an α
+            # the axis does not divide cannot be laid out, and the program
+            # runs dp-only with whole keys (the preset chains have α in
+            # {5, 6, 13, 27}, rarely divisible by a power-of-two axis)
+            limb_ax = int(mesh.shape["limb"])
+            alpha = ctx.params.num_ks_digits
+            if alpha % limb_ax:
+                warnings.warn(
+                    f"switching-key digit count does not divide the limb "
+                    f"mesh axis ({limb_ax}); keys stay replicated and the "
+                    f"limb axis is idle — size the axis to divide the key "
+                    f"decomposition rows ([{alpha}])", stacklevel=3)
+                self._limb_ok = False
+        if self._limb_ok and not mesh.is_local:
+            # a rank keeps only its α/limb digit rows of each key (under
+            # LocalComm every shard's rows live in this process anyway)
+            ctx.shard_keys(mesh)
 
         self._graph = None
-        if not on_card:
+        if not capture:
             _mark("setup_other")
             return
         self._static_in = {name: t.clone()
@@ -287,18 +363,70 @@ class JittedProgram:
             requests.add("relin")
         return requests
 
+    def _mesh_walk(self, walk):
+        """The program walk on a mesh: BFV once over the batch rows, with
+        limb-sharded key switching when the keys allow it; CKKS once per
+        row, the outputs stacked. Cleartext outputs repeat per row."""
+        ctx = self.factory.context
+
+        def bfv(secret_tensors):
+            rows = len(self.rows)
+            if self._limb_ok:
+                with ctx.limb_sharded(self.mesh):
+                    out = walk(secret_tensors)
+            else:
+                out = walk(secret_tensors)
+            return {name: v if self._out_is_ct[name] else [v] * rows
+                    for name, v in out.items()}
+
+        def ckks(secret_tensors):
+            outs = [walk({name: t[i] for name, t in secret_tensors.items()})
+                    for i in range(len(self.rows))]
+            return {name: torch.stack([o[name] for o in outs])
+                    if self._out_is_ct[name] else [o[name] for o in outs]
+                    for name in outs[0]}
+
+        return bfv if isinstance(self.factory, BfvCiphertextFactory) \
+            else ckks
+
+    def _encrypt_batch(self, rows_of: Dict[str, list]
+                       ) -> Dict[str, torch.Tensor]:
+        """{name: [B value-vectors]} → {name: this process's dp rows of the
+        encrypted batch, [rows, 2, L, n]}; one create_many in name order."""
+        names = list(rows_of)
+        for n in names:
+            if len(rows_of[n]) != self.batch:
+                raise RuntimeExecutionError(
+                    f"{n}: expected {self.batch} rows, got "
+                    f"{len(rows_of[n])}")
+        handles = self.factory.create_many(
+            [Cleartext(list(v), self._input_dtype[n])
+             for n in names for v in rows_of[n]])
+        out = {}
+        for i, n in enumerate(names):
+            packed = [self.factory.jit_pack(h)
+                      for h in handles[i * self.batch:(i + 1) * self.batch]]
+            self._input_meta[n] = packed[0][1]
+            out[n] = torch.stack([t for t, _ in packed])[
+                self._rows].contiguous()
+        return out
+
     def encrypt_inputs(self, values: Dict[str, object]
                        ) -> Dict[str, torch.Tensor]:
         """Encrypt FRESH input values for run_raw — the serving pattern:
         compile once, then stream new inputs through the same graph.
-        values: {input_name: value-vector}; names omitted reuse the
-        originally encrypted inputs. Returns a dict accepted by run_raw."""
+        values: {input_name: value-vector} (on a mesh: {input_name: [B
+        value-vectors]}); names omitted reuse the originally encrypted
+        inputs. Returns a dict accepted by run_raw."""
         unknown = set(values) - set(self.secret_inputs)
         if unknown:
             raise RuntimeExecutionError(
                 f"unknown secret inputs: {sorted(unknown)}")
         out = dict(self.secret_inputs)
         names = sorted(values)
+        if self.batch:
+            out.update(self._encrypt_batch({n: values[n] for n in names}))
+            return out
         handles = self.factory.create_many(
             [Cleartext(list(values[n]), self._input_dtype[n]) for n in names])
         for n, h in zip(names, handles):
@@ -319,7 +447,8 @@ class JittedProgram:
     def run_raw(self, secret_tensors: Dict[str, torch.Tensor]
                 ) -> Dict[str, object]:
         """Execute on ciphertext tensors ({input_name: [2, L, n] int32 on the
-        program's device}, every secret input named). On a CUDA device:
+        program's device, [rows, 2, L, n] on a mesh}, every secret input
+        named). On a CUDA device, but for a DistComm rank:
         copies into the graph's inputs, one replay, fresh clones of its
         outputs. Cleartext outputs are the constants fixed at capture."""
         if set(secret_tensors) != set(self.secret_inputs):
@@ -351,7 +480,12 @@ class JittedProgram:
         separately from run_raw)."""
         out: Dict[str, List] = {}
         for name, value in raw.items():
-            if self._out_is_ct[name]:
+            if self._out_is_ct[name] and self.batch:
+                # mesh mode: one decrypt per row this process holds
+                out[name] = [self.factory.decrypt(self.factory.jit_unpack(
+                    value[i], self._out_meta[name]))
+                    for i in range(len(self.rows))]
+            elif self._out_is_ct[name]:
                 handle = self.factory.jit_unpack(value, self._out_meta[name])
                 out[name] = self.factory.decrypt(handle)
             else:
@@ -383,6 +517,9 @@ def jit_compile_program(program_src: str, inputs_src: str, output_src: str,
                         seed=None, plain_bits: int = 20,
                         security_strict: bool = False) -> JittedProgram:
     """Parse + compile + capture in one call.
+
+    mesh/batch_values: run on a ("dp", "limb") mesh (parallel/mesh.py) — see
+    JittedProgram.
 
     auto_params=True sizes the parameter set from the compiled circuit and
     builds the factory itself, on `device`; `factory` must then be None.

@@ -145,6 +145,27 @@ Phases, each of which raises on failure (the script then exits nonzero):
    equal to an eager walk on the same ciphertexts, no counter moving across
    replays, ms and kernels per replay. Kernel launches are counted over
    this phase alone.
+13. The meshes (abc_tpu_torch/parallel/) at the reference's production
+   shapes (abc_tpu/parallel/dryrun.py), on LocalComm: 8 shards on the card.
+   First the shard-table launches: ntt_fwd / ntt_inv with the 8 shards'
+   local-stage tables of the distributed NTT stacked into one launch (64
+   rows at n = S = 4096) torch.equal to their plain versions, timed beside
+   the bound. Then, launches counted over this path alone: (a)
+   sharded_key_switch and sharded_rotate_rows at BFV n=8192 with 8 + 1
+   primes on dp=2 x limb=4, equal to the single-device _key_switch /
+   rotate_rows; (b) DistNttContext at n=32768, L=8, D=8: fwd (one launch
+   for all shards), inv and negacyclic_mul equal to NttContext; (c)
+   DistCkksMultiplier at n=32768, levels=8, k=1, D=8 equal to
+   CkksContext.multiply(rescale=False); (d) the hamming program through
+   jit_compile_program(mesh=dp 2 x limb 4, batch_values=...) at n=8192,
+   batch 4, as one graph: decrypts equal to single-device runs of each row
+   and the oracle, ms and kernels per replay, no count moving at a replay;
+   (e) entry.dryrun_multichip(8): the small-shape dryrun and
+   run_production_dryrun with step ms and the collective census. Then
+   DistComm over NCCL: world = the visible cards, one spawned rank each,
+   running (a) and (b) with the words of the LocalComm runs (with one card
+   the world is 1: NCCL init and all_reduce, no exchange), and a probe of
+   whether an NCCL all_reduce can be captured in a CUDA graph.
 
 Needs one CUDA device; exits nonzero at once without one. Imports nothing of
 JAX or of abc_tpu. Prints the card's name and power limit, a
@@ -2142,6 +2163,232 @@ def phase_reference_scale(dev):
     return launches
 
 
+# ------------------------------------------------------ phase 13: the meshes
+# the reference's production shapes (abc_tpu/parallel/dryrun.py:89-130):
+# BFV n=8192 with 8 data primes + 1 special (build_context(8192, 8,
+# seed=17)) on dp=2 x limb=4; the distributed NTT at n=32768, L=8 over D=8
+# shards (S = 4096); CKKS n=32768, levels=8, k=1 over D=8
+MESH_DP, MESH_LIMB = 2, 4
+MESH_BFV = {"n": 8192, "limbs": 8, "seed": 17}
+MESH_NTT = {"n": 32768, "L": 8, "D": 8}
+MESH_CKKS = {"n": 32768, "levels": 8, "seed": 23, "D": 8}
+MESH_BATCH = 4
+
+
+def mesh_nccl_leg(dev, local_words):
+    """(a) and (b) on DistComm over NCCL: world = the visible cards, one rank
+    each, spawned; each rank's words against the LocalComm words of this
+    process. Last in the same ranks, whether an NCCL all_reduce can be
+    captured in a graph (a probe, reported whatever it finds)."""
+    import tempfile
+
+    from abc_tpu_torch.parallel import multihost
+
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as words_dir:
+        results = multihost.launch(
+            nproc=1, local_devices=world,
+            tasks=("keyswitch", "ntt", "capture_probe"),
+            device="cuda", n_bfv=MESH_BFV["n"], bfv_limbs=MESH_BFV["limbs"],
+            n_ntt=MESH_NTT["n"], ntt_limbs=MESH_NTT["L"], timeout_s=180,
+            words_dir=words_dir)
+        for r in range(world):
+            got = np.load(os.path.join(words_dir, f"rank{r}.npz"))
+            for name, want in local_words.items():
+                check(np.array_equal(got[name], want),
+                      f"NCCL rank {r}: {name} != the LocalComm words")
+    r0 = results[0]
+    check(r0["backend"] == "nccl" and r0["barrier"]["world"] == world,
+          f"NCCL leg: {r0['backend']}, barrier {r0['barrier']}")
+    ks = r0["keyswitch"]["collectives"]
+    exchanges = r0["ntt"]["collectives"].get("collective-permute",
+                                             {"ops": 0})["ops"]
+    print(f"  NCCL leg: world {world} (one rank per card), mesh "
+          f"{r0['keyswitch']['mesh']}, D={r0['ntt']['D']}: sharded key "
+          f"switch, rotation and the distributed NTT word-equal to LocalComm "
+          f"on every rank; collectives {ks}, {exchanges} exchanges"
+          + (" (a world of 1 covers NCCL init and all_reduce, and no "
+             "exchange)" if world == 1 else ""), flush=True)
+    print(f"  NCCL all_reduce under torch.cuda.graph: "
+          f"{[r['nccl_capture'] for r in results]}", flush=True)
+
+
+def phase_mesh(dev):
+    """Phase 13: the mesh paths on LocalComm on the card at production
+    shapes, word for word against the single-device port; the shard-table
+    launches against the plain versions; then DistComm over NCCL. Launches
+    are counted over the driven mesh path alone."""
+    from abc_tpu_torch import entry, jit_compile_program
+    from abc_tpu_torch.crypto.ckks import CkksContext, CkksParams
+    from abc_tpu_torch.crypto.ntt import NttContext
+    from abc_tpu_torch.crypto.numthy import gen_ntt_primes
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    from abc_tpu_torch.ops.modarith import to_host
+    from abc_tpu_torch.parallel import (make_mesh, multihost,
+                                        sharded_key_switch,
+                                        sharded_rotate_rows)
+    from abc_tpu_torch.parallel.dist_ckks import DistCkksMultiplier
+    from abc_tpu_torch.parallel.dist_ntt import DistNttContext
+    from abc_tpu_torch.parallel.dryrun import HAMMING, build_context
+    from abc_tpu_torch.parallel.mesh import coeff_mesh
+    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+
+    mesh = make_mesh(MESH_DP, MESH_LIMB, device=dev)
+    n, D, L = MESH_NTT["n"], MESH_NTT["D"], MESH_NTT["L"]
+    S = n // D
+    moduli = gen_ntt_primes(30, L, n)
+    nctx = NttContext(n, moduli, dev)
+    dist = DistNttContext(nctx, D)
+    cmesh = coeff_mesh(D, device=dev)
+    x, y = multihost.ntt_inputs(moduli, n, 0, dev)
+
+    # --- the shard-table launches against the plain versions (not counted)
+    b = dist.bind(cmesh)
+    flat = cmesh.scatter(x, "coeff", dim=-1).contiguous().flatten(-3, -2)
+    rows = flat.shape[-2]
+    stats = {}
+    for name, kern, plain in (
+            ("ntt_fwd",
+             lambda: nk.ntt_fwd(flat, b["q"], b["loc_f"], b["loc_fs"]),
+             lambda: nk.fwd_ntt_plain(flat, b["q"], b["loc_f"])),
+            ("ntt_inv",
+             lambda: nk.ntt_inv(flat, b["q"], b["loc_i"], b["loc_is"],
+                                b["unit"], b["unit_sh"]),
+             lambda: nk.inv_ntt_plain(flat, b["q"], b["loc_i"], b["unit"]))):
+        k_out, p_out = kern(), plain()
+        check(torch.equal(k_out, p_out),
+              f"{name} with the shard tables != plain at {rows} rows, n={S}")
+        st = {"max_abs_err": int((k_out.long() - p_out.long()).abs().max())}
+        line = _timed(st, kern, plain, [S, rows, 1],
+                      ntt_bound(S, rows, rows, name == "ntt_inv"))
+        stats[name] = st
+        print(f"  {name}, {D} shards' tables in one launch: {rows} rows x "
+              f"n={S} ({nk.cluster_size(rows, S)} CTAs per row) = plain; "
+              f"{line}", flush=True)
+
+    last = [time.perf_counter()]
+
+    def secs():
+        """Host-clock seconds of the part just done."""
+        now = time.perf_counter()
+        took, last[0] = now - last[0], now
+        return f"{took:.1f} s on the host clock"
+
+    for name in nk.launches:
+        nk.launches[name] = 0
+    # --- (a) limb-sharded key switch and rotation, BFV n=8192, 8 + 1 primes
+    ctx = build_context(MESH_BFV["n"], MESH_BFV["limbs"],
+                        seed=MESH_BFV["seed"], device=dev)
+    ct = ctx.encrypt(ctx.encode(list(range(16))))
+    ksk = ctx.get_relin_key()
+    k0, k1 = sharded_key_switch(ctx, mesh, ct.data[1], ksk)
+    r0, r1 = ctx._key_switch(ct.data[1], ksk)
+    check(torch.equal(k0, r0) and torch.equal(k1, r1),
+          "sharded key switch != the single-device _key_switch")
+    rot = sharded_rotate_rows(ctx, mesh, ct.data, 3)
+    check(torch.equal(rot, ctx.rotate_rows(ct, 3).data),
+          "sharded rotation != the single-device rotate_rows")
+    check(ctx.decode(ctx.decrypt(type(ct)(rot)))[:13] == list(range(3, 16)),
+          "sharded rotation does not decrypt to the rotated slots")
+    print(f"  (a) BFV n={MESH_BFV['n']}, L={ctx.params.L}, dp={MESH_DP} x "
+          f"limb={MESH_LIMB}: sharded_key_switch and sharded_rotate_rows "
+          f"equal the single-device words; collectives {mesh.census}; "
+          f"{secs()}", flush=True)
+
+    # --- (b) the distributed NTT, n=32768, L=8, D=8
+    before = dict(nk.launches)
+    f = dist.make_fwd(cmesh)(x)
+    check(nk.launches["ntt_fwd"] == before["ntt_fwd"] + 1
+          and nk.launches["ntt_inv"] == before["ntt_inv"],
+          "the distributed forward NTT is not one launch for all shards")
+    check(torch.equal(f, nctx.fwd(x)), "distributed fwd != NttContext.fwd")
+    inv_x = dist.make_inv(cmesh)(x)
+    check(torch.equal(inv_x, nctx.inv(x)), "distributed inv != NttContext.inv")
+    check(torch.equal(dist.make_inv(cmesh)(f), x), "inv(fwd(x)) != x")
+    mul = dist.make_negacyclic_mul(cmesh)(x, y)
+    check(torch.equal(mul, nctx.negacyclic_mul(x, y)),
+          "distributed negacyclic_mul != NttContext.negacyclic_mul")
+    print(f"  (b) distributed NTT n={n}, L={L}, D={D} (S={S}): fwd, inv, "
+          f"negacyclic_mul equal NttContext; collectives {cmesh.census}; "
+          f"{secs()}", flush=True)
+
+    # --- (c) the coefficient-sharded CKKS multiply, n=32768, levels=8, k=1
+    cctx = CkksContext(CkksParams.create(MESH_CKKS["n"],
+                                         levels=MESH_CKKS["levels"],
+                                         seed=MESH_CKKS["seed"]), dev)
+    dmul = DistCkksMultiplier(cctx, coeff_mesh(MESH_CKKS["D"], device=dev))
+    vals = np.linspace(0.1, 0.9, 64)
+    ca, cb = cctx.encrypt(cctx.encode(vals)), cctx.encrypt(cctx.encode(vals))
+    prod = dmul(ca.data, cb.data)
+    check(torch.equal(prod, cctx.multiply(ca, cb, rescale=False).data),
+          "DistCkksMultiplier != CkksContext.multiply(rescale=False)")
+    ckks_ms = cuda_ms(lambda: dmul(ca.data, cb.data))
+    ckks_prof = kernel_profile(lambda: dmul(ca.data, cb.data), reps=3)
+    print(f"  (c) CKKS n={MESH_CKKS['n']}, levels={MESH_CKKS['levels']}, "
+          f"k=1, D={MESH_CKKS['D']}: DistCkksMultiplier equals "
+          f"CkksContext.multiply(rescale=False); {ckks_ms:.3f} ms per eager "
+          f"call (CUDA events, median of 10); device: {fmt_ntt(ckks_prof)}; "
+          f"{secs()}", flush=True)
+
+    # --- (d) the hamming program on the dp x limb mesh as one graph
+    rng = np.random.default_rng(3)
+    xs = [[int(v) for v in rng.integers(0, 2, 4)] for _ in range(MESH_BATCH)]
+    ys = [[int(v) for v in rng.integers(0, 2, 4)] for _ in range(MESH_BATCH)]
+
+    def inputs(xv, yv):
+        return (f"secret int x = {{{','.join(map(str, xv))}}}; "
+                f"secret int y = {{{','.join(map(str, yv))}}}; int n = 4;")
+
+    jp = jit_compile_program(HAMMING, inputs(xs[0], ys[0]), "out = sum;",
+                             BfvCiphertextFactory(context=ctx), mesh=mesh,
+                             batch_values={"x": xs, "y": ys})
+    check(jp._graph is not None and jp._limb_ok,
+          "the mesh program was not captured limb-sharded")
+    raw = jp.run_raw(jp.secret_inputs)
+    got = [r[0] for r in jp.decrypt_outputs(raw)["out"]]
+    single = jit_compile_program(
+        HAMMING, inputs(xs[0], ys[0]), "out = sum;",
+        BfvCiphertextFactory(context=build_context(
+            MESH_BFV["n"], MESH_BFV["limbs"], seed=MESH_BFV["seed"],
+            device=dev)))
+    singles = [single.decrypt_outputs(single.run_raw(single.encrypt_inputs(
+        {"x": xv, "y": yv})))["out"][0] for xv, yv in zip(xs, ys)]
+    oracle = [sum(int(p != q) for p, q in zip(xv, yv))
+              for xv, yv in zip(xs, ys)]
+    check(got == singles == oracle,
+          f"mesh hamming {got}, single-device {singles}, oracle {oracle}")
+    counts = dict(nk.launches)
+    replay = replay_ms(jp, jp.secret_inputs, 10)
+    check(dict(nk.launches) == counts, "a mesh replay moved a launch count")
+    prof = kernel_profile(lambda: jp.run_raw(jp.secret_inputs), reps=3)
+    print(f"  (d) hamming on dp={MESH_DP} x limb={MESH_LIMB}, n="
+          f"{MESH_BFV['n']}, batch {MESH_BATCH}: one graph, decrypts "
+          f"{got} = the single-device runs = oracle; {replay[0]:.3f} ms per "
+          f"replay (CUDA events, median of 10, {replay[1]}); device: "
+          f"{fmt_ntt(prof)}; phase_ms "
+          f"{ {k: round(v, 1) for k, v in jp.phase_ms.items()} }; "
+          f"{secs()}", flush=True)
+
+    # --- (e) the entry point: entry.dryrun_multichip(8)
+    report = entry.dryrun_multichip(MESH_DP * MESH_LIMB)["production"]
+    for part in ("bfv", "compiled_program", "ckks"):
+        print(f"  (e) production {part}: step {report[part]['step_ms']:.3f} "
+              f"ms ({report[part]['timer']}); collectives per step "
+              f"{report[part]['collectives_per_step']}", flush=True)
+    print(f"  (e) {secs()}", flush=True)
+    launches = dict(nk.launches)
+    check(all(v > 0 for v in launches.values()),
+          f"phase 13 launched a kernel no time: {launches}")
+
+    # --- DistComm over NCCL: (a) and (b) on spawned ranks
+    local_words = {"keyswitch.k0": to_host(k0), "keyswitch.k1": to_host(k1),
+                   "keyswitch.rot": to_host(rot), "ntt.fwd": to_host(f),
+                   "ntt.inv": to_host(inv_x), "ntt.mul": to_host(mul)}
+    mesh_nccl_leg(dev, local_words)
+    print(f"  NCCL leg {secs()}", flush=True)
+    return stats, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2207,6 +2454,9 @@ def main() -> int:
     serving_launches = phase_checkpoint(dev, gold)
     announce("phase 12: the reference-scale workloads as graphs")
     reference_scale_launches = phase_reference_scale(dev)
+    announce("phase 13: the meshes (LocalComm on the card at production "
+             "shapes; DistComm over NCCL)")
+    mesh_stats, mesh_launches = phase_mesh(dev)
     announce("phases done")
     loaded = sorted(m for m, v in sys.modules.items() if v is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "abc_tpu"))
@@ -2230,6 +2480,11 @@ def main() -> int:
                 "launches_serving": serving_launches.get(name, 0),
                 "launches_reference_scale":
                     reference_scale_launches.get(name, 0),
+                # phase 13's mesh paths, counted alone, and the kernel with
+                # D shards' tables in one launch at n = S (the local stages
+                # of the distributed NTT)
+                "launches_mesh": mesh_launches.get(name, 0),
+                "mesh": mesh_stats.get(name),
                 "ckks": ckks_stats.get(name),
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],

@@ -7,7 +7,7 @@ own jit_compile_program (jx32). Plus what a CUDA-graph capture needs of the
 context (identity caches emptied around a run, host-made constants on a
 tape) driven here without a graph, the CKKS cases of the same reference
 file (float programs, values to its tolerance, words against abc_tpu's jx32
-program), and the refusals (mesh, no GPU).
+program), and the refusals (a malformed mesh, no GPU).
 """
 
 import contextlib
@@ -496,7 +496,7 @@ def test_ckks_two_runs_on_one_tensor_with_new_contents(monkeypatch, repaired):
 
 
 def test_ckks_factory_refuses_mesh_like_bfv():
-    with pytest.raises(RuntimeExecutionError, match="multi-GPU"):
+    with pytest.raises(RuntimeExecutionError, match="Mesh with axes"):
         jit_compile_program(factory=_ckks_port(seed=4), mesh=object(),
                             **CKKS_MULT_ROTATE)
 
@@ -504,8 +504,13 @@ def test_ckks_factory_refuses_mesh_like_bfv():
 # ------------------------------------------------------------- refusals
 
 def test_mesh_and_batch_values_wait_for_the_multi_gpu_slice():
-    for kwargs in ({"mesh": object()}, {"batch_values": {"a": [[1], [2]]}}):
-        with pytest.raises(RuntimeExecutionError, match="multi-GPU"):
+    """The multi-GPU slice is here (tests/test_torch_jit_mesh.py): what is
+    still refused is a mesh that is not a ("dp", "limb") Mesh and a batch
+    without a mesh to shard it over."""
+    for kwargs, match in (({"mesh": object()}, "Mesh with axes"),
+                          ({"batch_values": {"a": [[1], [2]]}},
+                           "needs mesh=")):
+        with pytest.raises(RuntimeExecutionError, match=match):
             jit_compile_program(factory=_port(seed=9), **MULT_ROTATE,
                                 **kwargs)
 
