@@ -25,6 +25,10 @@ Layout (module for module the reference's):
                          JittedProgram (one CUDA graph per program)
   ops/modarith.py      — elementwise RNS arithmetic (torch engine)
   ops/ntt_kernels.py   — NTT kernel wrappers + their plain torch versions
+  ops/behz_kernels.py  — BEHZ multiply kernel wrappers (base extension,
+                         tensor product, fast floor, Shenoy-Kumaresan) and
+                         their packed tables; the tensor product's plain
+                         version (the conversions' are BehzContext's)
   crypto/numthy.py, params.py — primes and parameter presets
   crypto/prng.py       — Threefry-2x32 streams (numpy words, torch polynomials)
   crypto/ntt.py        — twiddle tables, NttContext over [..., L, n] residues,

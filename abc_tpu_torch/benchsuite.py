@@ -49,8 +49,9 @@ import torch
 from abc_tpu_torch.ops import ntt_kernels
 from abc_tpu_torch.utils.timing import estimates, repeated, timer_of
 
-# chain lengths: one n=8192 mult+relin step is 385 graph nodes at k=1, so 24
-# steps keep a graph under 10 000 nodes; the CKKS op is 213
+# chain lengths: one n=8192 mult+relin step is 111 graph nodes at k=1 and
+# the CKKS op 181 (385 and 213 before the BEHZ kernels, for which these
+# lengths were chosen to keep a graph under 10 000 nodes)
 _CHAIN = {2: 24, 3: 12, 5: 32}
 # what `fast` (the bench's own run of the suite) and `quick` (the smoke run)
 # pass instead of the defaults

@@ -5,7 +5,10 @@ correction, tensor product in NTT form per base, fast floor in Bsk,
 Shenoy-Kumaresan back to q). The auxiliary primes (L+1 B-primes and m_sk,
 all 30-bit, disjoint from q ∪ {P, t}) and every constant table are computed
 here from host bigints exactly as the reference computes them; they live on
-the device as int32 and the arithmetic is the torch engine's.
+the device as int32. The four chains (`_to_bsk`, `_tensor`, `_fast_floor`,
+`_from_bsk`) are the kernels of csrc/behz.cu on a CUDA device and their
+plain torch versions on the CPU (the `_plain` methods here, and
+ops/behz_kernels.py:tensor_plain).
 """
 
 from __future__ import annotations
@@ -18,10 +21,10 @@ import torch
 from abc_tpu_torch.crypto.ntt import NttContext
 from abc_tpu_torch.crypto.numthy import gen_ntt_primes, modinv
 from abc_tpu_torch.crypto.params import BfvParams
+from abc_tpu_torch.ops import behz_kernels as bk
+from abc_tpu_torch.ops.behz_kernels import M_TILDE
 from abc_tpu_torch.ops.modarith import as_residues, in_chain, t64
 
-M_TILDE_BITS = 16
-M_TILDE = 1 << M_TILDE_BITS
 _MASK = M_TILDE - 1
 
 
@@ -85,13 +88,36 @@ class BehzContext:
         host["B_mod_q"] = as_col([B_big % qi for qi in qs])
         host["msk_mod_q"] = as_col([self.m_sk % qi for qi in qs])
 
+        self.host_tab = host
         self.tab = {k: as_residues(v, dev) for k, v in host.items()}
         self.q_cols = as_residues(as_col(qs), dev)            # [L, 1]
         self.bsk_cols = as_residues(as_col(self.bsk), dev)    # [L+2, 1]
         self.msk_col = as_residues(self.m_sk, dev).reshape(1, 1)
         self.msk_half = self.m_sk >> 1
+        # the kernels' packed tables, on a CUDA device only (no kernel runs
+        # on the CPU)
+        self.kernel_tab = {} if dev.type == "cpu" else {
+            k: as_residues(v, dev) for k, v in self.kernel_words().items()}
 
-    # ----------------------------------------------------------------- helpers
+    def kernel_words(self) -> dict:
+        """The packed uint32 tables of the three conversion kernels
+        (ops/behz_kernels.py, csrc/behz.cu "Tables"), from the host tables."""
+        h, qs = self.host_tab, self.params.data_primes
+        return {
+            "to_bsk": bk.to_bsk_words(
+                qs, self.bsk, h["mtilde_qhatinv_mod_q"], h["qhat_mod_mtilde"],
+                h["neg_qinv_mod_mtilde"], h["q_mod_bsk"],
+                h["mtilde_inv_mod_bsk"], h["qhat_mod_bsk"]),
+            "fast_floor": bk.fast_floor_words(
+                qs, self.bsk, h["t_mod_q"], h["qhatinv_mod_q"],
+                h["t_mod_bsk"], h["qinv_mod_bsk"], h["qhat_mod_bsk"]),
+            "from_bsk": bk.from_bsk_words(
+                self.b_primes, self.m_sk, qs, h["bhatinv_mod_b"],
+                h["bhat_mod_msk"], h["binv_mod_msk"], h["B_mod_q"],
+                h["msk_mod_q"], h["bhat_mod_q"]),
+        }
+
+    # ------------------------------------------------------- plain versions
     @staticmethod
     def _fastconv(y, table, dst_q):
         """Σ_i y_i·table[i, d] mod dst_d — the RNS base-conversion contraction.
@@ -99,8 +125,7 @@ class BehzContext:
         prod = t64.mul(y[..., :, None, :], table[:, :, None], dst_q[None])
         return t64.sum_mod(prod, dst_q, dim=-3)
 
-    @in_chain("to_bsk")
-    def _to_bsk(self, x):
+    def _to_bsk_plain(self, x):
         """Exact base extension q → Bsk of x ∈ [0,q)^n ([..., L, n])."""
         T = self.tab
         y = t64.mul(x, T["mtilde_qhatinv_mod_q"], self.q_cols)
@@ -120,8 +145,7 @@ class BehzContext:
         return t64.mul(t64.add(conv_b, qr, self.bsk_cols),
                        T["mtilde_inv_mod_bsk"], self.bsk_cols)
 
-    @in_chain("fast_floor")
-    def _fast_floor(self, e_q, e_bsk):
+    def _fast_floor_plain(self, e_q, e_bsk):
         """floor(t·e/q) in base Bsk, inputs in (q, Bsk) coeff domain."""
         T = self.tab
         tq = t64.mul(e_q, T["t_mod_q"], self.q_cols)
@@ -131,8 +155,7 @@ class BehzContext:
         return t64.mul(t64.sub(tb, conv, self.bsk_cols),
                        T["qinv_mod_bsk"], self.bsk_cols)
 
-    @in_chain("from_bsk")
-    def _from_bsk(self, x_bsk):
+    def _from_bsk_plain(self, x_bsk):
         """Exact conversion Bsk → q (Shenoy-Kumaresan with m_sk)."""
         T = self.tab
         xb, x_msk = x_bsk[..., :-1, :], x_bsk[..., -1, :]
@@ -151,10 +174,49 @@ class BehzContext:
         corr = t64.mul(T["B_mod_q"], a_cent, self.q_cols)
         return t64.sub(conv_q, corr, self.q_cols)
 
+    # ------------------------------------------------------------- the chains
+    # Each chain is the plain version above on a CPU tensor and one kernel of
+    # csrc/behz.cu on any other (ops/behz_kernels.py checks it: a CUDA
+    # tensor, int32, contiguous, on the tables' device); the ranges name them
+    # in a profile.
+    @in_chain("to_bsk")
+    def _to_bsk(self, x):
+        """Exact base extension q → Bsk of x ∈ [0,q)^n ([..., L, n])."""
+        if x.device.type == "cpu":
+            return self._to_bsk_plain(x)
+        return bk.behz_to_bsk(x, self.kernel_tab.get("to_bsk"),
+                              len(self.bsk))
+
+    @in_chain("tensor")
+    def _tensor(self, f1, f2, base):
+        """The tensor product of two NTT-domain operands ([..., 2, D, n])
+        over base "q" or "bsk" → [..., 3, D, n]."""
+        ntt = self.ntt_q if base == "q" else self.ntt_bsk
+        return bk.behz_tensor(f1, f2, ntt.q_col, ntt.ratio)
+
+    @in_chain("fast_floor")
+    def _fast_floor(self, e_q, e_bsk):
+        """floor(t·e/q) in base Bsk, inputs in (q, Bsk) coeff domain."""
+        if e_q.device.type == "cpu":
+            return self._fast_floor_plain(e_q, e_bsk)
+        return bk.behz_fast_floor(e_q, e_bsk,
+                                  self.kernel_tab.get("fast_floor"))
+
+    @in_chain("from_bsk")
+    def _from_bsk(self, x_bsk):
+        """Exact conversion Bsk → q (Shenoy-Kumaresan with m_sk)."""
+        if x_bsk.device.type == "cpu":
+            return self._from_bsk_plain(x_bsk)
+        return bk.behz_from_bsk(x_bsk, self.kernel_tab.get("from_bsk"),
+                                len(self.params.data_primes))
+
     # ---------------------------------------------------------------- multiply
     def precompute_operand(self, ct_data) -> Tuple:
         """(fwd-NTT over q, fwd-NTT over Bsk) of a ciphertext — the
         per-operand half of `multiply`."""
+        # the kernels take contiguous operands: a view (a row of a batch, a
+        # level's limbs) is copied here once, for both transforms
+        ct_data = ct_data.contiguous()
         return (self.ntt_q.fwd(ct_data),
                 self.ntt_bsk.fwd(self._to_bsk(ct_data)))
 
@@ -164,16 +226,6 @@ class BehzContext:
         coefficient-domain product over q (pre-relinearization). A square
         passes the same forms twice."""
         (f1q, f1b), (f2q, f2b) = pre1, pre2
-
-        @in_chain("tensor")
-        def tensor(f1, f2, q):
-            a0, a1 = f1[..., 0, :, :], f1[..., 1, :, :]
-            b0, b1 = f2[..., 0, :, :], f2[..., 1, :, :]
-            e0 = t64.mul(a0, b0, q)
-            e1 = t64.add(t64.mul(a0, b1, q), t64.mul(a1, b0, q), q)
-            e2 = t64.mul(a1, b1, q)
-            return torch.stack([e0, e1, e2], dim=-3)
-
-        eq = self.ntt_q.inv(tensor(f1q, f2q, self.q_cols))
-        eb = self.ntt_bsk.inv(tensor(f1b, f2b, self.bsk_cols))
+        eq = self.ntt_q.inv(self._tensor(f1q, f2q, "q"))
+        eb = self.ntt_bsk.inv(self._tensor(f1b, f2b, "bsk"))
         return self._from_bsk(self._fast_floor(eq, eb))

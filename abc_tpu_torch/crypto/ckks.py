@@ -48,6 +48,7 @@ import torch
 from abc_tpu_torch.crypto.ntt import NttContext
 from abc_tpu_torch.crypto.numthy import centered, gen_ntt_primes, modinv
 from abc_tpu_torch.crypto.rlwe import RlweKeys
+from abc_tpu_torch.ops.behz_kernels import behz_tensor
 from abc_tpu_torch.ops.modarith import (as_residues, chain_range, in_chain,
                                           t64, to_host)
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
@@ -551,15 +552,11 @@ class CkksContext(RlweKeys):
         # multiplication composes scales; only levels need aligning
         a, b = self._align(a, b, match_scale=False)
         level = a.level
-        ntt, q = self._ntt_at(level), self._q_at(level)
+        ntt = self._ntt_at(level)
         self.counters["mult"] += 1
         fa, fb = ntt.fwd(a.data), ntt.fwd(b.data)
         with chain_range("tensor"):
-            d0 = t64.mul(fa[0], fb[0], q)
-            d1 = t64.add(t64.mul(fa[0], fb[1], q), t64.mul(fa[1], fb[0], q),
-                         q)
-            d2 = t64.mul(fa[1], fb[1], q)
-            d = torch.stack([d0, d1, d2])
+            d = behz_tensor(fa, fb, ntt.q_col, ntt.ratio)
         data = ntt.inv(d)
         ct = CkksCiphertext(data, level, a.scale * b.scale)
         if relinearize:

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from abc_tpu_torch.crypto.numthy import find_minimal_2nth_root, modinv
-from abc_tpu_torch.ops.modarith import as_residues, shoup, t64
+from abc_tpu_torch.ops.modarith import as_residues, ratio_table, shoup, t64
 from abc_tpu_torch.ops.ntt_kernels import ntt_fwd, ntt_inv
 
 
@@ -110,6 +110,8 @@ class NttContext:
             for i in (5, 6))
         self.q = as_residues(np.asarray(self.moduli), self.device)    # [L]
         self.q_col = self.q.reshape(-1, 1)                           # [L, 1]
+        # floor(2^64 / q) per modulus, read by the BEHZ tensor kernel
+        self.ratio = ratio_table(self.moduli, self.device)            # [L]
         self._subsets: dict = {}
 
     def subset(self, indices: Sequence[int]) -> "NttContext":
@@ -130,7 +132,7 @@ class NttContext:
         view.n, view.device = self.n, self.device
         view.moduli = [self.moduli[i] for i in key]
         names = ("fwd_tw", "fwd_tw_sh", "inv_tw", "inv_tw_sh", "n_inv",
-                 "n_inv_sh", "q")
+                 "n_inv_sh", "q", "ratio")
         if key == tuple(range(len(key))):
             for name in names:
                 setattr(view, name, getattr(self, name)[:len(key)])

@@ -19,7 +19,8 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-SOURCES = [os.path.join(_CSRC, f) for f in ("ntt.cu", "ntt_ablation.cu")]
+SOURCES = [os.path.join(_CSRC, f) for f in ("ntt.cu", "ntt_ablation.cu",
+                                             "behz.cu")]
 HEADERS = [os.path.join(_CSRC, f) for f in ("ntt_common.cuh",
                                              "ntt_passes.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -111,6 +112,15 @@ def load() -> ctypes.CDLL:
     lib.abc_ablate_ntt.restype = i32
     lib.abc_alu_chain.argtypes = [vp, vp, i64, i32, u32, u32, u32, i32, vp]
     lib.abc_alu_chain.restype = i32
+    for conv in (lib.abc_behz_to_bsk, lib.abc_behz_from_bsk):
+        conv.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
+        conv.restype = i32
+    lib.abc_behz_fast_floor.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
+                                        vp]
+    lib.abc_behz_fast_floor.restype = i32
+    lib.abc_behz_tensor.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
+                                    vp]
+    lib.abc_behz_tensor.restype = i32
     lib.abc_cuda_error_string.argtypes = [i32]
     lib.abc_cuda_error_string.restype = ctypes.c_char_p
     # the kernels' shared-memory limit, set once (csrc/ntt_passes.cuh:

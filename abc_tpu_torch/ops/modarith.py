@@ -61,6 +61,20 @@ def shoup(w: int, q: int) -> int:
     return (w << 32) // q
 
 
+def barrett_ratio(q: int) -> int:
+    """floor(2^64 / q), the 64-bit constant with which csrc/behz.cu's
+    reduce64 reduces any 64-bit value mod q."""
+    return (1 << 64) // q
+
+
+def ratio_table(moduli, device) -> torch.Tensor:
+    """[len(moduli)] int64 tensor of barrett_ratio words, bit for bit (the
+    kernels read them as uint64)."""
+    words = np.asarray([barrett_ratio(int(q)) for q in moduli],
+                       dtype=np.uint64)
+    return torch.from_numpy(words.view(np.int64)).to(device)
+
+
 def as_residues(arr, device) -> torch.Tensor:
     """Host 32-bit words → int32 tensor on `device`, bit for bit. Residues
     (< 2^30) keep their value; full 32-bit words such as Shoup companions

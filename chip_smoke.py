@@ -27,17 +27,32 @@ Phases, each of which raises on failure (the script then exits nonzero):
    the profiler's device time,
    beside the bound: the larger of bytes moved over 3.35 TB/s and integer
    multiply-adds over 132 SMs x 64 per clock x 1.98 GHz.
+2b. The BEHZ kernels (K3, abc_tpu_torch/csrc/behz.cu): behz_to_bsk,
+   behz_tensor (over base q and over base Bsk), behz_fast_floor and
+   behz_from_bsk torch.equal to their plain torch versions on the card at
+   n=8192, L=6 (one ciphertext and a batch of 64), n=2048, L=16 (config 4's
+   chain), n=16384, L=13 and n=32768, L=27 (the largest L of
+   BfvParams.create), inputs holding 0 and q-1, and on inputs all 0 and all
+   q-1. At each of those shapes the time per call (CUDA events, median of
+   10), the profiler's device time, the bound (bytes, or the integer
+   multiply-adds of the kernel's own arithmetic, behz_imads) and the plain
+   version's time.
 3. BFV mult+relin at n=8192 (6 data primes, k=1 and k=2): keys,
    ciphertexts and result on the card equal to the port's CPU context of
    the same seed and to the golden digests; one multiply of fresh operands
    launches exactly 5 forward and 3 inverse transforms (154 limb rows at
-   k=1); ms per op; device time per named elementwise chain (the
-   torch.profiler ranges of ops/modarith.chain_range), with the kernels
-   under the ranges counted against all kernels of the profile.
+   k=1) and 2 behz_to_bsk, 2 behz_tensor, 1 behz_fast_floor and 1
+   behz_from_bsk; ms per op; the op captured as a CUDA graph, its replay
+   profiled (kernels per replay, each hand-written kernel in it as often as
+   the eager op launched it) and timed; device time per named elementwise
+   chain (the torch.profiler ranges of ops/modarith.chain_range), with the
+   kernels under the ranges counted against the replay's census, at one
+   ciphertext and (k=1) at a batch of 64.
 4. The main path: the README hamming program, compiled by the port's passes
    and run encrypted through run_compiled with the port's factory at
-   n=8192. Kernel launch counts are taken over this run alone. Its output
-   words equal the CPU run and the golden digest, and decrypt to 2.
+   n=8192. Launch counts of every NTT and BEHZ kernel are taken over this
+   run alone, and each must be launched. Its output words equal the CPU run
+   and the golden digest, and decrypt to 2.
 5. LaplaceSharpening at the reference's parameters (n=16384, 13 data
    primes): decrypts equal to the plain oracle, rotations share one hoisted
    decomposition, both kernels launched; phase times.
@@ -225,6 +240,27 @@ BATCH_SIZES = (8, 16, 64)
 HBM_BYTES_S = 3.35e12
 IMAD_S = 132 * 64 * 1.98e9
 IMAD_PER_BUTTERFLY = 3                   # one Shoup product
+# the BEHZ kernels' shapes in phase 2b, (n, L, ciphertexts, t bits): t
+# None takes BfvParams.create(n)'s chain, else L data primes of 30 bits and
+# t of that many bits as benchsuite config 4 sizes them. The first is the
+# main path's, where the kernels line reads its numbers.
+BEHZ_SHAPES = [(8192, 6, 1, None), (8192, 6, 64, None), (2048, 16, 1, 14),
+               (16384, 13, 1, None), (32768, 27, 1, None)]
+BEHZ_EDGE_SHAPES = [(8192, 6, 1, None), (32768, 27, 1, None)]
+BEHZ = ("behz_to_bsk", "behz_tensor", "behz_fast_floor", "behz_from_bsk")
+# slots of the integer multiply-add pipe taken by each step of the BEHZ kernels
+# (csrc/behz.cu), the least each takes: a 32x32 -> 64-bit multiply-add, one;
+# a Shoup product by a table constant (mul_const), three; reduce64 (a 64x64
+# high product of four 32-bit partial products, and one low product), five
+BEHZ_IMAD = {"wide": 1, "shoup": 3, "reduce64": 5}
+PHASE3_BATCH = 64       # the bench curve's largest batch
+# hand-written kernel launches of one BFV mult+relin (k = 1 or 2) and of the
+# CKKS config-5 op
+MULT_RELIN_CENSUS = {"ntt_fwd": 5, "ntt_inv": 3, "behz_to_bsk": 2,
+                     "behz_tensor": 2, "behz_fast_floor": 1,
+                     "behz_from_bsk": 1}
+CKKS_OP_CENSUS = {"ntt_fwd": 3, "ntt_inv": 2, "behz_to_bsk": 0,
+                  "behz_tensor": 1, "behz_fast_floor": 0, "behz_from_bsk": 0}
 REPLACES = {
     "ntt_fwd": "abc_tpu/ops/pallas_ntt.py:265 (_fwd_kernel via "
                "pallas_fwd_ntt :417, pallas_fwd_ntt_fp :440)",
@@ -234,11 +270,18 @@ REPLACES = {
                   "ablate_ntt :178)",
     "alu_chain": "scripts/ntt_ablation.py:201 (_alu_mac_kernel), :210 "
                  "(_alu_shoup_kernel) via alu_chain :221",
+    # XLA-fused chains of the jx32 engine under jax.jit on the TPU
+    "behz_to_bsk": "abc_tpu/crypto/behz.py:133 (_to_bsk, with _fastconv "
+                   ":117)",
+    "behz_tensor": "abc_tpu/crypto/behz.py:241 (tensor in multiply)",
+    "behz_fast_floor": "abc_tpu/crypto/behz.py:161 (_fast_floor)",
+    "behz_from_bsk": "abc_tpu/crypto/behz.py:172 (_from_bsk)",
 }
 SOURCE = {"ntt_fwd": "abc_tpu_torch/csrc/ntt.cu",
           "ntt_inv": "abc_tpu_torch/csrc/ntt.cu",
           "ablate_ntt": "abc_tpu_torch/csrc/ntt_ablation.cu",
-          "alu_chain": "abc_tpu_torch/csrc/ntt_ablation.cu"}
+          "alu_chain": "abc_tpu_torch/csrc/ntt_ablation.cu",
+          **{name: "abc_tpu_torch/csrc/behz.cu" for name in BEHZ}}
 # CKKS at the reference's own size (abc_tpu/benchsuite.py config 5): the
 # launches of one multiply(a, a, rescale=False) as (kernel, level, with the
 # special primes, batch): forward 2 x 8 = 16 rows (each operand) and 4 x 10 =
@@ -395,6 +438,67 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def launch_counts():
+    """Launches of every hand-written kernel of the main paths, by kernel:
+    the NTT kernels' and the BEHZ kernels' counts (ops/ntt_kernels.py,
+    ops/behz_kernels.py)."""
+    from abc_tpu_torch.ops import behz_kernels as bk
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    return {**nk.launches, **bk.launches}
+
+
+def zero_launches():
+    """Sets the counts of launch_counts() to 0."""
+    from abc_tpu_torch.ops import behz_kernels as bk
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    for counts in (nk.launches, bk.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def since(before):
+    """launch_counts() minus an earlier reading."""
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def in_profile(prof):
+    """Launches of each hand-written kernel in a kernel_profile."""
+    return {name: round(sum(c for kernel, c in prof[3].items()
+                            if name in kernel)) for name in launch_counts()}
+
+
+def census_profile(fn, want, what, reps=5, tries=5):
+    """kernel_profile of fn() whose hand-written kernels are exactly `want`
+    per call, and the number of profiles it took. The profiler now and then
+    drops kernel records (on an H100 80GB HBM3 at 700 W, one profile of a
+    replay read 3 of the 4 ntt_fwd nodes its capture launched, while the
+    replay's words showed all four ran), so a reading that differs is taken
+    again, up to `tries` times; a graph that really lacks or adds a kernel
+    reads so every time, and fails."""
+    readings = []
+    for attempt in range(1, tries + 1):
+        prof = kernel_profile(fn, reps)
+        check(prof is not None,
+              f"{what}: the profiler saw no device activity, three times")
+        readings.append(in_profile(prof))
+        if readings[-1] == want:
+            return prof, attempt
+    raise AssertionError(f"{what} runs the hand-written kernels "
+                         f"{readings} in {tries} profiles, not {want}")
+
+
+def op_graph(ctx, op, x0, want):
+    """op(x0) captured as a CUDA graph with ctx's caches emptied around the
+    capture, its replay profiled (it must run the hand-written kernels
+    `want`) and timed: (kernels per replay, profiles it took, ms per replay
+    between CUDA events (median of 10), device ms per replay)."""
+    from abc_tpu_torch.utils.timing import graph_of
+    with ctx.fresh_caches():
+        g = graph_of(op, x0)
+    prof, tries = census_profile(g.replay, want, "a replay of the op")
+    return prof[1], tries, cuda_ms(g.replay), prof[0]
+
+
 def digest(t):
     """SHA-256 of a tensor's uint32 words, little-endian, C order (the
     recipe of abc_tpu_torch/testdata/golden.json)."""
@@ -532,6 +636,142 @@ def phase_kernels(dev):
     return stats
 
 
+def behz_params(n, L, t_bits):
+    """The parameters of a BEHZ_SHAPES entry."""
+    from abc_tpu_torch.crypto.numthy import gen_ntt_primes
+    from abc_tpu_torch.crypto.params import BfvParams
+    if t_bits is None:
+        params = BfvParams.create(n, seed=11)
+        check(params.L == L, f"BfvParams.create({n}) has L={params.L}")
+        return params
+    t = gen_ntt_primes(t_bits, 1, n)[0]
+    return BfvParams(n=n, coeff_modulus=gen_ntt_primes(30, L + 1, n,
+                                                       exclude=[t]),
+                     plain_modulus=t)
+
+
+def behz_imads(kernel, K, D):
+    """Integer multiply-adds per coefficient of one row of a BEHZ kernel,
+    counted from csrc/behz.cu's own arithmetic (BEHZ_IMAD): K source
+    residues, D destinations, each conversion sum reduced once per 16
+    products and at its end. behz_tensor counts one limb."""
+    w, sh, red = (BEHZ_IMAD[k] for k in ("wide", "shoup", "reduce64"))
+    conv = K * w + -(-K // 16) * red       # one destination's sum
+    if kernel == "behz_to_bsk":
+        # per source y_i and its term mod m~; r; per destination the sum,
+        # plus (q mod b_d)·r_b reduced, times m~^-1
+        return K * (sh + 1) + 1 + D * (conv + w + red + sh)
+    if kernel == "behz_fast_floor":
+        # per source t·qhat_i^-1·e_i; per destination the sum, t·e_bsk, and
+        # the difference times q^-1
+        return K * sh + D * (conv + 2 * sh)
+    if kernel == "behz_from_bsk":
+        # per source y_i and its term mod m_sk, that sum reduced; alpha; per
+        # destination the sum and (B mod q_j)·alpha reduced
+        return (K * (sh + w) + -(-K // 16) * red + sh
+                + D * (conv + w + red))
+    # behz_tensor: four products (one of them a multiply-add), three reduce64
+    return 4 * w + 3 * red
+
+
+def behz_calls(bz, batch, edge, dev):
+    """{kernel label: (kernel call, plain call, bytes, integer
+    multiply-adds)} for the BEHZ kernels at one shape: the operands of one
+    mult+relin of `batch` ciphertexts (one ciphertext: no batch axis), with
+    0 and q-1 among random residues, or all 0 / all q-1 (`edge`). The bound
+    counts each operand and result once, the tables once, and the
+    operations of the kernel's own arithmetic (behz_imads)."""
+    from abc_tpu_torch.ops import behz_kernels as bk
+    L, n, K = bz.params.L, bz.params.n, len(bz.bsk)
+    qs, bsk = bz.params.data_primes, bz.bsk
+    lead = () if batch == 1 else (batch,)
+
+    def operand(moduli, comps, seed):
+        if edge is None:
+            x = rand_residues(moduli, lead + (comps, len(moduli), n), seed,
+                              dev)
+            x[..., 0] = 0
+            x[..., 1::257] = (torch.tensor(moduli, dtype=torch.int64) - 1
+                              ).to(torch.int32).reshape(-1, 1).to(dev)
+            return x
+        q = torch.tensor(moduli, dtype=torch.int64).reshape(-1, 1)
+        x = torch.zeros(lead + (comps, len(moduli), n), dtype=torch.int64)
+        return (x + (q - 1 if edge == "max" else 0)).to(torch.int32).to(dev)
+
+    def table_bytes(*tabs):
+        return sum(t.numel() * t.element_size() for t in tabs)
+
+    x = operand(qs, 2, 1)
+    e_q, e_b = operand(qs, 3, 2), operand(bsk, 3, 3)
+    f = {"q": (operand(qs, 2, 4), operand(qs, 2, 5), bz.ntt_q),
+         "bsk": (operand(bsk, 2, 6), operand(bsk, 2, 7), bz.ntt_bsk)}
+    T = bz.kernel_tab
+    calls = {
+        "behz_to_bsk": (lambda: bk.behz_to_bsk(x, T["to_bsk"], K),
+                        lambda: bz._to_bsk_plain(x),
+                        4 * batch * 2 * n * (L + K)
+                        + table_bytes(T["to_bsk"]),
+                        batch * 2 * n * behz_imads("behz_to_bsk", L, K))}
+    for base, (f1, f2, ntt) in f.items():
+        D = ntt.q_col.shape[0]
+        calls[f"behz_tensor {base}"] = (
+            lambda f1=f1, f2=f2, ntt=ntt: bk.behz_tensor(
+                f1, f2, ntt.q_col, ntt.ratio),
+            lambda f1=f1, f2=f2, ntt=ntt: bk.tensor_plain(f1, f2, ntt.q_col),
+            4 * batch * n * 7 * D + table_bytes(ntt.q_col, ntt.ratio),
+            batch * D * n * behz_imads("behz_tensor", 2, D))
+    calls["behz_fast_floor"] = (
+        lambda: bk.behz_fast_floor(e_q, e_b, T["fast_floor"]),
+        lambda: bz._fast_floor_plain(e_q, e_b),
+        4 * batch * 3 * n * (L + 2 * K) + table_bytes(T["fast_floor"]),
+        batch * 3 * n * behz_imads("behz_fast_floor", L, K))
+    calls["behz_from_bsk"] = (
+        lambda: bk.behz_from_bsk(e_b, T["from_bsk"], L),
+        lambda: bz._from_bsk_plain(e_b),
+        4 * batch * 3 * n * (K + L) + table_bytes(T["from_bsk"]),
+        batch * 3 * n * behz_imads("behz_from_bsk", K - 1, L))
+    return calls
+
+
+def phase_behz(dev):
+    """Phase 2b: every BEHZ kernel against its plain version at
+    BEHZ_SHAPES and on edge inputs; times at BEHZ_SHAPES. Returns the
+    kernels line's stats (the main path's shape; behz_tensor over Bsk)."""
+    from abc_tpu_torch.crypto.behz import BehzContext
+    from abc_tpu_torch.crypto.ntt import NttContext
+
+    stats = {name: {"max_abs_err": 0} for name in BEHZ}
+    cases = [(shape, None) for shape in BEHZ_SHAPES] + \
+        [(shape, edge) for shape in BEHZ_EDGE_SHAPES
+         for edge in ("zero", "max")]
+    for (n, L, batch, t_bits), edge in cases:
+        params = behz_params(n, L, t_bits)
+        bz = BehzContext(params, NttContext(n, params.data_primes, dev))
+        at = f"n={n} L={L} ciphertexts={batch}" + \
+            (f" t={t_bits} bits" if t_bits else "") + \
+            (f" all {'0' if edge == 'zero' else 'q-1'}" if edge else "")
+        line = []
+        for label, (kern, plain, n_bytes, imads) in behz_calls(
+                bz, batch, edge, dev).items():
+            name = label.split()[0]
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            check(torch.equal(got, want), f"{label} != plain at {at}")
+            if edge is not None:
+                continue
+            st = {}
+            line.append(f"{label} " + _timed(
+                st, kern, plain, [n, L, batch], bound(n_bytes, imads)))
+            if (n, L, batch, t_bits) == BEHZ_SHAPES[0] and \
+                    label in BEHZ + ("behz_tensor bsk",):
+                stats[name].update(st)
+        print(f"  {at}: every BEHZ kernel = plain"
+              + ("" if not line else "; " + "; ".join(line)), flush=True)
+    return stats
+
+
 def phase_mult_relin(dev, k, gold):
     from abc_tpu_torch.crypto.bfv import BfvCiphertext, BfvContext
     from abc_tpu_torch.crypto.params import BfvParams
@@ -557,27 +797,42 @@ def phase_mult_relin(dev, k, gold):
     expect = [x * y for x, y in zip(gold["a"], gold["b"])]
     check(ctx.decode(ctx.decrypt(got))[:len(expect)] == expect,
           f"mult+relin k={k} decrypt")
-    before = dict(nk.launches)
+    before = launch_counts()
     fresh = [BfvCiphertext(a.data.clone()), BfvCiphertext(b.data.clone())]
     ctx.multiply(*fresh)
     torch.cuda.synchronize()
-    d_fwd = nk.launches["ntt_fwd"] - before["ntt_fwd"]
-    d_inv = nk.launches["ntt_inv"] - before["ntt_inv"]
-    check((d_fwd, d_inv) == (5, 3),
-          f"k={k}: {d_fwd} fwd / {d_inv} inv launches per mult+relin")
+    per_op = since(before)
+    check(per_op == MULT_RELIN_CENSUS,
+          f"k={k}: launches per mult+relin {per_op}")
     ms = cuda_ms(lambda: ctx.multiply(BfvCiphertext(a.data.clone()),
                                       BfvCiphertext(b.data.clone())), reps=20)
     print(f"  k={k}: keys, ciphertexts and result word-identical to the CPU "
-          f"run and the golden digests, decrypts {expect}; {d_fwd} fwd + "
-          f"{d_inv} inv launches per op; {ms:.3f} ms/op (median of 20, fresh "
-          f"operands)", flush=True)
+          f"run and the golden digests, decrypts {expect}; launches per op "
+          f"{per_op}; {ms:.3f} ms/op (median of 20, fresh operands)",
+          flush=True)
     prof = kernel_profile(lambda: ctx.multiply(BfvCiphertext(a.data.clone()),
                                                BfvCiphertext(b.data.clone())))
     print(f"  k={k} device kernels per op: {fmt(prof)}", flush=True)
+    kernels, tries, replay, replay_dev = op_graph(
+        ctx, lambda x: ctx.multiply(BfvCiphertext(x), b).data,
+        a.data.clone(), MULT_RELIN_CENSUS)
+    print(f"  k={k} as a CUDA graph: {kernels:.0f} kernels per replay, the "
+          f"hand-written ones {MULT_RELIN_CENSUS} (profile {tries}); "
+          f"{replay:.4f} ms per replay (CUDA events, median of 10), device "
+          f"{replay_dev:.4f} ms", flush=True)
     chains = chain_profile(lambda: ctx.multiply(
         BfvCiphertext(a.data.clone()), BfvCiphertext(b.data.clone())))
     print(f"  k={k} device time per chain (eager profile with host ranges): "
-          + fmt_chains(chains, "385" if k == 1 else "463"), flush=True)
+          + fmt_chains(chains, f"{kernels:.0f}"), flush=True)
+    if k == 1:
+        # where the time of the bench's widest point goes: the same op on a
+        # batch, [B, 2, L, n] (the kernel count does not grow with B)
+        xs, ys = (torch.stack([t.data] * PHASE3_BATCH) for t in (a, b))
+        chains = chain_profile(lambda: ctx.multiply(
+            BfvCiphertext(xs.clone()), BfvCiphertext(ys.clone())))
+        print(f"  k=1, B={PHASE3_BATCH} device time per chain (eager profile "
+              f"with host ranges): " + fmt_chains(chains, f"{kernels:.0f}"),
+              flush=True)
     if prof is None:
         return ms, None
     ntt = sum(v for name, v in prof[2].items() if "ntt_" in name)
@@ -626,18 +881,16 @@ def readme_hamming(factory, gold):
 
 
 def phase_hamming(dev, gold):
-    from abc_tpu_torch.ops import ntt_kernels as nk
     from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
 
     factory = BfvCiphertextFactory(slots=gold["n"], seed=gold["seed"],
                                    device=dev)
-    for name in nk.launches:
-        nk.launches[name] = 0
+    zero_launches()
     t0 = time.perf_counter()
     ct = readme_hamming(factory, gold)
     torch.cuda.synchronize()
     t_run = (time.perf_counter() - t0) * 1e3
-    launches = dict(nk.launches)
+    launches = launch_counts()
     hd = factory.decrypt(ct)[0]
     cpu_factory = BfvCiphertextFactory(slots=gold["n"], seed=gold["seed"],
                                        device="cpu")
@@ -686,14 +939,13 @@ def laplace_oracle(img):
 
 
 def phase_laplace(dev):
-    from abc_tpu_torch.ops import ntt_kernels as nk
     from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
 
     size = LAPLACE_SIZE
     img = laplace_image(7)
     inputs_src, want = laplace_inputs(img), laplace_oracle(img)
 
-    before = dict(nk.launches)
+    before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     factory = BfvCiphertextFactory(slots=LAPLACE_N, seed=LAPLACE_SEED,
@@ -707,8 +959,11 @@ def phase_laplace(dev):
     check(got == want, f"laplace decrypt {got} != oracle {want}")
     c = dict(factory.context.counters)
     check(c["decomp_hit"] > c["decomp"], f"no hoisting: {c}")
-    launched = {k: nk.launches[k] - before[k] for k in before}
-    check(all(v > 0 for v in launched.values()), f"laplace: {launched}")
+    launched = since(before)
+    # rotations and plaintext products only: no BEHZ kernel
+    check(launched["ntt_fwd"] > 0 and launched["ntt_inv"] > 0
+          and not any(launched[name] for name in BEHZ),
+          f"laplace: {launched}")
     _, steady = run_dsl(factory, inputs_src, LAPLACE, "out = img2;")
     print(f"  laplace n={LAPLACE_N}: decrypts equal to the oracle; counters "
           f"{c}; launches {launched}", flush=True)
@@ -887,39 +1142,33 @@ def replay_ms(jp, tensors, reps):
 
 def unchanged_across(jp, tensors):
     """run_raw(tensors) with every Python-side counter held still."""
-    from abc_tpu_torch.ops import ntt_kernels as nk
-    before = dict(nk.launches), dict(jp.factory.context.counters), \
-        jp._graph
+    before = launch_counts(), dict(jp.factory.context.counters), jp._graph
     raw = jp.run_raw(tensors)
     torch.cuda.synchronize()
-    check((dict(nk.launches), dict(jp.factory.context.counters),
+    check((launch_counts(), dict(jp.factory.context.counters),
            jp._graph) == before,
           "a replay moved a launch or op counter, or made a new graph")
     return raw
 
 
 def walk_launches(jp):
-    """Kernel launches of one eager walk of the program."""
-    from abc_tpu_torch.ops import ntt_kernels as nk
-    before = dict(nk.launches)
+    """Hand-written kernel launches of one eager walk of the program."""
+    before = launch_counts()
     jp.run_eager(jp.secret_inputs)
-    return {k: nk.launches[k] - before[k] for k in before}
+    return since(before)
 
 
 def replay_profile(jp, tensors, per_walk, reps=5):
-    """kernel_profile of a replay, which must hold exactly the NTT
-    kernels that one walk of the program launches: the hand-written
+    """kernel_profile of a replay, which must hold exactly the NTT and
+    BEHZ kernels that one walk of the program launches: the hand-written
     kernels are inside the graph, and nothing else took their place."""
-    from abc_tpu_torch.ops import ntt_kernels as nk
-    prof = kernel_profile(lambda: jp.run_raw(tensors), reps)
-    check(prof is not None,
-          "the profiler saw no device activity in a replay, three times")
-    in_graph = {name: round(sum(
-        c for kernel, c in prof[3].items() if name in kernel))
-        for name in nk.launches}
-    check(in_graph == per_walk,
-          f"a replay runs {in_graph} NTT kernels, one walk of the "
-          f"program launches {per_walk}")
+    prof, tries = census_profile(
+        lambda: jp.run_raw(tensors), per_walk,
+        "a replay whose walk launches the hand-written kernels "
+        f"{per_walk}", reps)
+    if tries > 1:
+        print(f"  (the replay's profile matched one walk's kernels at "
+              f"profile {tries})", flush=True)
     return prof
 
 
@@ -927,20 +1176,18 @@ def phase_whole_program(dev, gold, hamming_words, laplace_words,
                         laplace_eager_ms, mult_eager):
     from abc_tpu_torch import CompileOptions, jit_compile_program
     from abc_tpu_torch.crypto.bfv import BfvCiphertext
-    from abc_tpu_torch.ops import ntt_kernels as nk
     from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
 
     # --- the README hamming program as one graph, n=8192
     g = gold["hamming_n8192"]
     factory = BfvCiphertextFactory(slots=g["n"], seed=g["seed"], device=dev)
-    for name in nk.launches:
-        nk.launches[name] = 0
+    zero_launches()
     jp = jit_compile_program(g["program"], g["inputs"], g["output"],
                              factory=factory,
                              options=CompileOptions(vectorize=True))
     raw = jp.run_raw(jp.secret_inputs)
     torch.cuda.synchronize()
-    launches = dict(nk.launches)
+    launches = launch_counts()
     out_name = next(iter(raw))
     check(all(v > 0 for v in launches.values()),
           f"the whole-program path launched a kernel no time: {launches}")
@@ -1047,7 +1294,7 @@ def phase_whole_program(dev, gold, hamming_words, laplace_words,
             ",".join(map(str, g["a"])), ",".join(map(str, g["b"]))),
         "y = p;", factory=factory)
     per_walk = walk_launches(jp)
-    check(per_walk == {"ntt_fwd": 5, "ntt_inv": 3},
+    check(per_walk == MULT_RELIN_CENSUS,
           f"mult+relin as a program: {per_walk} launches per walk")
     fresh = jp.encrypt_inputs({"a": g["b"], "b": g["a"]})
     raw = unchanged_across(jp, fresh)
@@ -1243,8 +1490,7 @@ def phase_ckks(dev, gold):
         print(line, flush=True)
 
     # --- the config-5 op, eager; launch counts from here on
-    for name in nk.launches:
-        nk.launches[name] = 0
+    zero_launches()
     a, ca = ctx.encrypt(ctx.encode(g["a"])), cpu.encrypt(cpu.encode(g["a"]))
     got = ctx.multiply(a, a, rescale=False)
     want = cpu.multiply(ca, ca, rescale=False)
@@ -1275,6 +1521,7 @@ def phase_ckks(dev, gold):
         seen.append((name, x.numel() // x.shape[-1]))
         return launch(name, x, args)
 
+    before = launch_counts()
     nk._launch = recording
     try:
         op = fresh()
@@ -1282,7 +1529,9 @@ def phase_ckks(dev, gold):
     finally:
         nk._launch = launch
     torch.cuda.synchronize()
-    check(seen == CKKS_CENSUS, f"CKKS op launched {seen}")
+    per_op = since(before)
+    check(seen == CKKS_CENSUS and per_op == CKKS_OP_CENSUS,
+          f"CKKS op launched {seen}, {per_op}")
 
     def one_op():
         op = fresh()
@@ -1300,8 +1549,17 @@ def phase_ckks(dev, gold):
                  f"{name[:60]} {v:.4f} ms" for name, v in sorted(
                      prof[2].items(), key=lambda kv: -kv[1])[:6])),
           flush=True)
+    kernels, tries, replay, replay_dev = op_graph(
+        ctx, lambda x: ctx.multiply(*[CkksCiphertext(x, a.level, a.scale)] * 2,
+                                    rescale=False).data, a.data.clone(),
+        CKKS_OP_CENSUS)
+    print(f"  config-5 op as a CUDA graph: {kernels:.0f} kernels per replay, "
+          f"the hand-written ones {CKKS_OP_CENSUS} (profile {tries}); "
+          f"{replay:.4f} ms per replay (CUDA events, median of 10), device "
+          f"{replay_dev:.4f} ms", flush=True)
     print("  config-5 op, device time per chain (eager profile with host "
-          "ranges): " + fmt_chains(chain_profile(one_op), "213"), flush=True)
+          "ranges): " + fmt_chains(chain_profile(one_op), f"{kernels:.0f}"),
+          flush=True)
     del ctx, cpu, a, ca, got, want, relin, cpu_relin
 
     # --- a leveled run, at a prime-sized scale so that a rescaled product
@@ -1361,7 +1619,7 @@ def phase_ckks(dev, gold):
                              f"secret double a = {brace(g['a'])};", "y = p;",
                              factory=factory)
     per_walk = walk_launches(jp)
-    check(per_walk == {"ntt_fwd": 3, "ntt_inv": 2},
+    check(per_walk == CKKS_OP_CENSUS,
           f"CKKS op as a program: {per_walk} launches per walk")
     fresh_in = jp.encrypt_inputs({"a": vals})
     raw = unchanged_across(jp, fresh_in)
@@ -1473,8 +1731,9 @@ def phase_ckks(dev, gold):
           f"2^29): largest error {err:.2e} against numpy; counters {c} "
           f"({baby} baby steps on one decomposition, {giant} giant steps); "
           f"{t_mv:.1f} s on the host clock", flush=True)
-    launches = dict(nk.launches)
-    check(all(v > 0 for v in launches.values()),
+    launches = launch_counts()
+    check(all(launches[name] > 0 for name in ("ntt_fwd", "ntt_inv",
+                                               "behz_tensor")),
           f"the CKKS path launched a kernel no time: {launches}")
     return stats, launches
 
@@ -1493,7 +1752,6 @@ def phase_bench(dev, gold):
     from abc_tpu_torch.crypto.bfv import BfvCiphertext, BfvContext
     from abc_tpu_torch.crypto.params import BfvParams
     from abc_tpu_torch.ops import ntt_ablation as na
-    from abc_tpu_torch.ops import ntt_kernels as nk
 
     # --- B ciphertexts through one call against B calls; row 0 holds the
     # golden operands
@@ -1509,13 +1767,14 @@ def phase_bench(dev, gold):
     ops = {"multiply": lambda x, y: ctx.multiply(BfvCiphertext(x),
                                                  BfvCiphertext(y)),
            "rotate_rows": lambda x, y: ctx.rotate_rows(BfvCiphertext(x), 3)}
-    census = {"multiply": {"ntt_fwd": 5, "ntt_inv": 3},
-              "rotate_rows": {"ntt_fwd": 1, "ntt_inv": 1}}
+    census = {"multiply": MULT_RELIN_CENSUS,
+              "rotate_rows": {name: int(name.startswith("ntt_"))
+                              for name in MULT_RELIN_CENSUS}}
     for name, op in ops.items():
-        before = dict(nk.launches)
+        before = launch_counts()
         with ctx.fresh_caches():
             got = op(xs, ys).data
-        made = {k: nk.launches[k] - before[k] for k in before}
+        made = since(before)
         check(got.shape == xs.shape, f"batched {name}: shape {got.shape}")
         for i in range(BENCH_BATCH):
             with ctx.fresh_caches():
@@ -1534,16 +1793,16 @@ def phase_bench(dev, gold):
     del ctx, cts, xs, ys
 
     # --- python -m abc_tpu_torch.bench --quick, in process
-    for counts in (nk.launches, na.launches):
-        for name in counts:
-            counts[name] = 0
+    zero_launches()
+    for name in na.launches:
+        na.launches[name] = 0
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = bench.main(["--quick"])
     seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = dict(nk.launches), dict(na.launches)
+    launches = launch_counts(), dict(na.launches)
     lines = out.getvalue().strip().splitlines()
     check(len(lines) >= 2, f"bench printed {len(lines)} lines")
     full, line = json.loads(lines[-2]), json.loads(lines[-1])
@@ -1574,7 +1833,7 @@ def phase_bench(dev, gold):
     sol = full["mult_relin"]["speed_of_light"]
     print(f"  bench --quick: {seconds:.1f} s, exit 0, six configs without "
           f"error, config 3 correct, config 4 decrypt_equal, config 6 equal "
-          f"to the oracle, no nan; NTT launches {launches[0]}; mult+relin "
+          f"to the oracle, no nan; launches {launches[0]}; mult+relin "
           f"floor {sol['floor_us']:.3f} us by {sol['bound_by']} "
           f"({sol['ntt_rows']} NTT rows), op at "
           f"{sol['pct_of_floor']:.3f}% of it at B=1", flush=True)
@@ -1636,8 +1895,7 @@ def serve(directory, device="cuda"):
         manifest = json.load(f)
     report = {}
     for scheme, job in manifest.items():
-        for name in nk.launches:
-            nk.launches[name] = 0
+        zero_launches()
         sync()
         t0 = time.perf_counter()
         compiled = ckpt.load_circuit(path(job["circuit"]))
@@ -1680,14 +1938,14 @@ def serve(directory, device="cuda"):
                         tensor, *jp._out_meta[name]), path(out))
                 requests.append(out)
         sync()
-        launches = dict(nk.launches)
+        launches = launch_counts()
         rec = {"load_ms": load_ms, "phase_ms": jp.phase_ms,
                "launches": launches, "counters": dict(ctx.counters),
                "keys": keys, "outputs": requests}
         if on_card:
             rec["replay_ms"], rec["spread"] = replay_ms(jp, tensors,
                                                         SERVE_REPS)
-            check(dict(nk.launches) == launches,
+            check(launch_counts() == launches,
                   "a replay on the server launched a kernel")
         report[scheme] = rec
     with open(path("serve.json"), "w") as f:
@@ -1862,8 +2120,11 @@ def phase_checkpoint(dev, gold):
         check_served(directory, client, report, dev)
     launches = {}
     for scheme, rec in report.items():
-        check(all(rec["launches"].get(k, 0) > 0 for k in
-                  ("ntt_fwd", "ntt_inv")),
+        # hamming multiplies ciphertexts (every BEHZ kernel), the CKKS op
+        # takes the tensor product alone
+        need = ("ntt_fwd", "ntt_inv") + (BEHZ if scheme == "bfv" else
+                                         ("behz_tensor",))
+        check(all(rec["launches"].get(k, 0) > 0 for k in need),
               f"the server's {scheme} path launched {rec['launches']}")
         for k, v in rec["launches"].items():
             launches[k] = launches.get(k, 0) + v
@@ -2127,8 +2388,7 @@ def phase_reference_scale(dev):
     from abc_tpu_torch.ops import ntt_kernels as nk
     from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
 
-    for name in nk.launches:
-        nk.launches[name] = 0
+    zero_launches()
     # cardio through the per-op executor, as the reference test runs it
     w = _cardio()
     ia = Parser.parse(w["inputs"])
@@ -2157,7 +2417,7 @@ def phase_reference_scale(dev):
               f"capture, first replay) {secs[0]:.1f}, eager walk "
               f"{secs[1]:.1f}, replays and profile {secs[2]:.1f}",
               flush=True)
-    launches = dict(nk.launches)
+    launches = launch_counts()
     check(all(v > 0 for v in launches.values()),
           f"phase 12 launched a kernel no time: {launches}")
     return launches
@@ -2274,8 +2534,7 @@ def phase_mesh(dev):
         took, last[0] = now - last[0], now
         return f"{took:.1f} s on the host clock"
 
-    for name in nk.launches:
-        nk.launches[name] = 0
+    zero_launches()
     # --- (a) limb-sharded key switch and rotation, BFV n=8192, 8 + 1 primes
     ctx = build_context(MESH_BFV["n"], MESH_BFV["limbs"],
                         seed=MESH_BFV["seed"], device=dev)
@@ -2357,9 +2616,9 @@ def phase_mesh(dev):
               for xv, yv in zip(xs, ys)]
     check(got == singles == oracle,
           f"mesh hamming {got}, single-device {singles}, oracle {oracle}")
-    counts = dict(nk.launches)
+    counts = launch_counts()
     replay = replay_ms(jp, jp.secret_inputs, 10)
-    check(dict(nk.launches) == counts, "a mesh replay moved a launch count")
+    check(launch_counts() == counts, "a mesh replay moved a launch count")
     prof = kernel_profile(lambda: jp.run_raw(jp.secret_inputs), reps=3)
     print(f"  (d) hamming on dp={MESH_DP} x limb={MESH_LIMB}, n="
           f"{MESH_BFV['n']}, batch {MESH_BATCH}: one graph, decrypts "
@@ -2376,7 +2635,7 @@ def phase_mesh(dev):
               f"ms ({report[part]['timer']}); collectives per step "
               f"{report[part]['collectives_per_step']}", flush=True)
     print(f"  (e) {secs()}", flush=True)
-    launches = dict(nk.launches)
+    launches = launch_counts()
     check(all(v > 0 for v in launches.values()),
           f"phase 13 launched a kernel no time: {launches}")
 
@@ -2421,6 +2680,8 @@ def main() -> int:
 
     announce("phase 2: kernels vs plain")
     stats = phase_kernels(dev)
+    announce("phase 2b: the BEHZ kernels vs plain")
+    stats.update(phase_behz(dev))
     announce("phase 3: mult+relin n=8192")
     mult_eager = {k: phase_mult_relin(dev, k, gold[f"mult_relin_n8192_k{k}"])
                   for k in (1, 2)}
@@ -2462,8 +2723,9 @@ def main() -> int:
                     and m.split(".")[0] in ("jax", "jaxlib", "abc_tpu"))
     check(not loaded, f"the reference or JAX was imported: {loaded}")
 
-    # no single PyTorch call computes a negacyclic NTT mod q or these ALU
-    # chains, so no kernel has a library yardstick
+    # no single PyTorch call computes a negacyclic NTT mod q, these ALU
+    # chains, a modular RNS base conversion or a mod-q tensor product, so no
+    # kernel has a library yardstick
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 # the whole-program path counts while it sets up, warms up
@@ -2493,7 +2755,8 @@ def main() -> int:
                 "device_ms": stats[name]["device_ms"],
                 "plain_device_ms": stats[name]["plain_device_ms"],
                 "at": stats[name].get("at", list(JSON_SHAPE.get(name, ())))}
-               for name in ("ntt_fwd", "ntt_inv", "ablate_ntt", "alu_chain")]
+               for name in ("ntt_fwd", "ntt_inv", "ablate_ntt",
+                            "alu_chain") + BEHZ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi[0]}")
     print(json.dumps({"ok": True, "device": {

@@ -214,19 +214,32 @@ def test_estimates_gives_nan_when_every_pair_is_inverted():
     assert calls.count(4) == calls.count(2) == 6 * (1 + timing.REPEATS)
 
 
-def test_estimates_on_a_valid_stub():
+def test_estimates_on_a_valid_stub(monkeypatch):
+    """The two-point arithmetic on a stub whose runs advance a fake host
+    clock by exact amounts: a run of c steps in pair p takes c * step[p] +
+    FIXED seconds (dyadic, so every difference is exact). Each pair's
+    estimate is then step[p] per step and FIXED fixed, and the summary
+    their median, least and largest, whatever the host's load."""
+    unit = 2.0 ** -10
+    step, fixed_s = (3 * unit, unit, 2 * unit), 2 * unit
+    clock = [0.0]
+    monkeypatch.setattr(timing.time, "perf_counter", lambda: clock[0])
+    runs = {4: 0, 2: 0}
+
     def make_chain(c):
         def run(x):
-            t = timing.time.perf_counter()
-            while timing.time.perf_counter() - t < 0.001 * c + 0.002:
-                pass
+            # host_s runs a chain 1 + REPEATS times per measurement, and
+            # valid_pairs measures the full chain, then the half, per pair
+            pair = runs[c] // (1 + timing.REPEATS)
+            runs[c] += 1
+            clock[0] += c * step[pair] + fixed_s
             return x
         return run
 
     med, lo, hi, fixed = timing.estimates(make_chain, torch.zeros(1), 4, 3)
-    assert lo <= med <= hi
-    assert 0.0005 < med < 0.003         # 1 ms per step, on a shared host
-    assert -0.002 < fixed < 0.006       # 2 ms per run
+    assert (med, lo, hi) == (2 * unit, unit, 3 * unit)
+    assert fixed == fixed_s
+    assert runs == {4: 3 * (1 + timing.REPEATS), 2: 3 * (1 + timing.REPEATS)}
     with pytest.raises(ValueError):
         timing.estimates(make_chain, torch.zeros(1), 1)
 
