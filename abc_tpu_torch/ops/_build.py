@@ -112,15 +112,9 @@ def load() -> ctypes.CDLL:
     lib.abc_ablate_ntt.restype = i32
     lib.abc_alu_chain.argtypes = [vp, vp, i64, i32, u32, u32, u32, i32, vp]
     lib.abc_alu_chain.restype = i32
-    for conv in (lib.abc_behz_to_bsk, lib.abc_behz_from_bsk):
-        conv.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
-        conv.restype = i32
-    lib.abc_behz_fast_floor.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
-                                        vp]
-    lib.abc_behz_fast_floor.restype = i32
-    lib.abc_behz_tensor.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
-                                    vp]
-    lib.abc_behz_tensor.restype = i32
+    bind_behz(lib)
+    lib.abc_behz_launch_info.argtypes = [i32, i32, i32, i64, i32, vp]
+    lib.abc_behz_launch_info.restype = i32
     lib.abc_cuda_error_string.argtypes = [i32]
     lib.abc_cuda_error_string.restype = ctypes.c_char_p
     # the kernels' shared-memory limit, set once (csrc/ntt_passes.cuh:
@@ -133,6 +127,21 @@ def load() -> ctypes.CDLL:
                                f"{lib.abc_cuda_error_string(err).decode()}")
     _LIB = lib
     return lib
+
+
+def bind_behz(lib: ctypes.CDLL) -> None:
+    """The argument and return types of the four BEHZ kernels' C entry
+    points (csrc/behz.cu) on a library that holds them."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for conv in (lib.abc_behz_to_bsk, lib.abc_behz_from_bsk):
+        conv.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
+        conv.restype = i32
+    lib.abc_behz_fast_floor.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
+                                        vp]
+    lib.abc_behz_fast_floor.restype = i32
+    lib.abc_behz_tensor.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
+                                    vp]
+    lib.abc_behz_tensor.restype = i32
 
 
 def sass() -> str:

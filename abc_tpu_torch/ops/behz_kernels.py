@@ -27,10 +27,6 @@ launches = {"behz_to_bsk": 0, "behz_tensor": 0, "behz_fast_floor": 0,
 
 M_TILDE_BITS = 16
 M_TILDE = 1 << M_TILDE_BITS
-# source limbs a conversion kernel holds in registers, at most
-# (csrc/behz.cu: by_sources); BfvParams.create reaches 28 (from_bsk at
-# n=32768)
-MAX_SOURCES = 64
 # the packed table's layout (csrc/behz.cu, "Tables")
 HEADER, SRC_WORDS, DST_WORDS = 8, 4, 8
 
@@ -144,11 +140,20 @@ def _check_table(t, name, device, words, dtype=torch.int32):
 
 
 def _check_packed(tab, kind, device, K, D):
-    if not 1 <= K <= MAX_SOURCES:
-        raise ValueError(f"BEHZ kernel {kind}: {K} source limbs, the kernels "
-                         f"hold 1 to {MAX_SOURCES}")
+    if K < 1 or D < 1:
+        raise ValueError(f"BEHZ kernel {kind}: {K} source and {D} "
+                         "destination limbs")
     _check_table(tab, kind, device,
                  HEADER + SRC_WORDS * K + DST_WORDS * D + K * D)
+
+
+def _check_tiled(x, name, n):
+    """to_bsk and from_bsk read and write 4 coefficients with one 16-byte
+    access (csrc/behz.cu, tiles of 128 coefficients)."""
+    if n < 4 or x.data_ptr() % 16:
+        raise ValueError(f"BEHZ operand {name}: the tile kernels take n >= 4 "
+                         f"and 16-byte aligned rows, got n={n} at "
+                         f"{x.data_ptr():#x}")
 
 
 def _launch(name, device, call):
@@ -168,6 +173,7 @@ def behz_to_bsk(x: torch.Tensor, tab: torch.Tensor, D: int) -> torch.Tensor:
     D = L + 2), `tab` the packed `to_bsk_words` on x's device."""
     K = x.shape[-2] if x.dim() >= 2 else 0
     rows, n = _shape_of(x, "x", K)
+    _check_tiled(x, "x", n)
     _check_packed(tab, "to_bsk", x.device, K, D)
     out = torch.empty(tuple(x.shape[:-2]) + (D, n), dtype=torch.int32,
                       device=x.device)
@@ -204,6 +210,7 @@ def behz_from_bsk(x_bsk: torch.Tensor, tab: torch.Tensor, D: int
     m_sk) → [..., D, n] (D = L), `tab` the packed `from_bsk_words`."""
     K = x_bsk.shape[-2] - 1 if x_bsk.dim() >= 2 else 0
     rows, n = _shape_of(x_bsk, "x_bsk", K + 1)
+    _check_tiled(x_bsk, "x_bsk", n)
     _check_packed(tab, "from_bsk", x_bsk.device, K, D)
     out = torch.empty(tuple(x_bsk.shape[:-2]) + (D, n), dtype=torch.int32,
                       device=x_bsk.device)
@@ -212,6 +219,29 @@ def behz_from_bsk(x_bsk: torch.Tensor, tab: torch.Tensor, D: int
                 x_bsk.data_ptr(), out.data_ptr(), tab.data_ptr(), rows, K, D,
                 n.bit_length() - 1, s))
     return out
+
+
+# abc_behz_launch_info's kernel numbers
+_INFO_KERNEL = {"behz_to_bsk": 0, "behz_fast_floor": 1, "behz_from_bsk": 2,
+                "behz_tensor": 3}
+
+
+def launch_info(name: str, K: int, D: int, rows: int, n: int) -> dict:
+    """The launch a kernel makes at K sources, D destinations (behz_tensor:
+    D limbs) and rows of n, with its theoretical occupancy on the current
+    card (cudaOccupancyMaxActiveBlocksPerMultiprocessor): template
+    arguments, threads a block, blocks, blocks and warps an SM."""
+    import ctypes
+    from abc_tpu_torch.ops import _build
+    lib = _build.load()
+    info = (ctypes.c_longlong * 6)()
+    err = lib.abc_behz_launch_info(_INFO_KERNEL[name], K, D, rows,
+                                   n.bit_length() - 1, info)
+    if err != 0:
+        raise RuntimeError(f"abc_behz_launch_info({name}): "
+                           f"{lib.abc_cuda_error_string(err).decode()}")
+    return dict(zip(("arg0", "arg1", "threads", "blocks", "blocks_per_sm",
+                     "warps_per_sm"), info))
 
 
 def behz_tensor(f1: torch.Tensor, f2: torch.Tensor, q: torch.Tensor,

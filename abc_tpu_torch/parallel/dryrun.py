@@ -24,6 +24,7 @@ from abc_tpu_torch.ops.modarith import t64
 from abc_tpu_torch.parallel.mesh import Mesh, coeff_mesh
 from abc_tpu_torch.parallel.report import collective_report
 from abc_tpu_torch.parallel.sharding import make_mesh
+from abc_tpu_torch.utils.timing import capture_graph
 
 HAMMING = ("int sum = 0;"
            "for (int i = 0; i < n; i = i + 1) {"
@@ -116,7 +117,7 @@ def _graph_of(fn: Callable, device) -> "torch.cuda.CUDAGraph":
         fn()
     torch.cuda.current_stream(device).wait_stream(side)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with capture_graph(g):
         fn()
     return g
 

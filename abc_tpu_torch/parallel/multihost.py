@@ -298,6 +298,7 @@ def capture_probe() -> Dict:
     way."""
     import torch.distributed as dist
     from abc_tpu_torch.parallel.mesh import rank_device
+    from abc_tpu_torch.utils.timing import capture_graph
     if dist.get_backend() != "nccl":
         return {"captured": None, "reason": "a gloo group: CPU tensors, "
                                             "no CUDA graph"}
@@ -311,7 +312,7 @@ def capture_probe() -> Dict:
     torch.cuda.synchronize(dev)
     g = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(g):
+        with capture_graph(g):
             dist.all_reduce(x)
         x.fill_(3)
         g.replay()

@@ -79,6 +79,7 @@ from abc_tpu_torch.runtime.host_constants import HostConstants
 from abc_tpu_torch.runtime.executor import RuntimeVisitor
 from abc_tpu_torch.runtime.values import AbstractCiphertext, Cleartext
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
+from abc_tpu_torch.utils.timing import capture_graph
 
 
 class JittedProgram:
@@ -297,7 +298,7 @@ class JittedProgram:
             torch.cuda.empty_cache()
             reserved0 = torch.cuda.memory_reserved(self.device)
             self._graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self._graph):
+            with capture_graph(self._graph):
                 self._static_out = self.run_eager(self._static_in)
             _mark("capture")
         self.device_bytes = {

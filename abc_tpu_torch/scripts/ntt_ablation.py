@@ -61,6 +61,7 @@ from abc_tpu_torch.crypto.params import BfvParams
 from abc_tpu_torch.crypto.ntt import NttContext
 from abc_tpu_torch.ops import _build
 from abc_tpu_torch.ops import ntt_ablation as na
+from abc_tpu_torch.ops.kernel_census import opcode, sass_functions
 from abc_tpu_torch.ops.modarith import as_residues
 from abc_tpu_torch.utils.timing import chain_of, estimates, timed_per_iter
 
@@ -109,32 +110,10 @@ def profiled_s(step, x0, reps=20):
 
 # -------------------------------------------------------------------- SASS
 
-_FUNC = re.compile(r"Function : (\S+)")
-_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
 _BRA = re.compile(r"\bBRA(?:\.\S+)?\s+0x([0-9a-f]+)")
 _CONTROL = {"BRA", "EXIT", "BSSY", "BSYNC", "NOP", "WARPSYNC", "CALL", "RET",
             "BREAK", "YIELD", "DEPBAR"}
 _MEMORY = {"LDS", "STS", "LDG", "STG", "LDL", "STL"}
-
-
-def sass_functions(text):
-    """{mangled name: [(address, instruction text without ';'), ...]} from
-    `cuobjdump -sass` output (branch targets are addresses)."""
-    funcs, cur = {}, None
-    for line in text.splitlines():
-        m = _FUNC.search(line)
-        if m:
-            cur = funcs.setdefault(m.group(1), [])
-            continue
-        m = _INSTR.search(line)
-        if m and cur is not None:
-            cur.append((int(m.group(1), 16), m.group(2)))
-    return funcs
-
-
-def opcode(ins):
-    """The mnemonic with its modifiers ('IMAD.HI.U32'), predicate dropped."""
-    return re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
 
 
 def op_class(op):

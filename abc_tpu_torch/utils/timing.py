@@ -23,6 +23,8 @@ where none is valid the result is nan, never a clamped value.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import statistics
 import time
 from typing import Callable, Tuple
@@ -48,6 +50,27 @@ def timer_of(x: torch.Tensor) -> str:
     return "cuda_graph" if x.is_cuda else "host"
 
 
+@contextlib.contextmanager
+def capture_graph(graph: "torch.cuda.CUDAGraph", **kwargs):
+    """torch.cuda.graph(graph, **kwargs) with Python's cyclic collector held
+    off until the capture ends. A CUDA graph that only a reference cycle
+    still holds (a program of an earlier run) is destroyed when the
+    collector finds it, and what its destructor (CUDAGraph::reset) calls
+    is not permitted while a stream captures: the capture in progress is
+    invalidated ("operation not permitted when stream is capturing", then
+    "operation failed due to a previous error during capture" at the next
+    launch). Such garbage is freed at the next collection after the
+    capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, **kwargs):
+            yield graph
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def graph_of(run: Callable, x0: torch.Tensor) -> "torch.cuda.CUDAGraph":
     """run(x0) captured in a CUDA graph (default error mode: a host
     synchronisation or a host-to-device copy inside `run` raises), with
@@ -61,7 +84,7 @@ def graph_of(run: Callable, x0: torch.Tensor) -> "torch.cuda.CUDAGraph":
     starts): a segmentation fault in cudaGraphLaunch, an illegal address or
     wrong words."""
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with capture_graph(g):
         g.output = run(x0)
     g.held = (run, x0)
     return g

@@ -31,12 +31,15 @@ Phases, each of which raises on failure (the script then exits nonzero):
    behz_tensor (over base q and over base Bsk), behz_fast_floor and
    behz_from_bsk torch.equal to their plain torch versions on the card at
    n=8192, L=6 (one ciphertext and a batch of 64), n=2048, L=16 (config 4's
-   chain), n=16384, L=13 and n=32768, L=27 (the largest L of
-   BfvParams.create), inputs holding 0 and q-1, and on inputs all 0 and all
-   q-1. At each of those shapes the time per call (CUDA events, median of
-   10), the profiler's device time, the bound (bytes, or the integer
-   multiply-adds of the kernel's own arithmetic, behz_imads) and the plain
-   version's time.
+   chain), n=16384, L=13, n=32768, L=27 (the largest L of
+   BfvParams.create) and n=4096, L=65 (past 64 source limbs), inputs
+   holding 0 and q-1, and on inputs all 0 and all q-1. At each of those
+   shapes the time per call (CUDA events, median of 10), the profiler's
+   device time, the bound (bytes, or the integer multiply-adds of the
+   kernel's own arithmetic, behz_imads) and the plain version's time,
+   beside what the compiler made of the instantiation launched (registers,
+   shared memory, spills from ptxas -v; a SASS census) and its launch
+   with its theoretical occupancy (abc_behz_launch_info).
 3. BFV mult+relin at n=8192 (6 data primes, k=1 and k=2): keys,
    ciphertexts and result on the card equal to the port's CPU context of
    the same seed and to the golden digests; one multiply of fresh operands
@@ -99,7 +102,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
    each, chain graphs of 16 and 8 steps of each on an input only the graphs
    hold, replayed in turns, equal to eager chains; (iii) ntt_inv captured at
    n=32768 on 48 rows (147456 B of shared memory), launched eagerly at
-   n=16384 on 48 rows (73728 B), then replayed: equal to an eager run.
+   n=16384 on 48 rows (73728 B), then replayed: equal to an eager run;
+   (iv) a capture through utils/timing.capture_graph with Python's
+   collector due and a graph of an earlier capture that only a reference
+   cycle holds (scripts/graph_lifetime.py, "guarded"): captured and
+   replayed equal, the old graph destroyed after the capture, not inside
+   it.
 
 9. CKKS at the reference's own CKKS size (n=32768, 8 data + 2 special
    primes of 30 bits, k=2, scale 2^25; abc_tpu/benchsuite.py config 5).
@@ -245,8 +253,9 @@ IMAD_PER_BUTTERFLY = 3                   # one Shoup product
 # t of that many bits as benchsuite config 4 sizes them. The first is the
 # main path's, where the kernels line reads its numbers.
 BEHZ_SHAPES = [(8192, 6, 1, None), (8192, 6, 64, None), (2048, 16, 1, 14),
-               (16384, 13, 1, None), (32768, 27, 1, None)]
-BEHZ_EDGE_SHAPES = [(8192, 6, 1, None), (32768, 27, 1, None)]
+               (16384, 13, 1, None), (32768, 27, 1, None), (4096, 65, 1, 20)]
+BEHZ_EDGE_SHAPES = [(8192, 6, 1, None), (8192, 6, 64, None),
+                    (32768, 27, 1, None), (4096, 65, 1, 20)]
 BEHZ = ("behz_to_bsk", "behz_tensor", "behz_fast_floor", "behz_from_bsk")
 # slots of the integer multiply-add pipe taken by each step of the BEHZ kernels
 # (csrc/behz.cu), the least each takes: a 32x32 -> 64-bit multiply-add, one;
@@ -636,40 +645,28 @@ def phase_kernels(dev):
     return stats
 
 
-def behz_params(n, L, t_bits):
-    """The parameters of a BEHZ_SHAPES entry."""
-    from abc_tpu_torch.crypto.numthy import gen_ntt_primes
-    from abc_tpu_torch.crypto.params import BfvParams
-    if t_bits is None:
-        params = BfvParams.create(n, seed=11)
-        check(params.L == L, f"BfvParams.create({n}) has L={params.L}")
-        return params
-    t = gen_ntt_primes(t_bits, 1, n)[0]
-    return BfvParams(n=n, coeff_modulus=gen_ntt_primes(30, L + 1, n,
-                                                       exclude=[t]),
-                     plain_modulus=t)
-
-
 def behz_imads(kernel, K, D):
     """Integer multiply-adds per coefficient of one row of a BEHZ kernel,
     counted from csrc/behz.cu's own arithmetic (BEHZ_IMAD): K source
     residues, D destinations, each conversion sum reduced once per 16
     products and at its end. behz_tensor counts one limb."""
     w, sh, red = (BEHZ_IMAD[k] for k in ("wide", "shoup", "reduce64"))
-    conv = K * w + -(-K // 16) * red       # one destination's sum
+
+    def conv(terms):                  # one destination's sum of products
+        return terms * w + -(-terms // 16) * red
+
     if kernel == "behz_to_bsk":
-        # per source y_i and its term mod m~; r; per destination the sum,
-        # plus (q mod b_d)·r_b reduced, times m~^-1
-        return K * (sh + 1) + 1 + D * (conv + w + red + sh)
+        # per source y_i and its term mod m~; r; per destination the sum
+        # with (q mod b_d)·r_b as one more term, times m~^-1
+        return K * (sh + 1) + 1 + D * (conv(K + 1) + sh)
     if kernel == "behz_fast_floor":
         # per source t·qhat_i^-1·e_i; per destination the sum, t·e_bsk, and
         # the difference times q^-1
-        return K * sh + D * (conv + 2 * sh)
+        return K * sh + D * (conv(K) + 2 * sh)
     if kernel == "behz_from_bsk":
         # per source y_i and its term mod m_sk, that sum reduced; alpha; per
-        # destination the sum and (B mod q_j)·alpha reduced
-        return (K * (sh + w) + -(-K // 16) * red + sh
-                + D * (conv + w + red))
+        # destination the sum with (B mod q_j)·(q_j - a) as one more term
+        return K * (sh + w) + -(-K // 16) * red + sh + D * conv(K + 1)
     # behz_tensor: four products (one of them a multiply-add), three reduce64
     return 4 * w + 3 * red
 
@@ -733,19 +730,41 @@ def behz_calls(bz, batch, edge, dev):
     return calls
 
 
+def behz_launch(table, label, L, K, batch, n):
+    """The launch of a behz_calls label (abc_behz_launch_info) and what the
+    compiler made of its kernel (ops/kernel_census.kernel_table), on one
+    line, and as a record."""
+    from abc_tpu_torch.ops import behz_kernels as bk
+    from abc_tpu_torch.ops import kernel_census as kc
+    name, base = (label.split() + ["bsk"])[:2]
+    info = bk.launch_info(name, *kc.launch_of(name, L, K, batch, base), n)
+    row = table.get(kc.launch_key(name, info), {})
+    rec = {"kernel": kc.launch_key(name, info), **info, **row}
+    return (f"[{rec['kernel']}: {info['threads']} threads x "
+            f"{info['blocks']} blocks, {info['blocks_per_sm']} blocks "
+            f"({info['warps_per_sm']} warps) an SM; "
+            f"{kc.fmt_kernel(row)}]"), rec
+
+
 def phase_behz(dev):
     """Phase 2b: every BEHZ kernel against its plain version at
-    BEHZ_SHAPES and on edge inputs; times at BEHZ_SHAPES. Returns the
-    kernels line's stats (the main path's shape; behz_tensor over Bsk)."""
+    BEHZ_SHAPES and on edge inputs; times, launches and compiler census at
+    BEHZ_SHAPES. Returns the kernels line's stats (the main path's shape;
+    behz_tensor over Bsk)."""
     from abc_tpu_torch.crypto.behz import BehzContext
     from abc_tpu_torch.crypto.ntt import NttContext
+    from abc_tpu_torch.ops import _build
+    from abc_tpu_torch.ops import kernel_census as kc
 
+    table = kc.kernel_table(_build.build_log, _build.sass())
+    check(len(table) >= 4, f"no ptxas / SASS record of the BEHZ kernels: "
+          f"{sorted(table)}")
     stats = {name: {"max_abs_err": 0} for name in BEHZ}
     cases = [(shape, None) for shape in BEHZ_SHAPES] + \
         [(shape, edge) for shape in BEHZ_EDGE_SHAPES
          for edge in ("zero", "max")]
     for (n, L, batch, t_bits), edge in cases:
-        params = behz_params(n, L, t_bits)
+        params = kc.shape_params(n, L, t_bits)
         bz = BehzContext(params, NttContext(n, params.data_primes, dev))
         at = f"n={n} L={L} ciphertexts={batch}" + \
             (f" t={t_bits} bits" if t_bits else "") + \
@@ -762,11 +781,13 @@ def phase_behz(dev):
             if edge is not None:
                 continue
             st = {}
+            launch, rec = behz_launch(table, label, L, len(bz.bsk), batch, n)
             line.append(f"{label} " + _timed(
-                st, kern, plain, [n, L, batch], bound(n_bytes, imads)))
+                st, kern, plain, [n, L, batch], bound(n_bytes, imads))
+                + " " + launch)
             if (n, L, batch, t_bits) == BEHZ_SHAPES[0] and \
                     label in BEHZ + ("behz_tensor bsk",):
-                stats[name].update(st)
+                stats[name].update(st, launch=rec)
         print(f"  {at}: every BEHZ kernel = plain"
               + ("" if not line else "; " + "; ".join(line)), flush=True)
     return stats
@@ -1427,6 +1448,11 @@ def phase_two_programs(dev, gold):
     print("  (iii) ntt_inv captured at n=32768 (48 rows x 2 CTAs, 147456 B "
           "of shared memory), launched eagerly at n=16384 (73728 B), then "
           "replayed: equal to the eager run", flush=True)
+
+    # (iv) the collector held off while a stream captures: a graph that it
+    # destroyed inside a capture would invalidate the capture
+    print("  (iv) " + graph_lifetime.collected_in_capture(guarded=True),
+          flush=True)
 
 
 def ckks_leveled(ctx, vals):
@@ -2754,7 +2780,10 @@ def main() -> int:
                 "bound_by": stats[name]["bound_by"], "library_ms": None,
                 "device_ms": stats[name]["device_ms"],
                 "plain_device_ms": stats[name]["plain_device_ms"],
-                "at": stats[name].get("at", list(JSON_SHAPE.get(name, ())))}
+                "at": stats[name].get("at", list(JSON_SHAPE.get(name, ()))),
+                # the BEHZ kernels' launch at "at" and what the compiler
+                # made of it (phase 2b)
+                "launch": stats[name].get("launch")}
                for name in ("ntt_fwd", "ntt_inv", "ablate_ntt",
                             "alu_chain") + BEHZ]
     print(json.dumps({"kernels": kernels}))

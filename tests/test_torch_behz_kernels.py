@@ -155,11 +155,12 @@ def test_plain_chains_match_jx32(jx32_ref, lead):
         _hold_multiply(port, jx32_ref, lead, seed=20, xp=jnp)
 
 
-@pytest.mark.parametrize("L", [17, 27])
+@pytest.mark.parametrize("L", [17, 27, 65])
 def test_plain_chains_match_np64_past_16_limbs(L):
     """L >= 17: from_bsk sums L+1 >= 18 products per word, past what a
     64-bit accumulator holds unreduced (16 products below 2^60); 27 is the
-    largest L of BfvParams.create (n=32768), here at n=2048."""
+    largest L of BfvParams.create (n=32768), here at n=2048; 65 is past the
+    64 source limbs of one chunk of the kernels."""
     ref = RefBehz(_params(2048, L, RefBfvParams, engine="np64"))
     port = _port(_params(2048, L))
     assert port.bsk == ref.bsk and len(port.bsk) == L + 2
@@ -400,21 +401,36 @@ def test_reduce64_model_at_the_extremes():
 # ------------------------- the kernel source, compiled for the host (g++)
 
 _STUB = r"""
-// Host stand-in for the CUDA runtime: a launch runs every thread of every
-// block in turn (behz.cu's kernels use no barrier and no shared memory).
+// Host stand-in for the CUDA runtime: a launch runs its blocks one after
+// another on one std::thread per thread of a block; __syncthreads is a
+// std::barrier of the block, threadIdx is thread_local and __shared__
+// storage is static (one block runs at a time).
 #pragma once
+#include <algorithm>
+#include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <thread>
+#include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __shared__ static
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-static dim3 threadIdx, blockIdx, blockDim;
+static thread_local dim3 threadIdx;
+static dim3 blockIdx, blockDim, gridDim;
+static std::barrier<>* block_barrier = nullptr;
+inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return uint4{x, y, z, w};
+}
+using std::min;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -435,17 +451,40 @@ inline unsigned long long __umul64hi(unsigned long long a,
       (static_cast<unsigned __int128>(a) * b) >> 64);
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K,
+                                                          int threads,
+                                                          size_t) {
+  *blocks = 2048 / threads;
+  return cudaSuccess;
+}
 template <typename... E, typename... A>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
                                void (*kernel)(E...), A&&... args) {
+  // one std::thread per thread of a block, reused block after block: the
+  // host sets blockIdx between two steps of `step`
+  const unsigned threads = cfg->blockDim.x, blocks = cfg->gridDim.x;
   blockDim = cfg->blockDim;
-  for (unsigned b = 0; b < cfg->gridDim.x; ++b) {
-    blockIdx = dim3(b);
-    for (unsigned t = 0; t < cfg->blockDim.x; ++t) {
+  gridDim = cfg->gridDim;
+  std::barrier<> bar(threads), step(threads + 1);
+  block_barrier = &bar;
+  std::vector<std::thread> pool;
+  for (unsigned t = 0; t < threads; ++t) {
+    pool.emplace_back([&, t] {
       threadIdx = dim3(t);
-      kernel(args...);
-    }
+      for (unsigned b = 0; b < blocks; ++b) {
+        step.arrive_and_wait();
+        kernel(args...);
+        step.arrive_and_wait();
+      }
+    });
   }
+  for (unsigned b = 0; b < blocks; ++b) {
+    blockIdx = dim3(b);
+    step.arrive_and_wait();
+    step.arrive_and_wait();
+  }
+  for (auto& th : pool) th.join();
   return cudaSuccess;
 }
 """
@@ -461,7 +500,8 @@ def host_lib(tmp_path_factory):
     (root / "cuda_runtime.h").write_text(_STUB)
     src = [s for s in _build.SOURCES if s.endswith("behz.cu")][0]
     lib_path = root / "libbehz_host.so"
-    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-x", "c++",
+    subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
+                    "-x", "c++",
                     f"-I{root}", f"-I{_build._CSRC}", src, "-o",
                     str(lib_path)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
@@ -473,16 +513,25 @@ def host_lib(tmp_path_factory):
     lib.abc_behz_tensor.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
                                     vp]
     lib.abc_behz_fast_floor.restype = lib.abc_behz_tensor.restype = i32
+    lib.abc_behz_launch_info.argtypes = [i32, i32, i32, i64, i32, vp]
+    lib.abc_behz_launch_info.restype = i32
     return lib
 
 
-@pytest.mark.parametrize("L,lead", [(1, ()), (6, (3,)), (16, ()), (17, (2,)),
-                                    (27, ()), (63, ())])
-def test_kernel_source_on_the_host_matches_plain(host_lib, L, lead):
-    """The four kernels of csrc/behz.cu, run thread by thread on the host,
-    equal their plain versions: every register width (KMAX 8 to 64), a
-    broadcast operand of the tensor product, and the K > 64 refusal."""
-    n, logn = 64, 6
+# the first six cases kept their order since the kernels' first design;
+# every L in both forms, past 64 sources (two chunks of the tile kernels,
+# fast_floor's chunked path; 65 and 80 need more than one pass of
+# destinations)
+HOST_CASES = [(1, ()), (6, (3,)), (16, ()), (17, (2,)), (27, ()), (63, ()),
+              (1, (2,)), (6, ()), (16, (3,)), (17, ()), (27, (2,)),
+              (63, (2,)), (65, (2,)), (65, ()), (80, (3,)), (80, ())]
+
+
+def _hold_host_kernels(host_lib, n, L, lead):
+    """The four kernels of csrc/behz.cu, run on the host, against their
+    plain versions at ring degree n, L data primes, leading axes `lead`
+    (a broadcast operand of the tensor product among them)."""
+    logn = n.bit_length() - 1
     port = _port(_params(n, L))
     qs, bsk, D = port.params.data_primes, port.bsk, L + 2
     tab = {k: as_residues(v, "cpu") for k, v in port.kernel_words().items()}
@@ -517,9 +566,136 @@ def test_kernel_source_on_the_host_matches_plain(host_lib, L, lead):
             out.data_ptr(), ntt.q_col.data_ptr(), ntt.ratio.data_ptr(), rows1,
             1, len(mods), logn, None)
         assert torch.equal(out, bk.tensor_plain(f1, f2, ntt.q_col))
-    assert host_lib.abc_behz_to_bsk(x.data_ptr(), x.data_ptr(),
-                                    tab["to_bsk"].data_ptr(), 1, 65, D, logn,
-                                    None) != 0
+
+
+@pytest.mark.parametrize("L,lead", HOST_CASES)
+def test_kernel_source_on_the_host_matches_plain(host_lib, L, lead):
+    """The four kernels of csrc/behz.cu, run thread by thread on the host
+    (n=64, so that one tile of 128 coefficients spans two rows), equal
+    their plain versions: every register width of fast_floor (KMAX 8 to 64,
+    and its chunked path past 64), both source chunks of the tile kernels
+    (16 and 64), one to four destinations a thread, more than one pass over
+    the destinations, and a broadcast operand of the tensor product."""
+    _hold_host_kernels(host_lib, 64, L, lead)
+
+
+@pytest.mark.parametrize("n,L,lead", [(4, 6, (3,)), (8, 17, ()),
+                                      (128, 6, ()), (256, 6, (3,)),
+                                      (512, 27, ()), (256, 65, (2,))])
+def test_kernel_source_on_the_host_tiles_any_n(host_lib, n, L, lead):
+    """The tile kernels at ring degrees below, at and above the tile: a
+    tile of many short rows (n=4: 32 rows, the last tile part empty), one
+    row exactly, rows of several tiles, and chunks and passes over rows of
+    two tiles at L=65."""
+    _hold_host_kernels(host_lib, n, L, lead)
+
+
+@pytest.mark.parametrize("L", [1, 6, 15])
+def test_kernel_source_on_the_host_warp_path(host_lib, L):
+    """to_bsk and from_bsk with a warp a tile (16 sources or fewer, 2048
+    tiles or more: 4096 rows of n=64), against their plain versions a slice
+    of rows at a time."""
+    n, lead = 64, (2048,)
+    port = _port(_params(n, L))
+    qs, bsk, D = port.params.data_primes, port.bsk, L + 2
+    tab = {k: as_residues(v, "cpu") for k, v in port.kernel_words().items()}
+    x = as_residues(_rand(qs, lead + (2,), n, L), "cpu")
+    x_b = as_residues(_rand(bsk, lead + (3,), n, L + 3), "cpu")
+    to = torch.empty(lead + (2, D, n), dtype=torch.int32)
+    back = torch.empty(lead + (3, L, n), dtype=torch.int32)
+    assert host_lib.abc_behz_to_bsk(x.data_ptr(), to.data_ptr(),
+                                    tab["to_bsk"].data_ptr(), 4096, L, D, 6,
+                                    None) == 0
+    assert host_lib.abc_behz_from_bsk(x_b.data_ptr(), back.data_ptr(),
+                                      tab["from_bsk"].data_ptr(), 6144, L + 1,
+                                      L, 6, None) == 0
+    for part in torch.arange(2048).split(256):
+        assert torch.equal(to[part], port._to_bsk_plain(x[part]))
+        assert torch.equal(back[part], port._from_bsk_plain(x_b[part]))
+
+
+@pytest.mark.parametrize("L,want", [(6, (1, 16, 288)), (27, (2, 32, 512)),
+                                    (80, (4, 32, 512))])
+def test_tile_launch_shape(host_lib, L, want):
+    """The tile kernels' launch (abc_behz_launch_info): ND destinations a
+    thread, KC sources a chunk, threads a block (destination warps and the
+    scalar warp); a block per 128 coefficients; at 2048 tiles or more and
+    16 sources or fewer a warp a tile, four a block."""
+    info = (ctypes.c_longlong * 6)()
+    assert host_lib.abc_behz_launch_info(0, L, L + 2, 2, 13, info) == 0
+    assert tuple(info[:3]) == want and info[3] == 2 * 8192 // 128
+    # a batch of 64: 8192 tiles, a warp each where the sources fit
+    assert host_lib.abc_behz_launch_info(0, L, L + 2, 128, 13, info) == 0
+    assert tuple(info[:4]) == ((0, 8, 128, 2048) if L == 6 else
+                               want + (8192,))
+    assert host_lib.abc_behz_launch_info(1, 65, 67, 3, 13, info) == 0
+    assert tuple(info[:3]) == (64, 1, 256)      # fast_floor's chunked path
+    assert host_lib.abc_behz_launch_info(0, 0, 2, 1, 13, info) != 0
+
+
+_TO_BSK = "_ZN12_GLOBAL__N_118behz_to_bsk_kernelILi1ELi16EEEvPKjPjS2_xiii"
+_PTXAS = f"""ptxas info    : Compiling entry function '{_TO_BSK}' for 'sm_90a'
+ptxas info    : Function properties for {_TO_BSK}
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 8704 bytes smem, 400 bytes cmem[0]
+"""
+_SASS = f"""\tcode for sm_90a
+\t\tFunction : {_TO_BSK}
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0020*/                   IMAD.WIDE.U32 R8, R4, R6, R8 ;
+        /*0030*/                   IMAD.MOV.U32 R9, RZ, RZ, R3 ;
+        /*0040*/               @P0 IMAD.HI.U32 R10, R4, R6, RZ ;
+        /*0050*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0060*/                   STS.128 [R0], R4 ;
+        /*0070*/                   LDS.128 R4, [R0] ;
+        /*0080*/                   STG.E.128 desc[UR4][R2.64], R4 ;
+        /*0090*/                   EXIT ;
+"""
+
+
+def test_kernel_census_reads_ptxas_and_sass():
+    """ops/kernel_census (printed by chip_smoke.py phase 2b beside each
+    kernel's time) from ptxas -v and cuobjdump -sass text: one row per
+    kernel, keyed as the launch names it."""
+    from abc_tpu_torch.ops import kernel_census as kc
+    table = kc.kernel_table(_PTXAS, _SASS)
+    assert table == {"behz_to_bsk_kernel<1,16>": {
+        "registers": 40, "smem": 8704, "spill_stores": 8, "spill_loads": 4,
+        "instructions": 10, "IMAD": 2, "IMAD.WIDE": 1, "LDG": 1, "STG": 1,
+        "LDS": 1, "STS": 1, "BAR": 1}}
+    for demangled in ("void (anonymous namespace)::behz_to_bsk_kernel<1, "
+                      "16>(unsigned int const*, int)",
+                      "void <unnamed>::behz_to_bsk_kernel<(int)1, (int)16>"
+                      "(const unsigned int *, int)"):
+        assert kc.kernel_key(demangled) == "behz_to_bsk_kernel<1,16>"
+    assert kc.kernel_key("_ZN12_GLOBAL__N_122behz_fast_floor_kernelIL"
+                         "i64ELb1EEEvPKjS2_PjS2_xiii") == \
+        "behz_fast_floor_kernel<64,true>"
+    assert kc.kernel_key("void (anonymous namespace)::behz_fast_floor_"
+                         "kernel<64, true>(unsigned int const*)") == \
+        "behz_fast_floor_kernel<64,true>"
+
+
+def test_every_launch_names_a_kernel_of_the_source(host_lib):
+    """Each launch abc_behz_launch_info reports at chip_smoke.py's BEHZ
+    shapes names a kernel the source instantiates (kernel_census.launch_key
+    against the host build's symbols), so phase 2b finds its census."""
+    from abc_tpu_torch.ops import kernel_census as kc
+    import chip_smoke
+    nm = subprocess.run(["nm", host_lib._name], capture_output=True,
+                        text=True, check=True).stdout.split()
+    keys = {kc.kernel_key(w) for w in nm
+            if w.startswith("_ZN") and "_kernel" in w}
+    for n, L, batch, _ in chip_smoke.BEHZ_SHAPES:
+        for name in bk.launches:
+            info = (ctypes.c_longlong * 6)()
+            assert host_lib.abc_behz_launch_info(
+                bk._INFO_KERNEL[name], *kc.launch_of(name, L, L + 2, batch),
+                n.bit_length() - 1, info) == 0
+            got = dict(zip(("arg0", "arg1", "threads", "blocks",
+                            "blocks_per_sm", "warps_per_sm"), info))
+            assert kc.launch_key(name, got) in keys, (name, n, L)
 
 
 # ------------------------------------------------------------- on the card
@@ -556,8 +732,12 @@ def _card_cases(n, L, lead, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,L,lead", [(8192, 6, ()), (8192, 6, (4,)),
-                                      (2048, 17, ()), (2048, 27, ())])
+                                      (8192, 15, (16,)),
+                                      (2048, 17, ()), (2048, 27, ()),
+                                      (2048, 65, (2,))])
 def test_kernels_equal_plain_on_cuda(cuda, n, L, lead):
+    """(8192, 15, (16,)): 2048 tiles of to_bsk's 15 sources and 3072 of
+    from_bsk's 16, both on the warp path (csrc/behz.cu: tile_shape)."""
     for name, kern, plain in _card_cases(n, L, lead, cuda):
         before = bk.launches[name]
         got = kern()

@@ -417,6 +417,37 @@ def test_suite_entry_and_ab_raise_without_a_card(no_card):
         hybrid_ks_ab.run()
 
 
+@pytest.mark.parametrize("enabled", [True, False], ids=["gc_on", "gc_off"])
+@pytest.mark.parametrize("raises", [False, True], ids=["ends", "raises"])
+def test_capture_holds_the_collector_off(monkeypatch, enabled, raises):
+    """utils/timing.capture_graph: the cyclic collector is off for as long as
+    torch.cuda.graph's capture runs (a stub here) and back as it was after,
+    also when the captured code raises."""
+    import gc
+    seen = []
+
+    @contextlib.contextmanager
+    def graph(g, **kwargs):
+        seen.append(("enter", g, kwargs, gc.isenabled()))
+        yield
+        seen.append(("exit", gc.isenabled()))
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with contextlib.suppress(ValueError):
+            with timing.capture_graph("g", pool="p") as got:
+                assert got == "g" and not gc.isenabled()
+                if raises:
+                    raise ValueError
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+    assert seen[0] == ("enter", "g", {"pool": "p"}, False)
+    assert seen[1:] == ([] if raises else [("exit", False)])
+
+
 def test_graph_lifetime_raises_without_a_card(no_card):
     from abc_tpu_torch.scripts import graph_lifetime
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -444,6 +475,16 @@ def test_graph_of_holds_what_it_reads(cuda):
     g.replay()
     torch.cuda.synchronize()
     assert torch.equal(g.output, want)
+
+
+@pytest.mark.gpu
+def test_a_capture_survives_a_collected_graph(cuda):
+    """utils/timing.capture_graph with the collector due inside it and a
+    graph of an earlier capture that only a reference cycle holds (scripts/
+    graph_lifetime.py, "guarded"): the capture holds, its replay is equal,
+    the old graph is destroyed after it."""
+    from abc_tpu_torch.scripts import graph_lifetime
+    assert "replayed equal" in graph_lifetime.collected_in_capture(True)
 
 
 @pytest.mark.gpu
