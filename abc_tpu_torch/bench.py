@@ -46,7 +46,7 @@ N = 8192            # the mult+relin curve: BfvParams.create(8192, seed=123)
 N_NTT = 16384       # the NTT curve: the 13 + 1 primes of create(16384, seed=5)
 BATCHES = (1, 8, 16, 64)
 CHAIN = 24          # dependent mult+relin steps per graph at B=1: one step
-                    # is 111 graph nodes at k=1 (385 before the BEHZ
+                    # is 110 graph nodes at k=1 (385 before the BEHZ
                     # kernels, for which this length was chosen to keep a
                     # graph under 10 000)
 CHAIN_MIN = 8       # and at least this many at larger B (CHAIN // B below it)

@@ -49,7 +49,7 @@ import torch
 from abc_tpu_torch.ops import ntt_kernels
 from abc_tpu_torch.utils.timing import estimates, repeated, timer_of
 
-# chain lengths: one n=8192 mult+relin step is 111 graph nodes at k=1 and
+# chain lengths: one n=8192 mult+relin step is 110 graph nodes at k=1 and
 # the CKKS op 181 (385 and 213 before the BEHZ kernels, for which these
 # lengths were chosen to keep a graph under 10 000 nodes)
 _CHAIN = {2: 24, 3: 12, 5: 32}

@@ -99,19 +99,21 @@ class BehzContext:
         self.kernel_tab = {} if dev.type == "cpu" else {
             k: as_residues(v, dev) for k, v in self.kernel_words().items()}
 
-    def kernel_words(self) -> dict:
+    def kernel_words(self, pack=bk) -> dict:
         """The packed uint32 tables of the three conversion kernels
-        (ops/behz_kernels.py, csrc/behz.cu "Tables"), from the host tables."""
+        (ops/behz_kernels.py, csrc/behz.cu "Tables"), from the host tables;
+        `pack` is the module of the packing functions (scripts/behz_ab.py
+        passes an earlier commit's, for the kernels of that commit)."""
         h, qs = self.host_tab, self.params.data_primes
         return {
-            "to_bsk": bk.to_bsk_words(
+            "to_bsk": pack.to_bsk_words(
                 qs, self.bsk, h["mtilde_qhatinv_mod_q"], h["qhat_mod_mtilde"],
                 h["neg_qinv_mod_mtilde"], h["q_mod_bsk"],
                 h["mtilde_inv_mod_bsk"], h["qhat_mod_bsk"]),
-            "fast_floor": bk.fast_floor_words(
+            "fast_floor": pack.fast_floor_words(
                 qs, self.bsk, h["t_mod_q"], h["qhatinv_mod_q"],
                 h["t_mod_bsk"], h["qinv_mod_bsk"], h["qhat_mod_bsk"]),
-            "from_bsk": bk.from_bsk_words(
+            "from_bsk": pack.from_bsk_words(
                 self.b_primes, self.m_sk, qs, h["bhatinv_mod_b"],
                 h["bhat_mod_msk"], h["binv_mod_msk"], h["B_mod_q"],
                 h["msk_mod_q"], h["bhat_mod_q"]),
@@ -188,11 +190,14 @@ class BehzContext:
                               len(self.bsk))
 
     @in_chain("tensor")
-    def _tensor(self, f1, f2, base):
-        """The tensor product of two NTT-domain operands ([..., 2, D, n])
-        over base "q" or "bsk" → [..., 3, D, n]."""
-        ntt = self.ntt_q if base == "q" else self.ntt_bsk
-        return bk.behz_tensor(f1, f2, ntt.q_col, ntt.ratio)
+    def _tensor(self, pre1, pre2):
+        """The tensor products of two operands' precompute_operand forms,
+        over base q and over Bsk ([..., 3, L, n], [..., 3, L+2, n], NTT
+        domain): one launch on the card."""
+        (f1q, f1b), (f2q, f2b) = pre1, pre2
+        return bk.behz_tensor((f1q, f2q, self.ntt_q.q_col, self.ntt_q.ratio),
+                              (f1b, f2b, self.ntt_bsk.q_col,
+                               self.ntt_bsk.ratio))
 
     @in_chain("fast_floor")
     def _fast_floor(self, e_q, e_bsk):
@@ -225,7 +230,6 @@ class BehzContext:
         forms ([..., 2, L, n] and [..., 2, L+2, n]) → [..., 3, L, n]
         coefficient-domain product over q (pre-relinearization). A square
         passes the same forms twice."""
-        (f1q, f1b), (f2q, f2b) = pre1, pre2
-        eq = self.ntt_q.inv(self._tensor(f1q, f2q, "q"))
-        eb = self.ntt_bsk.inv(self._tensor(f1b, f2b, "bsk"))
+        eq, eb = self._tensor(pre1, pre2)
+        eq, eb = self.ntt_q.inv(eq), self.ntt_bsk.inv(eb)
         return self._from_bsk(self._fast_floor(eq, eb))

@@ -556,7 +556,7 @@ class CkksContext(RlweKeys):
         self.counters["mult"] += 1
         fa, fb = ntt.fwd(a.data), ntt.fwd(b.data)
         with chain_range("tensor"):
-            d = behz_tensor(fa, fb, ntt.q_col, ntt.ratio)
+            d, = behz_tensor((fa, fb, ntt.q_col, ntt.ratio))
         data = ntt.inv(d)
         ct = CkksCiphertext(data, level, a.scale * b.scale)
         if relinearize:

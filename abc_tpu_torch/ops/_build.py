@@ -130,8 +130,10 @@ def load() -> ctypes.CDLL:
 
 
 def bind_behz(lib: ctypes.CDLL) -> None:
-    """The argument and return types of the four BEHZ kernels' C entry
-    points (csrc/behz.cu) on a library that holds them."""
+    """The argument and return types of the BEHZ kernels' C entry points
+    (csrc/behz.cu) on a library that holds them. A build of an earlier
+    commit may hold the one-base abc_behz_tensor in place of
+    abc_behz_tensor_bases: scripts/behz_ab.py binds that one itself."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for conv in (lib.abc_behz_to_bsk, lib.abc_behz_from_bsk):
         conv.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
@@ -139,9 +141,11 @@ def bind_behz(lib: ctypes.CDLL) -> None:
     lib.abc_behz_fast_floor.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
                                         vp]
     lib.abc_behz_fast_floor.restype = i32
-    lib.abc_behz_tensor.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
-                                    vp]
-    lib.abc_behz_tensor.restype = i32
+    if hasattr(lib, "abc_behz_tensor_bases"):
+        # per base: f1, f2, out, q, ratio, rows1, rows2, D; logn, stream
+        lib.abc_behz_tensor_bases.argtypes = [vp, vp, vp, vp, vp, i64, i64,
+                                              i32] * 2 + [i32, vp]
+        lib.abc_behz_tensor_bases.restype = i32
 
 
 def sass() -> str:

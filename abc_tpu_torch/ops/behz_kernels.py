@@ -4,8 +4,9 @@ Shenoy-Kumaresan): launch wrappers of csrc/behz.cu and the tables they read.
 `behz_to_bsk`, `behz_fast_floor` and `behz_from_bsk` launch the conversion
 kernels on CUDA tensors only: the plain versions are BehzContext's own
 methods (crypto/behz.py), which routes a CPU tensor to them and any other to
-these wrappers. `behz_tensor` routes itself: a CPU tensor goes to
-`tensor_plain` (int64 torch with exact `%`), a CUDA tensor to the kernel.
+these wrappers. `behz_tensor` routes itself: CPU tensors go to
+`tensor_plain` (int64 torch with exact `%`), one base at a time; CUDA
+tensors to one launch of the kernel over every base given (one or two).
 The kernels are built at first use and any build or launch failure raises.
 `launches` counts kernel launches per kernel and nothing else.
 
@@ -80,15 +81,18 @@ def to_bsk_words(qs, bsk, mtilde_qhatinv_q, qhat_mtilde, neg_qinv_mtilde,
 def fast_floor_words(qs, bsk, t_q, qhatinv_q, t_bsk, qinv_bsk,
                      qhat_bsk) -> np.ndarray:
     """behz_fast_floor's table: per data prime q_i (t · qhat_i^-1 mod q_i,
-    its companion); per Bsk prime b_d (t mod b_d, its companion, q^-1 mod
-    b_d, its companion); T = qhat_i mod b_d."""
+    its companion); per Bsk prime b_d (t mod b_d, q^-1 mod b_d, its
+    companion); T = -qhat_i mod b_d, so that the kernel's sum with (t mod
+    b_d)·e_bsk as one more term is t·e_bsk - conv."""
     qs, bsk = _ints(qs), _ints(bsk)
     src = [(q, c, shoup(c, q)) for q, c in zip(
         qs, [tq * hi % q for q, tq, hi in zip(qs, _ints(t_q),
                                                _ints(qhatinv_q))])]
-    dst = [_dst(b, tb, shoup(tb, b), qi, shoup(qi, b)) for b, tb, qi in zip(
+    dst = [_dst(b, tb, qi, shoup(qi, b)) for b, tb, qi in zip(
         bsk, _ints(t_bsk), _ints(qinv_bsk))]
-    return _pack([], src, dst, qhat_bsk)
+    neg = [[-v % b for v, b in zip(row, bsk)]
+           for row in np.asarray(qhat_bsk, dtype=np.int64).tolist()]
+    return _pack([], src, dst, neg)
 
 
 def from_bsk_words(b_primes, m_sk, qs, bhatinv_b, bhat_msk, binv_msk,
@@ -147,11 +151,11 @@ def _check_packed(tab, kind, device, K, D):
                  HEADER + SRC_WORDS * K + DST_WORDS * D + K * D)
 
 
-def _check_tiled(x, name, n):
-    """to_bsk and from_bsk read and write 4 coefficients with one 16-byte
-    access (csrc/behz.cu, tiles of 128 coefficients)."""
+def _check_quads(x, name, n):
+    """Every BEHZ kernel reads and writes 4 coefficients with one 16-byte
+    access (csrc/behz.cu)."""
     if n < 4 or x.data_ptr() % 16:
-        raise ValueError(f"BEHZ operand {name}: the tile kernels take n >= 4 "
+        raise ValueError(f"BEHZ operand {name}: the kernels take n >= 4 "
                          f"and 16-byte aligned rows, got n={n} at "
                          f"{x.data_ptr():#x}")
 
@@ -173,7 +177,7 @@ def behz_to_bsk(x: torch.Tensor, tab: torch.Tensor, D: int) -> torch.Tensor:
     D = L + 2), `tab` the packed `to_bsk_words` on x's device."""
     K = x.shape[-2] if x.dim() >= 2 else 0
     rows, n = _shape_of(x, "x", K)
-    _check_tiled(x, "x", n)
+    _check_quads(x, "x", n)
     _check_packed(tab, "to_bsk", x.device, K, D)
     out = torch.empty(tuple(x.shape[:-2]) + (D, n), dtype=torch.int32,
                       device=x.device)
@@ -195,6 +199,8 @@ def behz_fast_floor(e_q: torch.Tensor, e_bsk: torch.Tensor,
         raise ValueError(f"BEHZ fast floor: e_q {tuple(e_q.shape)} and e_bsk "
                          f"{tuple(e_bsk.shape)} must share their leading "
                          "axes, n and device")
+    _check_quads(e_q, "e_q", n)
+    _check_quads(e_bsk, "e_bsk", n)
     _check_packed(tab, "fast_floor", e_q.device, K, D)
     out = torch.empty_like(e_bsk)
     _launch("behz_fast_floor", e_q.device,
@@ -210,7 +216,7 @@ def behz_from_bsk(x_bsk: torch.Tensor, tab: torch.Tensor, D: int
     m_sk) → [..., D, n] (D = L), `tab` the packed `from_bsk_words`."""
     K = x_bsk.shape[-2] - 1 if x_bsk.dim() >= 2 else 0
     rows, n = _shape_of(x_bsk, "x_bsk", K + 1)
-    _check_tiled(x_bsk, "x_bsk", n)
+    _check_quads(x_bsk, "x_bsk", n)
     _check_packed(tab, "from_bsk", x_bsk.device, K, D)
     out = torch.empty(tuple(x_bsk.shape[:-2]) + (D, n), dtype=torch.int32,
                       device=x_bsk.device)
@@ -228,7 +234,8 @@ _INFO_KERNEL = {"behz_to_bsk": 0, "behz_fast_floor": 1, "behz_from_bsk": 2,
 
 def launch_info(name: str, K: int, D: int, rows: int, n: int) -> dict:
     """The launch a kernel makes at K sources, D destinations (behz_tensor:
-    D limbs) and rows of n, with its theoretical occupancy on the current
+    two bases of K and D limbs) and rows of n, with its
+    theoretical occupancy on the current
     card (cudaOccupancyMaxActiveBlocksPerMultiprocessor): template
     arguments, threads a block, blocks, blocks and warps an SM."""
     import ctypes
@@ -244,13 +251,9 @@ def launch_info(name: str, K: int, D: int, rows: int, n: int) -> dict:
                      "warps_per_sm"), info))
 
 
-def behz_tensor(f1: torch.Tensor, f2: torch.Tensor, q: torch.Tensor,
-                ratio: torch.Tensor) -> torch.Tensor:
-    """[..., 2, D, n] × [..., 2, D, n] → [..., 3, D, n] mod q ([D, 1]
-    column); `ratio` ([D] int64, modarith.ratio_table) is read by the kernel
-    only. The leading axes broadcast where one operand has a single row."""
-    if f1.device.type == "cpu":
-        return tensor_plain(f1, f2, q)
+def _tensor_base(f1, f2, q, ratio, device):
+    """(rows1, rows2, D, n, leading shape) of one base of behz_tensor on the
+    card; raises unless the kernel takes it."""
     D = q.shape[0]
     if f1.dim() < 3 or f2.dim() < 3 or f1.shape[-3] != 2 or \
             f2.shape[-3] != 2:
@@ -261,16 +264,45 @@ def behz_tensor(f1: torch.Tensor, f2: torch.Tensor, q: torch.Tensor,
     rows1, rows2 = rows1 // 2, rows2 // 2
     lead = torch.broadcast_shapes(f1.shape[:-3], f2.shape[:-3])
     rows = max(rows1, rows2)
-    if n2 != n or f2.device != f1.device or min(rows1, rows2) not in \
-            (1, rows) or int(np.prod(lead, dtype=np.int64)) != rows:
+    if n2 != n or f1.device != device or f2.device != device or \
+            min(rows1, rows2) not in (1, rows) or \
+            int(np.prod(lead, dtype=np.int64)) != rows:
         raise ValueError(f"BEHZ tensor: operands {tuple(f1.shape)} and "
                          f"{tuple(f2.shape)} must match or one of them hold "
                          "a single row, on one device")
-    _check_table(q, "q", f1.device, D)
-    _check_table(ratio, "ratio", f1.device, D, torch.int64)
-    out = torch.empty(tuple(lead) + (3, D, n), dtype=torch.int32,
-                      device=f1.device)
-    _launch("behz_tensor", f1.device, lambda lib, s: lib.abc_behz_tensor(
-        f1.data_ptr(), f2.data_ptr(), out.data_ptr(), q.data_ptr(),
-        ratio.data_ptr(), rows1, rows2, D, n.bit_length() - 1, s))
-    return out
+    _check_quads(f1, "f1", n)
+    _check_quads(f2, "f2", n)
+    _check_table(q, "q", device, D)
+    _check_table(ratio, "ratio", device, D, torch.int64)
+    return rows1, rows2, D, n, tuple(lead)
+
+
+def behz_tensor(*bases) -> tuple:
+    """The tensor product over each base (f1, f2, q, ratio) given, one or
+    two: [..., 2, D, n] × [..., 2, D, n] → [..., 3, D, n] mod q ([D, 1]
+    column); `ratio` ([D] int64, modarith.ratio_table) is read by the kernel
+    only. The leading axes broadcast where one operand has a single row. On
+    the card every base goes through one launch, of the same n."""
+    if not 1 <= len(bases) <= 2:
+        raise ValueError(f"BEHZ tensor takes one or two bases, got "
+                         f"{len(bases)}")
+    if bases[0][0].device.type == "cpu":
+        return tuple(tensor_plain(f1, f2, q) for f1, f2, q, _ in bases)
+    device = bases[0][0].device
+    shapes = [_tensor_base(*b, device) for b in bases]
+    if len({s[3] for s in shapes}) != 1:
+        raise ValueError("BEHZ tensor: the bases of one launch must share n")
+    outs = tuple(torch.empty(lead + (3, D, n), dtype=torch.int32,
+                             device=device)
+                 for _, _, D, n, lead in shapes)
+    args = []
+    for (f1, f2, q, ratio), out, (rows1, rows2, D, _, _) in zip(
+            bases, outs, shapes):
+        args += [f1.data_ptr(), f2.data_ptr(), out.data_ptr(), q.data_ptr(),
+                 ratio.data_ptr(), rows1, rows2, D]
+    if len(bases) == 1:
+        args += [None] * 5 + [0, 0, 0]
+    n = shapes[0][3]
+    _launch("behz_tensor", device, lambda lib, s: lib.abc_behz_tensor_bases(
+        *args, n.bit_length() - 1, s))
+    return outs

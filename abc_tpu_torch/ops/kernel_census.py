@@ -67,9 +67,8 @@ def kernel_key(name: str) -> str:
         part = name[at - int(digits):at]
         if part.endswith("_kernel"):
             m = _MANGLED_ARGS.match(name, at)
-            return _key(part, [("true" if v == "1" else "false")
-                               if kind == "b" else v for kind, v in
-                               _MANGLED_ARG.findall(m.group(1) if m else "")])
+            return _key(part, [v for _, v in _MANGLED_ARG.findall(
+                m.group(1) if m else "")])
     return name
 
 
@@ -119,23 +118,20 @@ def kernel_table(build_log: str, sass_text: str) -> dict:
             for k in sorted(set(ptx) | set(sass)) if k.startswith("behz_")}
 
 
-def launch_of(name, L, K, batch, base="bsk"):
+def launch_of(name, L, K, batch):
     """(sources, destinations, rows) of a BEHZ kernel's launch in one
     mult+relin of `batch` ciphertexts at L data primes, Bsk of K primes
-    (behz_tensor: its limbs over base "q" or "bsk" as destinations)."""
+    (behz_tensor: the limbs of its two bases, q and Bsk)."""
     return {"behz_to_bsk": (L, K, 2 * batch),
             "behz_fast_floor": (L, K, 3 * batch),
             "behz_from_bsk": (K - 1, L, 3 * batch),
-            "behz_tensor": (2, L if base == "q" else K, batch)}[name]
+            "behz_tensor": (L, K, batch)}[name]
 
 
 def launch_key(name: str, info: dict) -> str:
     """The kernel key of a `behz_kernels.launch_info`."""
     if name == "behz_tensor":
         return "behz_tensor_kernel"
-    if name == "behz_fast_floor":
-        return (f"behz_fast_floor_kernel<{info['arg0']},"
-                f"{'true' if info['arg1'] else 'false'}>")
     if info["arg0"] == 0:                 # a warp a tile, KW sources
         return f"{name}_warp_kernel<{info['arg1']}>"
     return f"{name}_kernel<{info['arg0']},{info['arg1']}>"

@@ -13,12 +13,18 @@ theoretical occupancy).
 
 With --baseline, DIR holds another version of csrc/behz.cu (and the
 headers it includes) with the same C entry points, such as an earlier
-commit's: it is built the same way and its kernels are listed the same
-way, and at SHAPES both builds run every kernel on the same inputs: the
-words must be equal, and the profiler's device time of each is read in
-turns (baseline, this tree, this tree, baseline), --rounds times (0: the
-words only). A shape the baseline refuses (its return code) is run for
-this tree alone. One JSON object per line; the last holds the medians.
+commit's, and, where its kernels read tables of another layout, the
+ops/behz_kernels.py of the same commit, which then packs the baseline's
+tables (BehzContext.kernel_words). It is built the same way and its
+kernels are listed the same way, and at SHAPES both builds run every
+kernel on the same inputs: the words must be equal, and the profiler's
+device time of each is read in turns (baseline, this tree, this tree,
+baseline), --rounds times (0: the words only). A shape the baseline
+refuses (its return code) is run for this tree alone. behz_tensor runs
+over both bases of a multiply (q and Bsk): one launch of
+abc_behz_tensor_bases, or, in a baseline built before that entry point
+(its abc_behz_tensor took one base a launch), two launches whose device
+times add up. One JSON object per line; the last holds the medians.
 
 Needs a CUDA device and raises without one. Imports no JAX.
 """
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import statistics
@@ -39,11 +46,12 @@ import torch
 from abc_tpu_torch.ops import _build
 from abc_tpu_torch.ops import behz_kernels as bk
 from abc_tpu_torch.ops import kernel_census as kc
+from abc_tpu_torch.ops.modarith import as_residues
 
 # (n, L, ciphertexts, t bits): t None takes BfvParams.create(n)'s chain,
 # else L data primes of 30 bits and t of that many bits. B = 11 and 12 lie
-# between the batches at which from_bsk (3 rows a ciphertext) and to_bsk (2)
-# take the warp path (csrc/behz.cu: tile_shape)
+# between the batches at which fast_floor and from_bsk (3 rows a
+# ciphertext) and to_bsk (2) take the warp path (csrc/behz.cu: tile_shape)
 SHAPES = [(8192, 6, 1, None), (8192, 6, 8, None), (8192, 6, 11, None),
           (8192, 6, 12, None), (8192, 6, 16, None), (8192, 6, 64, None),
           (32768, 27, 1, None), (4096, 65, 1, 20)]
@@ -67,14 +75,35 @@ def operands(bz, batch, dev):
         return torch.from_numpy(h.astype(np.uint32).view(np.int32)).to(dev)
 
     return {"x": rand(qs, 2), "e_q": rand(qs, 3), "e_b": rand(bsk, 3),
-            "f1": rand(bsk, 2), "f2": rand(bsk, 2)}
+            "f1q": rand(qs, 2), "f2q": rand(qs, 2), "f1": rand(bsk, 2),
+            "f2": rand(bsk, 2)}
 
 
-def calls(lib, bz, ops, stream):
-    """{kernel: (launch() -> return code, output)} of one library."""
+# the one-base tensor entry point of builds before abc_behz_tensor_bases:
+# f1, f2, out, q, ratio, rows1, rows2, D, logn, stream
+_ONE_BASE = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + \
+    [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def tensor_call(lib, bases, logn, stream):
+    """launch() -> return code of the tensor product over `bases`, (f1, f2,
+    out, q, ratio, rows, D) each: one launch, or one a base where the
+    library predates abc_behz_tensor_bases."""
+    ptrs = [[t.data_ptr() for t in b[:5]] + [b[5], b[5], b[6]]
+            for b in bases]
+    if hasattr(lib, "abc_behz_tensor_bases"):
+        return lambda: lib.abc_behz_tensor_bases(*ptrs[0], *ptrs[1], logn,
+                                                 stream)
+    lib.abc_behz_tensor.argtypes, lib.abc_behz_tensor.restype = \
+        _ONE_BASE, ctypes.c_int
+    return lambda: max(lib.abc_behz_tensor(*p, logn, stream) for p in ptrs)
+
+
+def calls(lib, bz, T, ops, stream):
+    """{kernel: (launch() -> return code, output)} of one library, which
+    reads the packed tables T."""
     L, n, K = bz.params.L, bz.params.n, len(bz.bsk)
     logn = n.bit_length() - 1
-    T = bz.kernel_tab
     x, e_q, e_b, f1, f2 = (ops[k] for k in ("x", "e_q", "e_b", "f1", "f2"))
     lead = tuple(x.shape[:-3])
     # rows of x ([..., 2, L, n]) and of e_q; the tensor product counts
@@ -84,11 +113,16 @@ def calls(lib, bz, ops, stream):
                                        device=x.device),
             "behz_from_bsk": torch.empty(lead + (3, L, n), dtype=torch.int32,
                                          device=x.device),
-            "behz_fast_floor": torch.empty_like(e_b),
-            "behz_tensor": torch.empty(lead + (3, K, n), dtype=torch.int32,
-                                       device=x.device)}
+            "behz_fast_floor": torch.empty_like(e_b)}
     p = {k: v.data_ptr() for k, v in outs.items()}
-    q_col, ratio = bz.ntt_bsk.q_col, bz.ntt_bsk.ratio
+    t_q, t_b = (torch.empty(lead + (3, D, n), dtype=torch.int32,
+                            device=x.device) for D in (L, K))
+    outs["behz_tensor"] = (t_q, t_b)
+    tensor = tensor_call(lib, [
+        (ops["f1q"], ops["f2q"], t_q, bz.ntt_q.q_col, bz.ntt_q.ratio,
+         rows2 // 2, L),
+        (f1, f2, t_b, bz.ntt_bsk.q_col, bz.ntt_bsk.ratio, rows2 // 2, K)],
+        logn, stream)
     return {
         "behz_to_bsk": (lambda: lib.abc_behz_to_bsk(
             x.data_ptr(), p["behz_to_bsk"], T["to_bsk"].data_ptr(), rows2, L,
@@ -100,16 +134,15 @@ def calls(lib, bz, ops, stream):
             e_q.data_ptr(), e_b.data_ptr(), p["behz_fast_floor"],
             T["fast_floor"].data_ptr(), rows3, L, K, logn, stream),
             outs["behz_fast_floor"]),
-        "behz_tensor": (lambda: lib.abc_behz_tensor(
-            f1.data_ptr(), f2.data_ptr(), p["behz_tensor"], q_col.data_ptr(),
-            ratio.data_ptr(), rows2 // 2, rows2 // 2, K, logn, stream),
-            outs["behz_tensor"]),
+        "behz_tensor": (tensor, outs["behz_tensor"]),
     }
 
 
 def device_us(launch, reps=REPS):
-    """(mean device µs of one launch, kernel name) over `reps` launches
-    under torch.profiler."""
+    """(device µs of one launch() call, all its kernels, and the first
+    kernel's name) over `reps` calls under torch.profiler: the mean kernel
+    times the kernels a call launches, so that a dropped record (PERF.md)
+    does not count as a faster call."""
     from torch.profiler import ProfilerActivity, profile
     launch()
     torch.cuda.synchronize()
@@ -122,8 +155,21 @@ def device_us(launch, reps=REPS):
            and "behz_" in ev.name]
     if not evs:
         return None, None
-    return (sum(ev.device_time_total for ev in evs) / len(evs),
+    per_call = max(1, round(len(evs) / reps))
+    return (sum(ev.device_time_total for ev in evs) / len(evs) * per_call,
             kc.kernel_key(evs[0].name))
+
+
+def baseline_packer(directory: str):
+    """DIR/behz_kernels.py loaded as a module of its own, or None."""
+    path = os.path.join(directory, "behz_kernels.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location("behz_kernels_baseline",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def build_baseline(directory: str) -> tuple:
@@ -145,6 +191,11 @@ def build_baseline(directory: str) -> tuple:
     lib = ctypes.CDLL(so)
     _build.bind_behz(lib)
     return lib, run.stdout + run.stderr, sass
+
+
+def words(out):
+    """A kernel's outputs as a tuple."""
+    return out if isinstance(out, tuple) else (out,)
 
 
 def emit(obj, out):
@@ -169,9 +220,11 @@ def run(args) -> int:
     lib = _build.load()
     builds = {"this": (lib, kc.kernel_table(_build.build_log,
                                             _build.sass()))}
+    packers = {"this": bk}
     if args.baseline:
         base, log, sass = build_baseline(args.baseline)
         builds["baseline"] = (base, kc.kernel_table(log, sass))
+        packers["baseline"] = baseline_packer(args.baseline) or bk
     for which, (_, table) in builds.items():
         for key, row in table.items():
             emit({"build": which, "kernel": key, **row}, out)
@@ -182,7 +235,9 @@ def run(args) -> int:
         params = kc.shape_params(n, L, t_bits)
         bz = BehzContext(params, NttContext(n, params.data_primes, dev))
         ops = operands(bz, batch, dev)
-        per = {which: calls(b[0], bz, ops, stream)
+        per = {which: calls(b[0], bz, {
+            k: as_residues(v, dev) for k, v in bz.kernel_words(
+                packers[which]).items()}, ops, stream)
                for which, b in builds.items()}
         for name in KERNELS:
             info = bk.launch_info(name, *kc.launch_of(name, L, len(bz.bsk),
@@ -192,8 +247,10 @@ def run(args) -> int:
             if not ok["this"]:
                 raise RuntimeError(f"{name} at {n, L, batch} failed to "
                                    "launch")
-            if ok.get("baseline") and not torch.equal(
-                    per["baseline"][name][1], per["this"][name][1]):
+            if ok.get("baseline") and not all(
+                    torch.equal(a, b) for a, b in zip(
+                        words(per["baseline"][name][1]),
+                        words(per["this"][name][1]))):
                 raise AssertionError(f"{name} at {n, L, batch}: the two "
                                      "builds' words differ")
             times, names = {w: [] for w in per if ok[w]}, {}

@@ -34,7 +34,7 @@ from abc_tpu_torch.utils.timing import (chain_timers, summary, timer_of,
                                         valid_pairs)
 
 N = 8192
-CHAIN = 16          # k=2 is 189 graph nodes per step (463 before the BEHZ
+CHAIN = 16          # k=2 is 188 graph nodes per step (463 before the BEHZ
                     # kernels): under 10 000 a graph
 K_EST = 5
 # forward and inverse NTT launches of one mult+relin: the same at both k

@@ -28,7 +28,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    beside the bound: the larger of bytes moved over 3.35 TB/s and integer
    multiply-adds over 132 SMs x 64 per clock x 1.98 GHz.
 2b. The BEHZ kernels (K3, abc_tpu_torch/csrc/behz.cu): behz_to_bsk,
-   behz_tensor (over base q and over base Bsk), behz_fast_floor and
+   behz_tensor (base q and base Bsk in one launch), behz_fast_floor and
    behz_from_bsk torch.equal to their plain torch versions on the card at
    n=8192, L=6 (one ciphertext and a batch of 64), n=2048, L=16 (config 4's
    chain), n=16384, L=13, n=32768, L=27 (the largest L of
@@ -44,7 +44,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    ciphertexts and result on the card equal to the port's CPU context of
    the same seed and to the golden digests; one multiply of fresh operands
    launches exactly 5 forward and 3 inverse transforms (154 limb rows at
-   k=1) and 2 behz_to_bsk, 2 behz_tensor, 1 behz_fast_floor and 1
+   k=1) and 2 behz_to_bsk, 1 behz_tensor, 1 behz_fast_floor and 1
    behz_from_bsk; ms per op; the op captured as a CUDA graph, its replay
    profiled (kernels per replay, each hand-written kernel in it as often as
    the eager op launched it) and timed; device time per named elementwise
@@ -266,7 +266,7 @@ PHASE3_BATCH = 64       # the bench curve's largest batch
 # hand-written kernel launches of one BFV mult+relin (k = 1 or 2) and of the
 # CKKS config-5 op
 MULT_RELIN_CENSUS = {"ntt_fwd": 5, "ntt_inv": 3, "behz_to_bsk": 2,
-                     "behz_tensor": 2, "behz_fast_floor": 1,
+                     "behz_tensor": 1, "behz_fast_floor": 1,
                      "behz_from_bsk": 1}
 CKKS_OP_CENSUS = {"ntt_fwd": 3, "ntt_inv": 2, "behz_to_bsk": 0,
                   "behz_tensor": 1, "behz_fast_floor": 0, "behz_from_bsk": 0}
@@ -660,9 +660,9 @@ def behz_imads(kernel, K, D):
         # with (q mod b_d)·r_b as one more term, times m~^-1
         return K * (sh + 1) + 1 + D * (conv(K + 1) + sh)
     if kernel == "behz_fast_floor":
-        # per source t·qhat_i^-1·e_i; per destination the sum, t·e_bsk, and
-        # the difference times q^-1
-        return K * sh + D * (conv(K) + 2 * sh)
+        # per source t·qhat_i^-1·e_i; per destination the sum with (t mod
+        # b_d)·e_bsk as one more term, times q^-1
+        return K * sh + D * (conv(K + 1) + sh)
     if kernel == "behz_from_bsk":
         # per source y_i and its term mod m_sk, that sum reduced; alpha; per
         # destination the sum with (B mod q_j)·(q_j - a) as one more term
@@ -671,8 +671,16 @@ def behz_imads(kernel, K, D):
     return 4 * w + 3 * red
 
 
+def words(out):
+    """A kernel's output as one tensor: a tuple (behz_tensor's bases)
+    flattened and joined."""
+    if isinstance(out, tuple):
+        return torch.cat([t.reshape(-1) for t in out])
+    return out
+
+
 def behz_calls(bz, batch, edge, dev):
-    """{kernel label: (kernel call, plain call, bytes, integer
+    """{kernel name: (kernel call, plain call, bytes, integer
     multiply-adds)} for the BEHZ kernels at one shape: the operands of one
     mult+relin of `batch` ciphertexts (one ciphertext: no batch axis), with
     0 and q-1 among random residues, or all 0 / all q-1 (`edge`). The bound
@@ -700,8 +708,10 @@ def behz_calls(bz, batch, edge, dev):
 
     x = operand(qs, 2, 1)
     e_q, e_b = operand(qs, 3, 2), operand(bsk, 3, 3)
-    f = {"q": (operand(qs, 2, 4), operand(qs, 2, 5), bz.ntt_q),
-         "bsk": (operand(bsk, 2, 6), operand(bsk, 2, 7), bz.ntt_bsk)}
+    bases = ((operand(qs, 2, 4), operand(qs, 2, 5), bz.ntt_q.q_col,
+              bz.ntt_q.ratio),
+             (operand(bsk, 2, 6), operand(bsk, 2, 7), bz.ntt_bsk.q_col,
+              bz.ntt_bsk.ratio))
     T = bz.kernel_tab
     calls = {
         "behz_to_bsk": (lambda: bk.behz_to_bsk(x, T["to_bsk"], K),
@@ -709,14 +719,13 @@ def behz_calls(bz, batch, edge, dev):
                         4 * batch * 2 * n * (L + K)
                         + table_bytes(T["to_bsk"]),
                         batch * 2 * n * behz_imads("behz_to_bsk", L, K))}
-    for base, (f1, f2, ntt) in f.items():
-        D = ntt.q_col.shape[0]
-        calls[f"behz_tensor {base}"] = (
-            lambda f1=f1, f2=f2, ntt=ntt: bk.behz_tensor(
-                f1, f2, ntt.q_col, ntt.ratio),
-            lambda f1=f1, f2=f2, ntt=ntt: bk.tensor_plain(f1, f2, ntt.q_col),
-            4 * batch * n * 7 * D + table_bytes(ntt.q_col, ntt.ratio),
-            batch * D * n * behz_imads("behz_tensor", 2, D))
+    # both bases in one launch, as BehzContext.multiply takes them
+    calls["behz_tensor"] = (
+        lambda: bk.behz_tensor(*bases),
+        lambda: tuple(bk.tensor_plain(f1, f2, q) for f1, f2, q, _ in bases),
+        4 * batch * n * 7 * (L + K)
+        + table_bytes(*(t for b in bases for t in b[2:])),
+        batch * (L + K) * n * behz_imads("behz_tensor", 2, 1))
     calls["behz_fast_floor"] = (
         lambda: bk.behz_fast_floor(e_q, e_b, T["fast_floor"]),
         lambda: bz._fast_floor_plain(e_q, e_b),
@@ -730,15 +739,15 @@ def behz_calls(bz, batch, edge, dev):
     return calls
 
 
-def behz_launch(table, label, L, K, batch, n):
-    """The launch of a behz_calls label (abc_behz_launch_info) and what the
-    compiler made of its kernel (ops/kernel_census.kernel_table), on one
-    line, and as a record."""
+def behz_launch(table, name, L, K, batch, n):
+    """The launch of a BEHZ kernel (abc_behz_launch_info) and what the
+    compiler made of it (ops/kernel_census.kernel_table), on one line, and
+    as a record."""
     from abc_tpu_torch.ops import behz_kernels as bk
     from abc_tpu_torch.ops import kernel_census as kc
-    name, base = (label.split() + ["bsk"])[:2]
-    info = bk.launch_info(name, *kc.launch_of(name, L, K, batch, base), n)
+    info = bk.launch_info(name, *kc.launch_of(name, L, K, batch), n)
     row = table.get(kc.launch_key(name, info), {})
+    check(row, f"no ptxas / SASS record of {kc.launch_key(name, info)}")
     rec = {"kernel": kc.launch_key(name, info), **info, **row}
     return (f"[{rec['kernel']}: {info['threads']} threads x "
             f"{info['blocks']} blocks, {info['blocks_per_sm']} blocks "
@@ -749,8 +758,8 @@ def behz_launch(table, label, L, K, batch, n):
 def phase_behz(dev):
     """Phase 2b: every BEHZ kernel against its plain version at
     BEHZ_SHAPES and on edge inputs; times, launches and compiler census at
-    BEHZ_SHAPES. Returns the kernels line's stats (the main path's shape;
-    behz_tensor over Bsk)."""
+    BEHZ_SHAPES. Returns the kernels line's stats (the main path's
+    shape)."""
     from abc_tpu_torch.crypto.behz import BehzContext
     from abc_tpu_torch.crypto.ntt import NttContext
     from abc_tpu_torch.ops import _build
@@ -770,23 +779,21 @@ def phase_behz(dev):
             (f" t={t_bits} bits" if t_bits else "") + \
             (f" all {'0' if edge == 'zero' else 'q-1'}" if edge else "")
         line = []
-        for label, (kern, plain, n_bytes, imads) in behz_calls(
+        for name, (kern, plain, n_bytes, imads) in behz_calls(
                 bz, batch, edge, dev).items():
-            name = label.split()[0]
-            got, want = kern(), plain()
+            got, want = words(kern()), words(plain())
             torch.cuda.synchronize()
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-            check(torch.equal(got, want), f"{label} != plain at {at}")
+            check(torch.equal(got, want), f"{name} != plain at {at}")
             if edge is not None:
                 continue
             st = {}
-            launch, rec = behz_launch(table, label, L, len(bz.bsk), batch, n)
-            line.append(f"{label} " + _timed(
+            launch, rec = behz_launch(table, name, L, len(bz.bsk), batch, n)
+            line.append(f"{name} " + _timed(
                 st, kern, plain, [n, L, batch], bound(n_bytes, imads))
                 + " " + launch)
-            if (n, L, batch, t_bits) == BEHZ_SHAPES[0] and \
-                    label in BEHZ + ("behz_tensor bsk",):
+            if (n, L, batch, t_bits) == BEHZ_SHAPES[0]:
                 stats[name].update(st, launch=rec)
         print(f"  {at}: every BEHZ kernel = plain"
               + ("" if not line else "; " + "; ".join(line)), flush=True)

@@ -79,8 +79,10 @@ def _ref_tensor(ref, f1, f2, base):
 
 
 def _port_tensor(bz, f1, f2, base):
-    return to_host(bz._tensor(as_residues(f1, "cpu"), as_residues(f2, "cpu"),
-                              base))
+    ntt = bz.ntt_q if base == "q" else bz.ntt_bsk
+    got, = bk.behz_tensor((as_residues(f1, "cpu"), as_residues(f2, "cpu"),
+                           ntt.q_col, ntt.ratio))
+    return to_host(got)
 
 
 # ------------------------------------------------- plain vs the reference
@@ -197,8 +199,8 @@ def test_a_tensor_off_the_cpu_is_never_taken_by_the_plain_path():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         port._to_bsk(x)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        bk.behz_tensor(x, x, port.ntt_q.q_col.to("meta"),
-                       port.ntt_q.ratio.to("meta"))
+        bk.behz_tensor((x, x, port.ntt_q.q_col.to("meta"),
+                        port.ntt_q.ratio.to("meta")))
 
 
 def test_a_cpu_context_packs_no_kernel_tables():
@@ -313,16 +315,17 @@ def model_to_bsk(tab, x, K, D):
 
 
 def model_fast_floor(tab, e_q, e_b, K, D):
+    """T holds -qhat_i mod b_d: the sum with (t mod b_d)·e_bsk as one more
+    term is t·e_bsk - conv, times q^-1."""
     t = _Tables(tab, K, D)
     y = np.stack([_mul_const(_u(e_q[i]), *t.src[i, [1, 2, 0]])
                   for i in range(K)])
     out = []
     for d in range(D):
         b, ratio = t.dst[d, 0], _Tables.ratio(t.dst[d])
-        conv = _convert(y, t.T, d, b, ratio)
-        tb = _mul_const(_u(e_b[d]), t.dst[d, 3], t.dst[d, 4], b)
-        out.append(_mul_const(_sub_mod(tb, conv, b), t.dst[d, 5],
-                              t.dst[d, 6], b))
+        v = _reduce64(_convert(y, t.T, d, b, ratio) + t.dst[d, 3] *
+                      _u(e_b[d]), b, ratio)
+        out.append(_mul_const(v, t.dst[d, 4], t.dst[d, 5], b))
     return np.stack(out)
 
 
@@ -505,23 +508,16 @@ def host_lib(tmp_path_factory):
                     f"-I{root}", f"-I{_build._CSRC}", src, "-o",
                     str(lib_path)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for f in (lib.abc_behz_to_bsk, lib.abc_behz_from_bsk):
-        f.argtypes, f.restype = [vp, vp, vp, i64, i32, i32, i32, vp], i32
-    lib.abc_behz_fast_floor.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
-                                        vp]
-    lib.abc_behz_tensor.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
-                                    vp]
-    lib.abc_behz_fast_floor.restype = lib.abc_behz_tensor.restype = i32
-    lib.abc_behz_launch_info.argtypes = [i32, i32, i32, i64, i32, vp]
-    lib.abc_behz_launch_info.restype = i32
+    _build.bind_behz(lib)
+    lib.abc_behz_launch_info.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.abc_behz_launch_info.restype = ctypes.c_int
     return lib
 
 
 # the first six cases kept their order since the kernels' first design;
-# every L in both forms, past 64 sources (two chunks of the tile kernels,
-# fast_floor's chunked path; 65 and 80 need more than one pass of
-# destinations)
+# every L in both forms, past 64 sources (more than one chunk of the tile
+# kernels; 65 and 80 need more than one pass of destinations)
 HOST_CASES = [(1, ()), (6, (3,)), (16, ()), (17, (2,)), (27, ()), (63, ()),
               (1, (2,)), (6, ()), (16, (3,)), (17, ()), (27, (2,)),
               (63, (2,)), (65, (2,)), (65, ()), (80, (3,)), (80, ())]
@@ -557,25 +553,38 @@ def _hold_host_kernels(host_lib, n, L, lead):
         tab["from_bsk"].data_ptr(), x_b.numel() // (D * n), L + 1, L, logn,
         None)
     assert torch.equal(out, port._from_bsk_plain(x_b))
-    for mods, ntt in ((qs, port.ntt_q), (bsk, port.ntt_bsk)):
-        f1 = as_residues(_rand(mods, lead + (2,), n, L + 4), "cpu")
-        f2 = as_residues(_rand(mods, (2,), n, L + 5), "cpu")    # broadcast
-        rows1 = f1.numel() // (2 * len(mods) * n)
-        out = torch.empty(lead + (3, len(mods), n), dtype=torch.int32)
-        run(host_lib.abc_behz_tensor, f1.data_ptr(), f2.data_ptr(),
-            out.data_ptr(), ntt.q_col.data_ptr(), ntt.ratio.data_ptr(), rows1,
-            1, len(mods), logn, None)
-        assert torch.equal(out, bk.tensor_plain(f1, f2, ntt.q_col))
+    bases = [(as_residues(_rand(mods, lead + (2,), n, L + 4), "cpu"),
+              as_residues(_rand(mods, (2,), n, L + 5), "cpu"),   # broadcast
+              ntt) for mods, ntt in ((qs, port.ntt_q), (bsk, port.ntt_bsk))]
+    for got, (f1, f2, ntt) in zip(_host_tensor(host_lib, bases, n), bases):
+        assert torch.equal(got, bk.tensor_plain(f1, f2, ntt.q_col))
+
+
+def _host_tensor(host_lib, bases, n):
+    """The products of abc_behz_tensor_bases of the host build over
+    `bases`, (f1, f2, NttContext) each, one or two, in one launch."""
+    outs, args = [], []
+    for f1, f2, ntt in bases:
+        D = ntt.q_col.shape[0]
+        rows1, rows2 = (f.numel() // (2 * D * n) for f in (f1, f2))
+        lead = torch.broadcast_shapes(f1.shape[:-3], f2.shape[:-3])
+        outs.append(torch.empty(lead + (3, D, n), dtype=torch.int32))
+        args += [f1.data_ptr(), f2.data_ptr(), outs[-1].data_ptr(),
+                 ntt.q_col.data_ptr(), ntt.ratio.data_ptr(), rows1, rows2, D]
+    if len(bases) == 1:
+        args += [None] * 5 + [0, 0, 0]
+    assert host_lib.abc_behz_tensor_bases(*args, n.bit_length() - 1,
+                                          None) == 0
+    return outs
 
 
 @pytest.mark.parametrize("L,lead", HOST_CASES)
 def test_kernel_source_on_the_host_matches_plain(host_lib, L, lead):
     """The four kernels of csrc/behz.cu, run thread by thread on the host
     (n=64, so that one tile of 128 coefficients spans two rows), equal
-    their plain versions: every register width of fast_floor (KMAX 8 to 64,
-    and its chunked path past 64), both source chunks of the tile kernels
-    (16 and 64), one to four destinations a thread, more than one pass over
-    the destinations, and a broadcast operand of the tensor product."""
+    their plain versions: both source chunks of the tile kernels (16 and
+    32), one to four destinations a thread, more than one pass over the
+    destinations, and a broadcast operand of the tensor product."""
     _hold_host_kernels(host_lib, 64, L, lead)
 
 
@@ -614,6 +623,74 @@ def test_kernel_source_on_the_host_warp_path(host_lib, L):
         assert torch.equal(back[part], port._from_bsk_plain(x_b[part]))
 
 
+def _hold_host_fast_floor(host_lib, n, L, lead, edge, part=None):
+    """behz_fast_floor of the host build against its plain version at ring
+    degree n, L data primes, leading axes `lead`, random or edge inputs
+    (e_q and e_bsk both all 0 or all q-1); the plain version a slice of
+    `part` leading rows at a time."""
+    port = _port(_params(n, L))
+    qs, bsk, D = port.params.data_primes, port.bsk, L + 2
+    tab = as_residues(port.kernel_words()["fast_floor"], "cpu")
+    e_q = as_residues(_rand(qs, lead + (3,), n, L + 1, edge), "cpu")
+    e_b = as_residues(_rand(bsk, lead + (3,), n, L + 2, edge), "cpu")
+    out = torch.empty_like(e_b)
+    assert host_lib.abc_behz_fast_floor(
+        e_q.data_ptr(), e_b.data_ptr(), out.data_ptr(), tab.data_ptr(),
+        e_q.numel() // (L * n), L, D, n.bit_length() - 1, None) == 0
+    parts = torch.arange(lead[0]).split(part) if part else [...]
+    for at in parts:
+        assert torch.equal(out[at], port._fast_floor_plain(e_q[at], e_b[at]))
+
+
+@pytest.mark.parametrize("n,L,lead,edge", [
+    (4, 6, (3,), None), (8, 17, (), "max"), (16, 1, (), "zero"),
+    (64, 1, (2,), "max"), (64, 6, (), None), (64, 15, (2,), "zero"),
+    (128, 16, (), "max"), (128, 17, (2,), None), (256, 27, (), "zero"),
+    (256, 27, (2,), "max"), (512, 65, (), None), (64, 65, (2,), "max"),
+    (128, 80, (), "zero"), (64, 80, (3,), None)])
+def test_fast_floor_source_on_the_host_block_path(host_lib, n, L, lead, edge):
+    """behz_fast_floor as a block a tile (fewer than 2048 tiles), run thread
+    by thread on the host: n from 4 (a tile of 32 short rows) to 512, one
+    source chunk (L <= 16) or more (17, 27, 65, 80), one to four
+    destinations a thread and more than one pass (65, 80), one ciphertext
+    and batches, random inputs and inputs all 0 or all q-1."""
+    _hold_host_fast_floor(host_lib, n, L, lead, edge)
+
+
+@pytest.mark.parametrize("L,edge", [(1, None), (6, "max"), (6, "zero"),
+                                    (15, None), (16, "max")])
+def test_fast_floor_source_on_the_host_warp_path(host_lib, L, edge):
+    """behz_fast_floor with a warp a tile (16 sources or fewer, 2048 tiles
+    or more: 2048 ciphertexts of n=64, 3 rows each)."""
+    _hold_host_fast_floor(host_lib, 64, L, (2048,), edge, part=128)
+
+
+@pytest.mark.parametrize("n", [4, 64])
+@pytest.mark.parametrize("case", ["one base", "two bases", "first one row",
+                                  "second one row", "square"])
+def test_tensor_source_on_the_host(host_lib, case, n):
+    """behz_tensor of the host build over one base or both bases of a
+    multiply in one launch, a one-row operand broadcast over the other's
+    rows, and the square (the same forms twice), against tensor_plain."""
+    port = _port(_params(n, 6))
+    qs, bsk = port.params.data_primes, port.bsk
+
+    def form(mods, lead, seed):
+        return as_residues(_rand(mods, lead + (2,), n, seed), "cpu")
+
+    lead1 = () if case == "first one row" else (3,)
+    lead2 = () if case == "second one row" else (3,)
+    bases = []
+    for mods, ntt, seed in ((qs, port.ntt_q, 1), (bsk, port.ntt_bsk, 3)):
+        f1 = form(mods, lead1, seed)
+        f2 = f1 if case == "square" else form(mods, lead2, seed + 1)
+        bases.append((f1, f2, ntt))
+    bases = bases[:1] if case == "one base" else bases
+    for got, (f1, f2, ntt) in zip(_host_tensor(host_lib, bases, n), bases):
+        assert got.shape == (3, 3, ntt.q_col.shape[0], n)
+        assert torch.equal(got, bk.tensor_plain(f1, f2, ntt.q_col))
+
+
 @pytest.mark.parametrize("L,want", [(6, (1, 16, 288)), (27, (2, 32, 512)),
                                     (80, (4, 32, 512))])
 def test_tile_launch_shape(host_lib, L, want):
@@ -628,8 +705,22 @@ def test_tile_launch_shape(host_lib, L, want):
     assert host_lib.abc_behz_launch_info(0, L, L + 2, 128, 13, info) == 0
     assert tuple(info[:4]) == ((0, 8, 128, 2048) if L == 6 else
                                want + (8192,))
+    # fast_floor: the same tiles without a scalar warp, at any K
+    assert host_lib.abc_behz_launch_info(1, 6, 8, 3, 13, info) == 0
+    assert tuple(info[:4]) == (1, 16, 256, 3 * 8192 // 128)
     assert host_lib.abc_behz_launch_info(1, 65, 67, 3, 13, info) == 0
-    assert tuple(info[:3]) == (64, 1, 256)      # fast_floor's chunked path
+    assert tuple(info[:3]) == (4, 32, 480)
+    assert host_lib.abc_behz_launch_info(1, 6, 8, 192, 13, info) == 0
+    assert tuple(info[:4]) == (0, 8, 128, 192 * 8192 // 128 // 4)
+    # its warp path from 3072 tiles (B=16 at n=8192), to_bsk's from 2048
+    for kernel, rows, warp in ((1, 36, False), (1, 48, True), (0, 32, True),
+                               (0, 30, False)):
+        assert host_lib.abc_behz_launch_info(kernel, 6, 8, rows, 13,
+                                             info) == 0
+        assert (info[0] == 0) == warp, (kernel, rows)
+    # tensor: base q and base Bsk in one launch, a quad a thread
+    assert host_lib.abc_behz_launch_info(3, 6, 8, 1, 13, info) == 0
+    assert tuple(info[:4]) == (0, 0, 128, (6 + 8) * 8192 // 4 // 128)
     assert host_lib.abc_behz_launch_info(0, 0, 2, 1, 13, info) != 0
 
 
@@ -670,11 +761,11 @@ def test_kernel_census_reads_ptxas_and_sass():
                       "(const unsigned int *, int)"):
         assert kc.kernel_key(demangled) == "behz_to_bsk_kernel<1,16>"
     assert kc.kernel_key("_ZN12_GLOBAL__N_122behz_fast_floor_kernelIL"
-                         "i64ELb1EEEvPKjS2_PjS2_xiii") == \
-        "behz_fast_floor_kernel<64,true>"
+                         "i4ELi32EEEvPKjS2_PjS2_xiii") == \
+        "behz_fast_floor_kernel<4,32>"
     assert kc.kernel_key("void (anonymous namespace)::behz_fast_floor_"
-                         "kernel<64, true>(unsigned int const*)") == \
-        "behz_fast_floor_kernel<64,true>"
+                         "warp_kernel<16>(unsigned int const*)") == \
+        "behz_fast_floor_warp_kernel<16>"
 
 
 def test_every_launch_names_a_kernel_of_the_source(host_lib):
@@ -717,16 +808,19 @@ def _card_cases(n, L, lead, dev):
     (x, xc), (eq, eqc), (eb, ebc) = (both(qs, lead + (2,), 1),
                                      both(qs, lead + (3,), 2),
                                      both(bsk, lead + (3,), 3))
+    # the precompute_operand forms of two operands, over q and over Bsk
     (fq1, fq1c), (fq2, fq2c) = both(qs, lead + (2,), 4), both(qs, lead + (2,),
                                                                5)
+    (fb1, fb1c), (fb2, fb2c) = both(bsk, lead + (2,), 6), \
+        both(bsk, lead + (2,), 7)
     return [
         ("behz_to_bsk", lambda: port._to_bsk(x), lambda: cpu._to_bsk(xc)),
         ("behz_fast_floor", lambda: port._fast_floor(eq, eb),
          lambda: cpu._fast_floor(eqc, ebc)),
         ("behz_from_bsk", lambda: port._from_bsk(eb),
          lambda: cpu._from_bsk(ebc)),
-        ("behz_tensor", lambda: port._tensor(fq1, fq2, "q"),
-         lambda: cpu._tensor(fq1c, fq2c, "q")),
+        ("behz_tensor", lambda: port._tensor((fq1, fb1), (fq2, fb2)),
+         lambda: cpu._tensor((fq1c, fb1c), (fq2c, fb2c))),
     ]
 
 
@@ -740,10 +834,39 @@ def test_kernels_equal_plain_on_cuda(cuda, n, L, lead):
     from_bsk's 16, both on the warp path (csrc/behz.cu: tile_shape)."""
     for name, kern, plain in _card_cases(n, L, lead, cuda):
         before = bk.launches[name]
-        got = kern()
+        got, want = kern(), plain()
         torch.cuda.synchronize()
         assert bk.launches[name] == before + 1
-        assert torch.equal(got.cpu(), plain()), name
+        if name != "behz_tensor":       # both bases, one launch
+            got, want = (got,), (want,)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one base", "first one row",
+                                  "second one row", "square"])
+def test_tensor_bases_equal_plain_on_cuda(cuda, case):
+    """behz_tensor on the card over one base (as the CKKS multiply calls
+    it) and over both bases with a one-row operand broadcast over a batch
+    of 4, or the same forms twice, against tensor_plain."""
+    port = _port(_params(8192, 6), cuda)
+    lead1 = () if case == "first one row" else (4,)
+    lead2 = () if case == "second one row" else (4,)
+    bases = []
+    for mods, ntt, seed in ((port.params.data_primes, port.ntt_q, 1),
+                            (port.bsk, port.ntt_bsk, 3)):
+        f1 = as_residues(_rand(mods, lead1 + (2,), 8192, seed), cuda)
+        f2 = f1 if case == "square" else \
+            as_residues(_rand(mods, lead2 + (2,), 8192, seed + 1), cuda)
+        bases.append((f1, f2, ntt.q_col, ntt.ratio))
+    bases = bases[:1] if case == "one base" else bases
+    before = bk.launches["behz_tensor"]
+    got = bk.behz_tensor(*bases)
+    torch.cuda.synchronize()
+    assert bk.launches["behz_tensor"] == before + 1
+    for g, (f1, f2, q, _) in zip(got, bases):
+        assert torch.equal(g.cpu(), bk.tensor_plain(f1.cpu(), f2.cpu(),
+                                                    q.cpu()))
 
 
 @pytest.mark.gpu
@@ -758,7 +881,8 @@ def test_views_are_copied_once_and_otherwise_refused_on_cuda(cuda):
     f = as_residues(_rand(qs, (2,), 2048, 4), cuda)[..., ::2]
     for call in (lambda: port._to_bsk(x), lambda: port._from_bsk(eb),
                  lambda: port._fast_floor(eq.contiguous(), eb),
-                 lambda: port._tensor(f, f.contiguous(), "q")):
+                 lambda: bk.behz_tensor((f, f.contiguous(), port.ntt_q.q_col,
+                                         port.ntt_q.ratio))):
         with pytest.raises(ValueError, match="contiguous"):
             call()
     got, want = port.precompute_operand(x), \
@@ -768,8 +892,8 @@ def test_views_are_copied_once_and_otherwise_refused_on_cuda(cuda):
 
 @pytest.mark.gpu
 def test_mult_relin_launch_census_on_cuda(cuda):
-    """One n=8192 mult+relin of fresh operands: 2 / 2 / 1 / 1 BEHZ kernel
-    launches (to_bsk, tensor, fast_floor, from_bsk)."""
+    """One n=8192 mult+relin of fresh operands: 2 / 1 / 1 / 1 BEHZ kernel
+    launches (to_bsk, tensor over both bases, fast_floor, from_bsk)."""
     from abc_tpu_torch.crypto.bfv import BfvContext
     ctx = BfvContext(BfvParams.create(8192, seed=11), cuda)
     a, b = ctx.encrypt_many([ctx.encode([3]), ctx.encode([5])])
@@ -778,6 +902,6 @@ def test_mult_relin_launch_census_on_cuda(cuda):
     got = ctx.multiply(a, b)
     torch.cuda.synchronize()
     assert {k: bk.launches[k] - before[k] for k in before} == {
-        "behz_to_bsk": 2, "behz_tensor": 2, "behz_fast_floor": 1,
+        "behz_to_bsk": 2, "behz_tensor": 1, "behz_fast_floor": 1,
         "behz_from_bsk": 1}
     assert ctx.decode(ctx.decrypt(got))[:1] == [15]
