@@ -46,9 +46,9 @@ N = 8192            # the mult+relin curve: BfvParams.create(8192, seed=123)
 N_NTT = 16384       # the NTT curve: the 13 + 1 primes of create(16384, seed=5)
 BATCHES = (1, 8, 16, 64)
 CHAIN = 24          # dependent mult+relin steps per graph at B=1: one step
-                    # is 110 graph nodes at k=1 (385 before the BEHZ
-                    # kernels, for which this length was chosen to keep a
-                    # graph under 10 000)
+                    # is 33 graph nodes at k=1 (110 before the key-switch
+                    # kernels, 385 before the BEHZ kernels, for which this
+                    # length was chosen to keep a graph under 10 000)
 CHAIN_MIN = 8       # and at least this many at larger B (CHAIN // B below it)
 K_EST = 5           # independent two-point estimates; median, least, largest
 NTT_CHAINS = {1: 2048, 8: 256, 16: 128, 64: 32}
@@ -306,6 +306,12 @@ def compact_line(full: Dict) -> str:
         "mult_relin_ops_s_by_batch": {b: _rnd(v["ops_per_s"], 1)
                                       for b, v in
                                       mult["batch_curve"].items()},
+        # what cancelled in the two-point pairs (the graph launch and the
+        # timer): a fixed part far above the steps' difference would make
+        # that difference unsteady
+        "mult_relin_fixed_ms_by_batch": {b: _rnd(v["fixed_ms"])
+                                         for b, v in
+                                         mult["batch_curve"].items()},
         "mult_relin_floor_us": _rnd(mult["speed_of_light"]["floor_us"]),
         "mult_relin_pct_of_floor": _rnd(
             mult["speed_of_light"]["pct_of_floor"]),

@@ -49,9 +49,10 @@ import torch
 from abc_tpu_torch.ops import ntt_kernels
 from abc_tpu_torch.utils.timing import estimates, repeated, timer_of
 
-# chain lengths: one n=8192 mult+relin step is 110 graph nodes at k=1 and
-# the CKKS op 181 (385 and 213 before the BEHZ kernels, for which these
-# lengths were chosen to keep a graph under 10 000 nodes)
+# chain lengths: one n=8192 mult+relin step is 33 graph nodes at k=1 and
+# the CKKS op 26 (110 and 181 before the key-switch kernels, 385 and 213
+# before the BEHZ kernels, for which these lengths were chosen to keep a
+# graph under 10 000 nodes)
 _CHAIN = {2: 24, 3: 12, 5: 32}
 # what `fast` (the bench's own run of the suite) and `quick` (the smoke run)
 # pass instead of the defaults

@@ -50,6 +50,7 @@ from abc_tpu_torch.crypto.ntt import NttContext, _bit_reverse_vec
 from abc_tpu_torch.crypto.numthy import modinv
 from abc_tpu_torch.crypto.params import BfvParams
 from abc_tpu_torch.crypto.rlwe import RlweKeys
+from abc_tpu_torch.ops import keyswitch_kernels as kk
 from abc_tpu_torch.ops.modarith import as_residues, in_chain, t64, to_host
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
@@ -107,6 +108,12 @@ class BfvContext(RlweKeys):
         host = self._scalar_tables()
         self._tab = {name: as_residues(v, dev) for name, v in host.items()}
         self.q_q = self._tab["q_full"][:L]                 # [L, 1]
+        # the key switch's tables (ops/keyswitch_kernels.py): the k >= 2
+        # digit lift's fast base conversion, and the mod switch down, the
+        # division by the k special primes (last first)
+        self._digits = None if k == 1 else kk.Digits(
+            params.data_primes, params.digit_groups, moduli, k, dev)
+        self._division = kk.Division(moduli, k, dev)
         self._slot_to_pos = torch.from_numpy(_build_slot_map(n)).to(dev)
         self._op_cache: OrderedDict = OrderedDict()
         self._dec_cache: OrderedDict = OrderedDict()
@@ -118,9 +125,8 @@ class BfvContext(RlweKeys):
         """Host bigints → uint32 tables, the reference's words."""
         params = self.params
         moduli, qs = params.coeff_modulus, params.data_primes
-        L, P, q_big, t = params.L, params.special_prime, params.q, \
-            params.plain_modulus
-        k, alpha = params.ks_digits, params.num_ks_digits
+        P, q_big, t = params.special_prime, params.q, params.plain_modulus
+        alpha = params.num_ks_digits
         host: Dict[str, np.ndarray] = {}
 
         def col(values):
@@ -131,50 +137,15 @@ class BfvContext(RlweKeys):
         host["delta_mod_q"] = col([(q_big // t) % q for q in qs])
         # P·W_j mod every modulus for the ksk construction (module note)
         factors = np.zeros((alpha, self.full, 1), dtype=np.uint32)
-        digit_products = []
         for j, grp in enumerate(params.digit_groups):
             Qj = 1
             for i in grp:
                 Qj *= qs[i]
-            digit_products.append(Qj)
             qhat = q_big // Qj
             w = qhat * modinv(qhat % Qj, Qj)          # ≡ δ_{jm} (mod Q_m)
             for r, qr in enumerate(moduli):
                 factors[j, r, 0] = (P * w) % qr
         host["ks_factors"] = factors
-        # mod-switch-down: divide by one special prime at a time (specials
-        # in reverse order); per-step tables over the remaining base
-        self._msd_half = []
-        for s in range(k):
-            ps = params.special_primes[s]
-            rest = moduli[:L + s]
-            host[f"msd_p_mod_{s}"] = col([ps % r for r in rest])
-            host[f"msd_p_inv_{s}"] = col([modinv(ps, r) for r in rest])
-            self._msd_half.append(ps >> 1)
-        if k > 1:
-            # digit fast-base-conversion tables: per digit j and local limb
-            # i, y_{j,i} = [d·(Q_j/q_{j,i})^{-1}]_{q_{j,i}}, then
-            # D_{j,r} = Σ_i y_{j,i}·(Q_j/q_{j,i}) mod r. Short digit groups
-            # are padded with inv_qhat=0 rows (contribute exactly 0).
-            gather = np.zeros((alpha, k), dtype=np.int64)
-            inv_qhat = np.zeros((alpha, k, 1), dtype=np.uint32)
-            q_src = np.ones((alpha, k, 1), dtype=np.uint32) * np.uint32(qs[0])
-            qhat_full = np.zeros((alpha, k, self.full, 1), dtype=np.uint32)
-            for j, grp in enumerate(params.digit_groups):
-                Qj = digit_products[j]
-                for i, gi in enumerate(grp):
-                    qi = qs[gi]
-                    qh = Qj // qi
-                    gather[j, i] = gi
-                    q_src[j, i, 0] = qi
-                    inv_qhat[j, i, 0] = modinv(qh % qi, qi)
-                    for r, qr in enumerate(moduli):
-                        qhat_full[j, i, r, 0] = qh % qr
-            self._dec_gather = torch.from_numpy(
-                gather.reshape(-1)).to(self.device)
-            host["dec_inv_qhat"] = inv_qhat
-            host["dec_q_src"] = q_src
-            host["dec_qhat_full"] = qhat_full
         # decrypt tables (exact fixed-point scale-and-round):
         # m = round(Σ_l y_l·θ_l) mod t with y_l = [v_l·(q/q_l)^{-1}]_{q_l}
         # and θ_l = t·q̂_l/q = t/q_l < 1 (t is below every prime, so the
@@ -481,59 +452,48 @@ class BfvContext(RlweKeys):
         finally:
             self.set_limb_sharding(None)
 
+    # The key switch's three chains are the kernels of csrc/keyswitch.cu on
+    # the card and their plain versions on the CPU (ops/keyswitch_kernels.py
+    # routes by the tensor's device).
     def _lift_ntt(self, d):
         """k = 1 digits d ([..., Lk, n] coefficient domain) lifted to the
         full base q∪P by a conditional subtract (uniform 30-bit primes) and
         transformed: [..., Lk, L+k, n]."""
-        full = self.full
-        q_full = self._tab["q_full"].reshape(1, full, 1)
-        lifted = d[..., :, None, :].expand(tuple(d.shape[:-1]) + (full,) +
-                                           tuple(d.shape[-1:]))
-        return self.ntt_qp.fwd(
-            torch.where(lifted >= q_full, lifted - q_full, lifted))
+        ntt = self.ntt_qp
+        return ntt.fwd(kk.decompose(d, ntt.q_col, ntt.ratio))
 
     @in_chain("decompose")
     def _decompose_ntt(self, d):
         """RNS-decompose d ([..., L, n] coeff domain over q) into α hybrid
         digits lifted to the full base q∪P in NTT domain: D [..., α, L+k,
         n]. Limb-sharded: this process's shards of the digit rows only."""
-        L, full, n = self.params.L, self.full, self.params.n
-        k, alpha = self.params.ks_digits, self.params.num_ks_digits
-        batch = tuple(d.shape[:-2])
-        q_full = self._tab["q_full"].reshape(1, full, 1)
         if self._limb_axis is not None:
-            return self._lift_ntt(
-                self._limb_mesh.scatter(d, self._limb_axis, dim=-2))
-        if k == 1:
-            return self._lift_ntt(d)
-        # k ≥ 2: fast base conversion of each digit [d]_{Q_j} to q∪P
-        T = self._tab
-        y_src = d.index_select(-2, self._dec_gather).reshape(
-            batch + (alpha, k, n))
-        y = t64.mul(y_src, T["dec_inv_qhat"], T["dec_q_src"])
-        D = None
-        for i in range(k):
-            term = t64.mul(y[..., i:i + 1, :], T["dec_qhat_full"][:, i],
-                           q_full)
-            D = term if D is None else t64.add(D, term, q_full)
-        return self.ntt_qp.fwd(D)
+            # this process's rows, copied once: under LocalComm the shard
+            # axis splits a batch's component at two strides, which the
+            # kernel does not take
+            d = self._limb_mesh.scatter(d, self._limb_axis,
+                                        dim=-2).contiguous()
+        # k = 1 (no digit tables): the lift of _lift_ntt; k ≥ 2: the fast
+        # base conversion of each digit [d]_{Q_j} to q∪P
+        ntt = self.ntt_qp
+        return ntt.fwd(kk.decompose(d, ntt.q_col, ntt.ratio, self._digits))
 
-    def _ks_partials(self, D, ksk_b, ksk_a) -> Tuple:
-        """Σ_i D_i ⊙ ksk_i over the digit rows D and the key hold:
-        ([..., L+k, n], [..., L+k, n]). Limb-sharded, a shard's partial
+    def _ks_partials(self, D, ksk_b, ksk_a, perm=None):
+        """Σ_i D_i ⊙ ksk_i over the digit rows D and the key hold, both
+        halves in one [..., 2, L+k, n] tensor; with `perm`, D's columns
+        permuted first (a hoisted rotation). Limb-sharded, a shard's partial
         accumulators before the psum."""
-        q_full = self._tab["q_full"]
-        q3 = q_full.reshape(1, self.full, 1)
-        return (t64.sum_mod(t64.mul(D, ksk_b, q3), q_full, dim=-3),
-                t64.sum_mod(t64.mul(D, ksk_a, q3), q_full, dim=-3))
+        ntt = self.ntt_qp
+        return kk.contract(D, ksk_b, ksk_a, ntt.q_col, ntt.ratio, perm)
 
     @in_chain("ks_inner")
-    def _ks_inner(self, D, ksk_b, ksk_a) -> Tuple:
-        """Inner product of a decomposition D with a switching key, then
-        mod-switch down: the cheap half of a key switch. Limb-sharded, a
-        whole key is cut to this process's digit rows (a key of
-        shard_keys already holds only them) and the shards' partial
-        contractions are combined by one modular psum."""
+    def _ks_inner(self, D, ksk_b, ksk_a, perm=None) -> Tuple:
+        """Inner product of a decomposition D (its columns permuted by
+        `perm`, if given) with a switching key, then mod-switch down: the
+        cheap half of a key switch. Limb-sharded, a whole key is cut to this
+        process's digit rows (a key of shard_keys already holds only them)
+        and the shards' partial contractions are combined by one modular
+        psum each."""
         mesh, axis = self._limb_mesh, self._limb_axis
         alpha = self.params.num_ks_digits
         if axis is None and ksk_b.shape[-3] != alpha:
@@ -543,14 +503,13 @@ class BfvContext(RlweKeys):
         if axis is not None and ksk_b.shape[-3] == alpha:
             ksk_b = mesh.scatter(ksk_b, axis, dim=-3)
             ksk_a = mesh.scatter(ksk_a, axis, dim=-3)
-        acc_b, acc_a = self._ks_partials(D, ksk_b, ksk_a)
+        acc = self._ks_partials(D, ksk_b, ksk_a, perm)
         if axis is not None:
             q_full = self._tab["q_full"]
-            acc_b = mesh.psum_mod(acc_b, q_full, axis)
-            acc_a = mesh.psum_mod(acc_a, q_full, axis)
-        acc = self.ntt_qp.inv(torch.stack([acc_b, acc_a], dim=-3))
-        return (self._mod_switch_down(acc[..., 0, :, :]),
-                self._mod_switch_down(acc[..., 1, :, :]))
+            acc = torch.stack([mesh.psum_mod(acc[..., h, :, :], q_full, axis)
+                               for h in (0, 1)], dim=-3)
+        out = self._mod_switch_down(self.ntt_qp.inv(acc))
+        return out[..., 0, :, :], out[..., 1, :, :]
 
     def _key_switch(self, d, ksk) -> Tuple:
         """d: [..., L, n] coeff-domain poly over q → (k0, k1) over q with
@@ -562,19 +521,7 @@ class BfvContext(RlweKeys):
         """[..., L+k, n] over q∪P → [..., L, n] over q: k successive exact
         centered divisions (x − centered([x]_{p_s}))·p_s^{-1}, last special
         first."""
-        L, k = self.params.L, self.params.ks_digits
-        for s in reversed(range(k)):
-            rest = L + s
-            x_rest, x_p = x[..., :rest, :], x[..., rest:rest + 1, :]
-            qv = self._tab["q_full"][:rest]
-            x_p_red = torch.where(x_p >= qv, x_p - qv, x_p)
-            corr = torch.where(x_p > self._msd_half[s],
-                               t64.sub(x_p_red, self._tab[f"msd_p_mod_{s}"],
-                                       qv),
-                               x_p_red)
-            diff = t64.sub(x_rest, corr, qv)
-            x = t64.mul(diff, self._tab[f"msd_p_inv_{s}"], qv)
-        return x
+        return kk.mod_down(x, self._division)
 
     # --------------------------------------------------------------- rotations
     def _decompose_cached(self, ct_data):
@@ -590,8 +537,8 @@ class BfvContext(RlweKeys):
         """Galois automorphism g of ct given c1's decomposition D: permute D
         in the NTT domain, key-switch (with the context's key for g, or
         `ksk`), and apply the signed coefficient gather to c0."""
-        k0, k1 = self._ks_inner(D.index_select(-1, self._galois_perm_eval(g)),
-                                *(ksk or self.get_galois_key(g)))
+        k0, k1 = self._ks_inner(D, *(ksk or self.get_galois_key(g)),
+                                perm=self._galois_perm_eval(g))
         gather, sign_pos = self._galois_perm(g)
         c0g = ct.data[..., 0, :, :].index_select(-1, gather)
         c0g = torch.where(sign_pos, c0g, t64.neg(c0g, self.q_q))

@@ -48,6 +48,7 @@ import torch
 from abc_tpu_torch.crypto.ntt import NttContext
 from abc_tpu_torch.crypto.numthy import centered, gen_ntt_primes, modinv
 from abc_tpu_torch.crypto.rlwe import RlweKeys
+from abc_tpu_torch.ops import keyswitch_kernels as kk
 from abc_tpu_torch.ops.behz_kernels import behz_tensor
 from abc_tpu_torch.ops.modarith import (as_residues, chain_range, in_chain,
                                           t64, to_host)
@@ -191,10 +192,9 @@ class CkksContext(RlweKeys):
         self.ntt_q = self._ntt_level[L]
 
         host = self._scalar_tables()
-        self._tab = {name: as_residues(host[name], dev) for name in
-                     ("q_full", "drop_mod", "drop_inv", "ks_factors")}
+        self._tab = {name: as_residues(v, dev) for name, v in host.items()}
         self.q_q = self._tab["q_full"][:L]                 # [L, 1]
-        self._level_tables(host)
+        self._level_tables()
 
         self._slot_exponents = np.empty(n // 2, dtype=np.int64)
         g = 1
@@ -214,30 +214,9 @@ class CkksContext(RlweKeys):
         L..L+k-1)."""
         params = self.params
         moduli, qs = params.coeff_modulus, params.data_primes
-        L, P, k = params.L, params.special_prime, params.ks_digits
+        P = params.special_prime
         host: Dict[str, np.ndarray] = {}
         host["q_full"] = np.asarray(moduli, dtype=np.uint32).reshape(-1, 1)
-        # mod-switch-down: divide by one special prime at a time (specials in
-        # reverse order); per-step tables over the remaining FULL base
-        self._msd_half = []
-        for s in range(k):
-            ps = params.special_primes[s]
-            rest = moduli[:L + s]
-            host[f"msd_p_mod_{s}"] = np.asarray(
-                [ps % r for r in rest], dtype=np.uint32).reshape(-1, 1)
-            host[f"msd_p_inv_{s}"] = np.asarray(
-                [modinv(ps, r) for r in rest], dtype=np.uint32).reshape(-1, 1)
-            self._msd_half.append(ps >> 1)
-        # rescale tables: dropping prime q_l needs [q_l]_qj and q_l^{-1} mod qj
-        drop_mod = np.zeros((L, L, 1), dtype=np.uint32)
-        drop_inv = np.zeros((L, L, 1), dtype=np.uint32)
-        for l in range(L):           # dropping limb l
-            for j in range(L):
-                if j != l:
-                    drop_mod[l, j, 0] = qs[l] % qs[j]
-                    drop_inv[l, j, 0] = modinv(qs[l], qs[j])
-        host["drop_mod"] = drop_mod
-        host["drop_inv"] = drop_inv
 
         # hybrid key-switch factors at FULL level: P·W_j mod every modulus,
         # W_j = Q̂_j·[Q̂_j^{-1}]_{Q_j} over the full data modulus Q (same
@@ -263,58 +242,32 @@ class CkksContext(RlweKeys):
         host["ks_factors"] = fac
         return host
 
-    def _level_tables(self, host: Dict[str, np.ndarray]) -> None:
+    def _level_tables(self) -> None:
         """Per-level device tables, all built here: the q columns of the
-        extended base at each level, the mod-switch-down rows (q, p_s mod q,
-        p_s⁻¹ mod q over active data ∪ the specials below s), and for k ≥ 2
-        the digit fast-base-conversion tables (digit groups intersected with
-        the active limbs; short or partial digits pad with inv_qhat = 0
-        rows, which contribute exactly 0; base = active ∪ specials)."""
+        extended base at each level; the mod switch down (the division of
+        active data ∪ specials by the k specials, last first) and the
+        rescale (the division of the active data by the last of them); and
+        for k ≥ 2 the digit fast-base-conversion tables (digit groups
+        intersected with the active limbs; short or partial digits pad with
+        inv_qhat = 0 rows, which contribute exactly 0; base = active ∪
+        specials). ops/keyswitch_kernels.py: Division, Digits."""
         params, dev = self.params, self.device
-        qs = params.data_primes
-        L, k = params.L, params.ks_digits
+        qs, k = params.data_primes, params.ks_digits
         self._q_cols: Dict[int, torch.Tensor] = {}
-        self._msd: Dict[int, list] = {}
-        self._dec_tabs: Dict[int, Dict[str, object]] = {}
-        for level in range(1, L + 1):
-            self._q_cols[level] = as_residues(
-                host["q_full"][self._ks_cols(level)], dev)   # [level+k, 1]
-            steps = []
-            for s in range(k):
-                idx = list(range(level)) + list(range(L, L + s))
-                steps.append(tuple(
-                    as_residues(host[name][idx], dev) for name in
-                    ("q_full", f"msd_p_mod_{s}", f"msd_p_inv_{s}")))
-            self._msd[level] = steps
-            if k == 1:
-                continue
-            groups = [[i for i in grp if i < level]
-                      for grp in params.digit_groups]
-            groups = [g for g in groups if g]
-            a_l = len(groups)
+        self._msd: Dict[int, kk.Division] = {}
+        self._rescale_div: Dict[int, kk.Division] = {}
+        self._dec_tabs: Dict[int, kk.Digits] = {}
+        for level in range(1, params.L + 1):
             cols = qs[:level] + params.special_primes
-            gather = np.zeros((a_l, k), dtype=np.int64)
-            inv_qhat = np.zeros((a_l, k, 1), dtype=np.uint32)
-            q_src = np.ones((a_l, k, 1), dtype=np.uint32) * np.uint32(qs[0])
-            qhat_ext = np.zeros((a_l, k, level + k, 1), dtype=np.uint32)
-            for j, grp in enumerate(groups):
-                Qj = 1
-                for i in grp:
-                    Qj *= qs[i]
-                for i, gi in enumerate(grp):
-                    qi = qs[gi]
-                    qh = Qj // qi
-                    gather[j, i] = gi
-                    q_src[j, i, 0] = qi
-                    inv_qhat[j, i, 0] = modinv(qh % qi, qi)
-                    for r, qr in enumerate(cols):
-                        qhat_ext[j, i, r, 0] = qh % qr
-            self._dec_tabs[level] = dict(
-                alpha=a_l,
-                gather=torch.from_numpy(gather.reshape(-1)).to(dev),
-                inv_qhat=as_residues(inv_qhat, dev),
-                q_src=as_residues(q_src, dev),
-                qhat_ext=as_residues(qhat_ext, dev))
+            self._q_cols[level] = self._ntt_cols[level].q_col   # [level+k, 1]
+            self._msd[level] = kk.Division(cols, k, dev)
+            if level > 1:
+                self._rescale_div[level] = kk.Division(qs[:level], 1, dev)
+            if k > 1:
+                groups = [[i for i in grp if i < level]
+                          for grp in params.digit_groups]
+                self._dec_tabs[level] = kk.Digits(
+                    qs, [g for g in groups if g], cols, k, dev)
 
     # -------------------------------------------------------------- encoding
     def _lift_host(self, coeffs, level: int) -> np.ndarray:
@@ -597,15 +550,7 @@ class CkksContext(RlweKeys):
             raise RuntimeExecutionError("no level left to rescale into")
         drop = level - 1
         q_drop = self.params.data_primes[drop]
-        q = self._q_at(drop)
-        x_q = ct.data[:, :drop]                    # [k, drop, n]
-        x_l = ct.data[:, drop][:, None, :]         # [k, 1, n]
-        x_l_red = torch.where(x_l >= q, x_l - q, x_l)
-        drop_mod = self._tab["drop_mod"][drop][:drop]
-        drop_inv = self._tab["drop_inv"][drop][:drop]
-        corr = torch.where(x_l > (q_drop >> 1),
-                           t64.sub(x_l_red, drop_mod, q), x_l_red)
-        out = t64.mul(t64.sub(x_q, corr, q), drop_inv, q)
+        out = kk.mod_down(ct.data, self._rescale_div[level])
         return CkksCiphertext(out, drop, ct.scale / q_drop)
 
     # ----------------------------------------------------------- key switching
@@ -646,37 +591,22 @@ class CkksContext(RlweKeys):
         digits and lift each to base q^(level)∪P in NTT domain:
         [α, level+k, n]. The expensive half of a key switch —
         hoisted_rotations computes it once per ciphertext."""
-        n, k = self.params.n, self.params.ks_digits
-        ncols = level + k
-        q_cols = self._q_cols[level].reshape(1, ncols, 1)
-        if k == 1:
-            # single-limb digits: the lift is a conditional subtract
-            # (uniform 30-bit primes), no multiplies needed
-            lifted = d[:, None, :].expand(level, ncols, n)
-            return self._ntt_cols[level].fwd(
-                torch.where(lifted >= q_cols, lifted - q_cols, lifted))
-        # k ≥ 2: fast base conversion of each active digit [d]_{Q_j^(l)}
-        tabs = self._dec_tabs[level]
-        alpha = tabs["alpha"]
-        y_src = d.index_select(0, tabs["gather"]).reshape(alpha, k, n)
-        y = t64.mul(y_src, tabs["inv_qhat"], tabs["q_src"])
-        D = None
-        for i in range(k):
-            term = t64.mul(y[:, i:i + 1, :], tabs["qhat_ext"][:, i], q_cols)
-            D = term if D is None else t64.add(D, term, q_cols)
-        return self._ntt_cols[level].fwd(D)
+        ntt = self._ntt_cols[level]
+        return ntt.fwd(kk.decompose(d, ntt.q_col, ntt.ratio,
+                                    self._dec_tabs.get(level)))
 
     @in_chain("ks_inner")
-    def _ks_inner(self, D: torch.Tensor, ksk_b, ksk_a, level: int) -> Tuple:
-        """Inner product of a decomposition D with a switching key's
-        per-level slices, one batched inverse NTT, then mod-switch down."""
-        q2 = self._q_cols[level]
-        q3 = q2.reshape(1, -1, 1)
-        acc_b = t64.sum_mod(t64.mul(D, ksk_b, q3), q2)
-        acc_a = t64.sum_mod(t64.mul(D, ksk_a, q3), q2)
-        acc = self._ntt_cols[level].inv(torch.stack([acc_b, acc_a]))
-        return (self._mod_switch_down(acc[0], level),
-                self._mod_switch_down(acc[1], level))
+    def _ks_inner(self, D: torch.Tensor, ksk_b, ksk_a, level: int,
+                  perm=None) -> Tuple:
+        """Inner product of a decomposition D (its columns permuted by
+        `perm`, if given) with a switching key's per-level slices, both
+        halves in one tensor, one batched inverse NTT, then one mod switch
+        down of both."""
+        ntt = self._ntt_cols[level]
+        acc = ntt.inv(kk.contract(D, ksk_b, ksk_a, ntt.q_col, ntt.ratio,
+                                  perm))
+        out = self._mod_switch_down(acc, level)
+        return out[..., 0, :, :], out[..., 1, :, :]
 
     def _key_switch(self, d: torch.Tensor, key_id: str, level: int) -> Tuple:
         """Hybrid key switch at `level`: α(level) digit rows, limbs
@@ -691,15 +621,7 @@ class CkksContext(RlweKeys):
         successive exact centered divisions (x − centered([x]_{p_s}))·
         p_s^{-1}, last special first (rows ordered [active data...,
         specials...])."""
-        for s in reversed(range(self.params.ks_digits)):
-            rows = level + s
-            qv, p_mod, p_inv = self._msd[level][s]
-            x_rest, x_p = x[..., :rows, :], x[..., rows:rows + 1, :]
-            x_p_red = torch.where(x_p >= qv, x_p - qv, x_p)
-            corr = torch.where(x_p > self._msd_half[s],
-                               t64.sub(x_p_red, p_mod, qv), x_p_red)
-            x = t64.mul(t64.sub(x_rest, corr, qv), p_inv, qv)
-        return x
+        return kk.mod_down(x, self._msd[level])
 
     # --------------------------------------------------------------- rotations
     def _decompose_cached(self, ct_data: torch.Tensor, level: int):
@@ -717,9 +639,8 @@ class CkksContext(RlweKeys):
         level = ct.level
         q = self._q_at(level)
         ksk_b, ksk_a = self._ksk_device(f"galois_{g}", level)
-        k0, k1 = self._ks_inner(
-            D.index_select(-1, self._galois_perm_eval(g)), ksk_b, ksk_a,
-            level)
+        k0, k1 = self._ks_inner(D, ksk_b, ksk_a, level,
+                                perm=self._galois_perm_eval(g))
         gather, sign_pos = self._galois_perm(g)
         c0g = ct.data[0].index_select(-1, gather)
         c0g = torch.where(sign_pos, c0g, t64.neg(c0g, q))

@@ -90,7 +90,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "ntt_common.cuh"
+#include "rns_common.cuh"
 
 namespace {
 
@@ -116,46 +116,9 @@ constexpr int kWarpTileThreads = 128;
 // tensor: threads a block, a quad each
 constexpr int kTensorThreads = 128;
 
-__device__ __forceinline__ uint32_t ld(const uint32_t* p) { return __ldg(p); }
-
-__device__ __forceinline__ uint4 ld4(const uint32_t* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-__device__ __forceinline__ void st4(uint32_t* p, uint4 v) {
-  *reinterpret_cast<uint4*>(p) = v;
-}
-
-__device__ __forceinline__ uint32_t lane_of(const uint4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
 __device__ __forceinline__ uint64_t ratio_of(const uint32_t* rec) {
   return static_cast<uint64_t>(ld(rec + 1)) |
          (static_cast<uint64_t>(ld(rec + 2)) << 32);
-}
-
-// x mod q for any 64-bit x, ratio = floor(2^64 / q): the quotient estimate
-// floor(x * ratio / 2^64) is floor(x / q) or one less, so the remainder is
-// below 2q (< 2^31) and one subtraction makes it canonical.
-__device__ __forceinline__ uint32_t reduce64(uint64_t x, uint32_t q,
-                                             uint64_t ratio) {
-  const uint64_t quot = __umul64hi(x, ratio);
-  const uint32_t r =
-      static_cast<uint32_t>(x) - static_cast<uint32_t>(quot) * q;
-  return r >= q ? r - q : r;
-}
-
-// a * w mod q, canonical, for a fixed w < q with companion wsh.
-__device__ __forceinline__ uint32_t mul_const(uint32_t a, uint32_t w,
-                                              uint32_t wsh, uint32_t q) {
-  const uint32_t r = shoup_lazy(a, w, wsh, q);
-  return r >= q ? r - q : r;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
-                                            uint32_t q) {
-  return a >= b ? a - b : a + q - b;
 }
 
 // ------------------------------------------------------- conversion tiles

@@ -1,5 +1,6 @@
-// The lazy Shoup product, shared by every kernel of ntt.cu and
-// ntt_ablation.cu (ntt_passes.cuh holds the forward transform's skeleton).
+// The lazy Shoup product, shared by every kernel of ntt.cu, ntt_ablation.cu
+// and, through rns_common.cuh, behz.cu and keyswitch.cu (ntt_passes.cuh holds
+// the forward transform's skeleton).
 #pragma once
 
 #include <cstdint>

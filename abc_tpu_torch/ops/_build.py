@@ -20,9 +20,10 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = [os.path.join(_CSRC, f) for f in ("ntt.cu", "ntt_ablation.cu",
-                                             "behz.cu")]
+                                             "behz.cu", "keyswitch.cu")]
 HEADERS = [os.path.join(_CSRC, f) for f in ("ntt_common.cuh",
-                                             "ntt_passes.cuh")]
+                                             "ntt_passes.cuh",
+                                             "rns_common.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SO = os.path.join(BUILD_DIR, "libabc_ntt.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -113,6 +114,7 @@ def load() -> ctypes.CDLL:
     lib.abc_alu_chain.argtypes = [vp, vp, i64, i32, u32, u32, u32, i32, vp]
     lib.abc_alu_chain.restype = i32
     bind_behz(lib)
+    bind_keyswitch(lib)
     lib.abc_behz_launch_info.argtypes = [i32, i32, i32, i64, i32, vp]
     lib.abc_behz_launch_info.restype = i32
     lib.abc_cuda_error_string.argtypes = [i32]
@@ -127,6 +129,21 @@ def load() -> ctypes.CDLL:
                                f"{lib.abc_cuda_error_string(err).decode()}")
     _LIB = lib
     return lib
+
+
+def launch(counts: dict, name: str, device, call) -> None:
+    """call(lib, stream) on `device`'s current stream, the launch of kernel
+    `name` through the library's C entry point; raises on the error code
+    it returns, else adds one to counts[name] (the BEHZ and key-switch
+    wrappers' `launches`)."""
+    import torch
+    lib = load()
+    with torch.cuda.device(device):
+        err = call(lib, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.abc_cuda_error_string(err).decode()}")
+    counts[name] += 1
 
 
 def bind_behz(lib: ctypes.CDLL) -> None:
@@ -146,6 +163,19 @@ def bind_behz(lib: ctypes.CDLL) -> None:
         lib.abc_behz_tensor_bases.argtypes = [vp, vp, vp, vp, vp, i64, i64,
                                               i32] * 2 + [i32, vp]
         lib.abc_behz_tensor_bases.restype = i32
+
+
+def bind_keyswitch(lib: ctypes.CDLL) -> None:
+    """The argument and return types of the key-switch kernels' C entry
+    points (csrc/keyswitch.cu) on a library that holds them."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.abc_ks_decompose.argtypes = [vp] * 5 + [i64, i64] + [i32] * 5 + [vp]
+    lib.abc_ks_contract.argtypes = [vp] * 7 + [i64, i64] + [i32] * 3 + [vp]
+    lib.abc_ks_mod_down.argtypes = [vp] * 3 + [i64, i64] + [i32] * 3 + [vp]
+    lib.abc_ks_launch_info.argtypes = [i32, i64, i32, i32, vp]
+    for fn in (lib.abc_ks_decompose, lib.abc_ks_contract, lib.abc_ks_mod_down,
+               lib.abc_ks_launch_info):
+        fn.restype = i32
 
 
 def sass() -> str:

@@ -162,14 +162,7 @@ def _check_quads(x, name, n):
 
 def _launch(name, device, call):
     from abc_tpu_torch.ops import _build
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = call(lib, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.abc_cuda_error_string(err).decode()}")
-    launches[name] += 1
+    _build.launch(launches, name, device, call)
 
 
 def behz_to_bsk(x: torch.Tensor, tab: torch.Tensor, D: int) -> torch.Tensor:

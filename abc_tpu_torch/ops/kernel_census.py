@@ -4,11 +4,13 @@
 
 Generic: `sass_functions` and `opcode` (the SASS of each function),
 `ptxas_table` (registers, shared memory and spills of each entry function)
-and `kernel_key` (one name for a kernel, mangled or demangled). For the BEHZ
-kernels of csrc/behz.cu: `kernel_table` (both tables merged), `launch_of`
-and `launch_key` (which instantiation a launch of one mult+relin runs, as
-`behz_kernels.launch_info` reports it), `fmt_kernel`, and `shape_params`,
-the parameters of a measured shape. Host-only text parsing; imports no
+and `kernel_key` (one name for a kernel, mangled or demangled);
+`kernel_table` (both tables merged, for the kernels of one source: the BEHZ
+kernels of csrc/behz.cu, the key-switch kernels of csrc/keyswitch.cu) and
+`fmt_kernel`. For the BEHZ kernels: `launch_of` and `launch_key` (which
+instantiation a launch of one mult+relin runs, as
+`behz_kernels.launch_info` reports it) and `shape_params`, the parameters
+of a measured shape; for the key-switch kernels `ks_launch_key`. Host-only text parsing; imports no
 CUDA toolkit and no JAX.
 """
 
@@ -111,11 +113,13 @@ def sass_table(text: str) -> dict:
     return table
 
 
-def kernel_table(build_log: str, sass_text: str) -> dict:
-    """ptxas_table and sass_table of the BEHZ kernels, merged by key."""
+def kernel_table(build_log: str, sass_text: str,
+                 prefix: str = "behz_") -> dict:
+    """ptxas_table and sass_table of the kernels whose names start with
+    `prefix` (the BEHZ kernels, or "ks_"), merged by key."""
     ptx, sass = ptxas_table(build_log), sass_table(sass_text)
     return {k: {**ptx.get(k, {}), **sass.get(k, {})}
-            for k in sorted(set(ptx) | set(sass)) if k.startswith("behz_")}
+            for k in sorted(set(ptx) | set(sass)) if k.startswith(prefix)}
 
 
 def launch_of(name, L, K, batch):
@@ -135,6 +139,14 @@ def launch_key(name: str, info: dict) -> str:
     if info["arg0"] == 0:                 # a warp a tile, KW sources
         return f"{name}_warp_kernel<{info['arg1']}>"
     return f"{name}_kernel<{info['arg0']},{info['arg1']}>"
+
+
+def ks_launch_key(name: str, info: dict) -> str:
+    """The kernel key of a `keyswitch_kernels.launch_info`: ks_mod_down is
+    instantiated by its largest number of special primes."""
+    if name == "ks_mod_down":
+        return f"ks_mod_down_kernel<{info['arg0']}>"
+    return f"{name}_kernel"
 
 
 def fmt_kernel(row: dict) -> str:

@@ -1,0 +1,338 @@
+"""Key-switching and rescaling kernels (K4: the digit lift, the contraction
+with a switching key, the exact division by primes): launch wrappers of
+csrc/keyswitch.cu, their plain torch versions and the tables both read.
+
+`decompose`, `contract` and `mod_down` route themselves, as
+behz_kernels.behz_tensor does: a CPU tensor goes to the plain version (int64
+torch with exact `%`, the chains BfvContext and CkksContext ran before the
+kernels: the CPU route and the oracle of the tests and of chip_smoke.py),
+any other to one launch of the kernel. The kernels are built at first use;
+a failed build, a failed launch or an operand the kernel does not take
+raises. `launches` counts kernel launches per kernel and nothing else.
+
+The tables are made once per context (CKKS: per level) from host integers,
+as `Digits` and `Division`; each holds the plain version's columns and the
+kernel's packed uint32 words (the layouts of csrc/keyswitch.cu), so that
+the two give the same canonical words.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from abc_tpu_torch.crypto.numthy import modinv
+from abc_tpu_torch.ops.modarith import as_residues, shoup, t64
+
+launches = {"ks_decompose": 0, "ks_contract": 0, "ks_mod_down": 0}
+
+# words of a record of the packed tables, and the most special primes one
+# ks_mod_down launch divides out (csrc/keyswitch.cu)
+REC = 4
+MAX_SPECIALS = 16
+
+
+# -------------------------------------------------------------------- tables
+
+class Digits:
+    """The fast base conversion of the k >= 2 digit lift at one level: for
+    each of the α digits, its k sources (data-row index `gather`, the
+    source prime `q_src`, (Q_j/q_i)^-1 mod q_src `inv_qhat`; a short digit
+    pads with inv_qhat = 0, whose terms are exactly 0) and `qhat` = Q_j/q_i
+    mod each of the R columns; `words` packs them for the kernel."""
+
+    def __init__(self, qs: Sequence[int], groups: Sequence[Sequence[int]],
+                 cols: Sequence[int], k: int, device):
+        """qs: the data primes; groups: each digit's data-row indices (at
+        most k); cols: the R column moduli of the lift."""
+        alpha, R = len(groups), len(cols)
+        gather = np.zeros((alpha, k), dtype=np.int64)
+        inv_qhat = np.zeros((alpha, k, 1), dtype=np.uint64)
+        q_src = np.full((alpha, k, 1), qs[0], dtype=np.uint64)
+        qhat = np.zeros((alpha, k, R, 1), dtype=np.uint64)
+        for j, grp in enumerate(groups):
+            Qj = 1
+            for i in grp:
+                Qj *= qs[i]
+            for i, gi in enumerate(grp):
+                qh = Qj // qs[gi]
+                gather[j, i] = gi
+                q_src[j, i, 0] = qs[gi]
+                inv_qhat[j, i, 0] = modinv(qh % qs[gi], qs[gi])
+                for r, qr in enumerate(cols):
+                    qhat[j, i, r, 0] = qh % qr
+        self.alpha, self.k = alpha, k
+        self.gather = torch.from_numpy(gather.reshape(-1)).to(device)
+        self.inv_qhat = as_residues(inv_qhat, device)
+        self.q_src = as_residues(q_src, device)
+        self.qhat = as_residues(qhat, device)
+        # per (j, i): (row, q_src, inv_qhat, its companion); then T[j][i][r]
+        recs = [(int(g), int(m), int(w), shoup(int(w), int(m)))
+                for g, m, w in zip(gather.reshape(-1), q_src.reshape(-1),
+                                   inv_qhat.reshape(-1))]
+        self.words = as_residues(np.asarray(
+            [w for rec in recs for w in rec] + qhat.reshape(-1).tolist(),
+            dtype=np.uint64), device)
+
+
+class Division:
+    """The exact centred division of [..., Lo + k, n] over the base `cols`
+    by its last k primes, last first, into [..., Lo, n]: step s divides the
+    rows below Lo + s by the prime of row Lo + s. `steps[s]` = (q column of
+    those rows, p_s mod q, p_s^-1 mod q, p_s >> 1), the plain version's;
+    `words` packs them for the kernel. A rescale is the division of a level
+    by its last data prime (k = 1). len() is k."""
+
+    def __init__(self, cols: Sequence[int], k: int, device):
+        if not 1 <= k < len(cols):
+            raise ValueError(f"a division by {k} of {len(cols)} primes")
+        cols = [int(c) for c in cols]
+        Lo = len(cols) - k
+        self.steps: List[tuple] = []
+        stride = REC + REC * len(cols)
+        words = np.zeros(k * stride, dtype=np.uint64)
+        for s in range(k):
+            p, rows = cols[Lo + s], cols[:Lo + s]
+            p_mod = [p % q for q in rows]
+            p_inv = [modinv(p, q) for q in rows]
+            self.steps.append(tuple(
+                as_residues(np.asarray(v, dtype=np.uint64).reshape(-1, 1),
+                            device) for v in (rows, p_mod, p_inv))
+                + (p >> 1,))
+            words[s * stride] = p >> 1
+            recs = [(q, pm, pi, shoup(pi, q))
+                    for q, pm, pi in zip(rows, p_mod, p_inv)]
+            words[s * stride + REC:s * stride + REC * (1 + len(rows))] = \
+                [w for rec in recs for w in rec]
+        self.Lo, self.k = Lo, k
+        self.words = as_residues(words, device)
+
+    def __len__(self) -> int:
+        return self.k
+
+
+# ----------------------------------------------------------- plain versions
+
+def lift_plain(d, q):
+    """k = 1: each data row of d ([..., L, n]) lifted to the R columns of q
+    ([R, 1]) by a conditional subtract (primes of one size): [..., L, R,
+    n]."""
+    R = q.shape[0]
+    lifted = d[..., :, None, :].expand(tuple(d.shape[:-1]) + (R,) +
+                                       tuple(d.shape[-1:]))
+    q3 = q.reshape(1, R, 1)
+    return torch.where(lifted >= q3, lifted - q3, lifted)
+
+
+def decompose_plain(d, q, digits: Digits):
+    """k >= 2: the fast base conversion of each digit [d]_{Q_j} of d ([...,
+    L, n]) to the R columns of q ([R, 1]), uncentred: [..., α, R, n]."""
+    batch, n = tuple(d.shape[:-2]), d.shape[-1]
+    q3 = q.reshape(1, q.shape[0], 1)
+    y_src = d.index_select(-2, digits.gather).reshape(
+        batch + (digits.alpha, digits.k, n))
+    y = t64.mul(y_src, digits.inv_qhat, digits.q_src)
+    D = None
+    for i in range(digits.k):
+        term = t64.mul(y[..., i:i + 1, :], digits.qhat[:, i], q3)
+        D = term if D is None else t64.add(D, term, q3)
+    return D
+
+
+def contract_plain(D, ksk_b, ksk_a, q, perm=None):
+    """Σ_i D_i ⊙ ksk_i over the digit axis (dim -3) for both key halves:
+    [..., α, R, n] → [..., 2, R, n] mod q ([R, 1]); with `perm`, D's
+    columns permuted first (D[..., perm])."""
+    if perm is not None:
+        D = D.index_select(-1, perm)
+    q3 = q.reshape(1, q.shape[0], 1)
+    return torch.stack([t64.sum_mod(t64.mul(D, ksk_b, q3), q, dim=-3),
+                        t64.sum_mod(t64.mul(D, ksk_a, q3), q, dim=-3)],
+                       dim=-3)
+
+
+def mod_down_plain(x, division: Division):
+    """[..., Lo + k, n] → [..., Lo, n]: k successive exact centred divisions
+    (x − centred([x]_p))·p^{-1}, last prime first. The reference's steps
+    word for word: [x]_p reduced mod q by one conditional subtract (primes
+    of one size), the centring test on the unreduced residue."""
+    for s in reversed(range(division.k)):
+        qv, p_mod, p_inv, half = division.steps[s]
+        rows = qv.shape[0]
+        x_rest, x_p = x[..., :rows, :], x[..., rows:rows + 1, :]
+        x_p_red = torch.where(x_p >= qv, x_p - qv, x_p)
+        corr = torch.where(x_p > half, t64.sub(x_p_red, p_mod, qv), x_p_red)
+        x = t64.mul(t64.sub(x_rest, corr, qv), p_inv, qv)
+    return x
+
+
+# ---------------------------------------------------------------- launching
+
+def _operand(x, name, dims, strided=False):
+    """(rows, n, words between rows) of a CUDA operand of at least `dims`
+    axes; raises unless the kernels take it. A `strided` operand's [L, n]
+    rows may lie any multiple of 4 words apart, as long as its leading
+    axes share one stride (one component of a batch of ciphertexts, a
+    level's limbs of a wider one); any other must be contiguous."""
+    if x.device.type != "cuda":
+        raise ValueError(f"key-switch kernels take CPU or CUDA tensors, got "
+                         f"{x.device}")
+    if x.dtype != torch.int32:
+        raise TypeError(f"key-switch operand {name} must be int32, got "
+                        f"{x.dtype}")
+    if x.dim() < dims:
+        raise ValueError(f"key-switch operand {name} needs {dims} axes, got "
+                         f"{tuple(x.shape)}")
+    n = x.shape[-1]
+    if n < 4 or n & (n - 1):
+        raise ValueError(f"key-switch operand {name}: n must be a power of "
+                         f"two >= 4, got {n}")
+    block = int(np.prod(x.shape[-dims:], dtype=np.int64))
+    stride = _row_stride(x) if strided else \
+        (block if x.is_contiguous() else None)
+    if stride is None:
+        raise ValueError(f"key-switch operand {name} must be contiguous"
+                         + (f" rows of {tuple(x.shape[-2:])} at one stride"
+                            if strided else "") + f", got strides "
+                         f"{x.stride()} of {tuple(x.shape)}")
+    if x.data_ptr() % 16 or stride % 4:
+        raise ValueError(f"key-switch operand {name} must be 16-byte "
+                         f"aligned, at {x.data_ptr():#x}, rows {stride} "
+                         "words apart")
+    return x.numel() // block, n, stride
+
+
+def _row_stride(x):
+    """Words between the [L, n] rows of x, or None where its rows are not
+    contiguous or its leading axes do not collapse to one stride."""
+    L, n = x.shape[-2:]
+    if x.stride(-1) != 1 or (L > 1 and x.stride(-2) != n):
+        return None
+    lead = [(size, st) for size, st in zip(x.shape[:-2], x.stride()[:-2])
+            if size != 1]
+    if any(outer != inner * size for (_, outer), (size, inner) in
+           zip(lead, lead[1:])):
+        return None
+    stride = lead[-1][1] if lead else L * n
+    return stride if stride >= L * n else None
+
+
+def _table(t, name, device, words, dtype=torch.int32):
+    if t is None or t.device != device or t.dtype != dtype or \
+            not t.is_contiguous() or t.numel() != words:
+        raise ValueError(
+            f"key-switch table {name} must be a contiguous {dtype} tensor of "
+            f"{words} words on {device}, got "
+            f"{None if t is None else (t.dtype, tuple(t.shape), t.device)}")
+
+
+def _launch(name, device, call):
+    from abc_tpu_torch.ops import _build
+    _build.launch(launches, name, device, call)
+
+
+def decompose(d, q, ratio, digits: Optional[Digits] = None):
+    """The digit lift of d ([..., L, n], coefficient domain; on the card its
+    rows may lie at one stride, _operand) to the R columns of q ([R, 1];
+    `ratio` [R] int64, modarith.ratio_table, read by the kernel only):
+    k = 1 (digits None) [..., L, R, n], else [..., α, R, n] by
+    `digits`."""
+    if d.device.type == "cpu":
+        return lift_plain(d, q) if digits is None else \
+            decompose_plain(d, q, digits)
+    rows, n, d_stride = _operand(d, "d", 2, strided=True)
+    L, R = d.shape[-2], q.shape[0]
+    _table(q, "q", d.device, R)
+    _table(ratio, "ratio", d.device, R, torch.int64)
+    A, K, tab = L, 1, None
+    if digits is not None:
+        A, K, tab = digits.alpha, digits.k, digits.words
+        _table(tab, "digits", d.device, A * K * (REC + R))
+    out = torch.empty(tuple(d.shape[:-2]) + (A, R, n), dtype=torch.int32,
+                      device=d.device)
+    _launch("ks_decompose", d.device, lambda lib, s: lib.abc_ks_decompose(
+        d.data_ptr(), out.data_ptr(), q.data_ptr(), ratio.data_ptr(),
+        None if tab is None else tab.data_ptr(), rows, d_stride, L, A, R, K,
+        n.bit_length() - 1, s))
+    return out
+
+
+def contract(D, ksk_b, ksk_a, q, ratio, perm=None):
+    """Σ_i D_i ⊙ ksk_i for both halves of a switching key, one [..., 2, R, n]
+    tensor from D [..., α, R, n] and keys [α, R, n], or keys with leading
+    axes equal to D's last ones (a LocalComm shard axis); q [R, 1], ratio
+    [R] int64. perm ([n] int64): output column c reads D at perm[c], the
+    Galois permutation of a hoisted rotation."""
+    if D.device.type == "cpu":
+        return contract_plain(D, ksk_b, ksk_a, q, perm)
+    rows, n, _ = _operand(D, "D", 3)
+    A, R = D.shape[-3], D.shape[-2]
+    klead = tuple(ksk_b.shape[:-3])
+    for name, key in (("ksk_b", ksk_b), ("ksk_a", ksk_a)):
+        _operand(key, name, 3)
+        lead = tuple(D.shape[:-3])
+        if tuple(key.shape) != klead + (A, R, n) or key.device != D.device \
+                or lead[len(lead) - len(klead):] != klead or \
+                len(klead) > len(lead):
+            raise ValueError(f"key-switch contraction: {name} "
+                             f"{tuple(key.shape)} must be [..., {A}, {R}, "
+                             f"{n}] with D's last leading axes "
+                             f"{tuple(D.shape)}, on D's device")
+    _table(q, "q", D.device, R)
+    _table(ratio, "ratio", D.device, R, torch.int64)
+    if perm is not None:
+        _table(perm, "perm", D.device, n, torch.int64)
+    krows = int(np.prod(klead, dtype=np.int64))
+    out = torch.empty(tuple(D.shape[:-3]) + (2, R, n), dtype=torch.int32,
+                      device=D.device)
+    _launch("ks_contract", D.device, lambda lib, s: lib.abc_ks_contract(
+        D.data_ptr(), ksk_b.data_ptr(), ksk_a.data_ptr(), out.data_ptr(),
+        None if perm is None else perm.data_ptr(), q.data_ptr(),
+        ratio.data_ptr(), rows, krows, A, R, n.bit_length() - 1, s))
+    return out
+
+
+def mod_down(x, division: Division):
+    """x [..., Lo + k, n] (on the card its rows may lie at one stride,
+    _operand) → [..., Lo, n], the exact centred division by the last k
+    primes of the division's base."""
+    if x.device.type == "cpu":
+        return mod_down_plain(x, division)
+    rows, n, x_stride = _operand(x, "x", 2, strided=True)
+    Lo, k = division.Lo, division.k
+    if x.shape[-2] != Lo + k or k > MAX_SPECIALS:
+        raise ValueError(f"key-switch mod down: x {tuple(x.shape)} must have "
+                         f"{Lo} + {k} rows, at most {MAX_SPECIALS} divided "
+                         "out")
+    _table(division.words, "division", x.device, k * REC * (1 + Lo + k))
+    out = torch.empty(tuple(x.shape[:-2]) + (Lo, n), dtype=torch.int32,
+                      device=x.device)
+    _launch("ks_mod_down", x.device, lambda lib, s: lib.abc_ks_mod_down(
+        x.data_ptr(), out.data_ptr(), division.words.data_ptr(), rows,
+        x_stride, Lo, k, n.bit_length() - 1, s))
+    return out
+
+
+# abc_ks_launch_info's kernel numbers
+_INFO_KERNEL = {"ks_decompose": 0, "ks_contract": 1, "ks_mod_down": 2}
+
+
+def launch_info(name: str, lines: int, n: int, k: int = 1) -> dict:
+    """The launch a kernel makes for `lines` output rows of n (every output
+    axis but the last, multiplied) and k special primes (ks_mod_down), with
+    its theoretical occupancy on the current card: the instantiation's
+    special primes (ks_mod_down), threads a block, blocks, blocks and warps
+    an SM."""
+    import ctypes
+    from abc_tpu_torch.ops import _build
+    lib = _build.load()
+    info = (ctypes.c_longlong * 6)()
+    err = lib.abc_ks_launch_info(_INFO_KERNEL[name], lines, k,
+                                 n.bit_length() - 1, info)
+    if err != 0:
+        raise RuntimeError(f"abc_ks_launch_info({name}): "
+                           f"{lib.abc_cuda_error_string(err).decode()}")
+    return dict(zip(("arg0", "arg1", "threads", "blocks", "blocks_per_sm",
+                     "warps_per_sm"), info))

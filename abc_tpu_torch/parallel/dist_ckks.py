@@ -78,9 +78,9 @@ class DistCkksMultiplier:
         acc_b = t64.sum_mod(t64.mul(Dm, self.ksk_b, qc), qc, dim=0)
         acc_a = t64.sum_mod(t64.mul(Dm, self.ksk_a, qc), qc, dim=0)
         acc = self.dqp.inv_local(torch.stack([acc_b, acc_a]), mesh, axis)
-        k0 = ctx._mod_switch_down(acc[0], L)
-        k1 = ctx._mod_switch_down(acc[1], L)
-        return torch.stack([t64.add(data[0], k0, q), t64.add(data[1], k1, q)])
+        k = ctx._mod_switch_down(acc, L)              # both halves at once
+        return torch.stack([t64.add(data[0], k[0], q),
+                            t64.add(data[1], k[1], q)])
 
     def __call__(self, a_data, b_data):
         """[2, L, n] × [2, L, n] → [2, L, n], relinearized: whole tensors in

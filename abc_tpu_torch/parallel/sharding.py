@@ -65,14 +65,13 @@ def _local_key_switch_partials(ctx: BfvContext, d, ksk_b, ksk_a,
     ksk_*:  [Lk, L+1, n]    the shard's slice of the switching key
     perm_eval: optional NTT-domain Galois permutation applied to the
                decomposition AFTER its forward NTTs (the hoisted rotation
-               formulation, matching BfvContext.apply_galois)
+               formulation, matching BfvContext.apply_galois), read inside
+               the contraction
     returns ([..., L+1, n], [..., L+1, n]) partial sums (before the psum)
     """
     _check_k1(ctx)
-    D = ctx._lift_ntt(d)
-    if perm_eval is not None:
-        D = D.index_select(-1, perm_eval)
-    return ctx._ks_partials(D, ksk_b, ksk_a)
+    acc = ctx._ks_partials(ctx._lift_ntt(d), ksk_b, ksk_a, perm_eval)
+    return acc[..., 0, :, :], acc[..., 1, :, :]
 
 
 def _psum_mod(x, q, mesh: Mesh, axis: str):

@@ -3,7 +3,7 @@ process did before it was captured?
 
     python -m abc_tpu_torch.scripts.replay_state
 
-The BFV mult+relin at n=8192 is 110 small kernels; as a chain of 12 steps in
+The BFV mult+relin at n=8192 is 33 small kernels; as a chain of 12 steps in
 one CUDA graph its time per step is set by kernel-to-kernel latency, not by
 bytes or arithmetic. The measurement entry point (abc_tpu_torch.bench) read
 that time at two and three distinct levels within one process and between

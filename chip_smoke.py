@@ -40,12 +40,30 @@ Phases, each of which raises on failure (the script then exits nonzero):
    beside what the compiler made of the instantiation launched (registers,
    shared memory, spills from ptxas -v; a SASS census) and its launch
    with its theoretical occupancy (abc_behz_launch_info).
+2c. The key-switch kernels (K4, abc_tpu_torch/csrc/keyswitch.cu):
+   ks_decompose (the digit lift), ks_contract (the contraction with both
+   key halves, with and without a Galois permutation read in its loads)
+   and ks_mod_down (the mod switch down of both accumulators, and the CKKS
+   rescale) torch.equal to their plain torch versions on the card at BFV
+   n=8192, L=6, k=1 and 2 (one ciphertext and a batch of 64), n=16384,
+   L=13, and CKKS n=32768, 8 + 2 primes at level 8 and level 3, inputs
+   holding 0 and q-1, and on inputs all 0, all q-1 and with the divided
+   rows at p>>1 and (p>>1)+1. At the timed shapes the time per call, the
+   profiler's device time, both again with the L2 flushed before each
+   call ("cold"), the bound (ks_imads), the plain version's time and, for
+   the k=1 lift, that of one torch.remainder giving the same words, beside
+   the compiler's census of the instantiation launched and its launch
+   with its theoretical occupancy (abc_ks_launch_info). Every kernel
+   timed against its bound (phases 2, 2b, 7, 9, 13) gets the cold
+   readings too, and a device time under its bound is marked as an L2
+   reading.
 3. BFV mult+relin at n=8192 (6 data primes, k=1 and k=2): keys,
    ciphertexts and result on the card equal to the port's CPU context of
    the same seed and to the golden digests; one multiply of fresh operands
    launches exactly 5 forward and 3 inverse transforms (154 limb rows at
-   k=1) and 2 behz_to_bsk, 1 behz_tensor, 1 behz_fast_floor and 1
-   behz_from_bsk; ms per op; the op captured as a CUDA graph, its replay
+   k=1), 2 behz_to_bsk, 1 behz_tensor, 1 behz_fast_floor and 1
+   behz_from_bsk, and 1 ks_decompose, 1 ks_contract and 1 ks_mod_down;
+   ms per op; the op captured as a CUDA graph, its replay
    profiled (kernels per replay, each hand-written kernel in it as often as
    the eager op launched it) and timed; device time per named elementwise
    chain (the torch.profiler ranges of ops/modarith.chain_range), with the
@@ -267,9 +285,24 @@ PHASE3_BATCH = 64       # the bench curve's largest batch
 # CKKS config-5 op
 MULT_RELIN_CENSUS = {"ntt_fwd": 5, "ntt_inv": 3, "behz_to_bsk": 2,
                      "behz_tensor": 1, "behz_fast_floor": 1,
-                     "behz_from_bsk": 1}
+                     "behz_from_bsk": 1, "ks_decompose": 1, "ks_contract": 1,
+                     "ks_mod_down": 1}
 CKKS_OP_CENSUS = {"ntt_fwd": 3, "ntt_inv": 2, "behz_to_bsk": 0,
-                  "behz_tensor": 1, "behz_fast_floor": 0, "behz_from_bsk": 0}
+                  "behz_tensor": 1, "behz_fast_floor": 0, "behz_from_bsk": 0,
+                  "ks_decompose": 1, "ks_contract": 1, "ks_mod_down": 1}
+# the key-switch kernels (K4, csrc/keyswitch.cu) and their shapes in phase
+# 2c, (scheme, n, L data primes, k special primes, ciphertexts, level): BFV
+# at the main path's n=8192 (k = 1 and 2, one ciphertext and the bench's
+# B=64), LaplaceSharpening's n=16384, CKKS config 5's n=32768 at full level
+# and at level 3 (a partial digit). The first is the main path's, where the
+# kernels line reads its numbers.
+KS = ("ks_decompose", "ks_contract", "ks_mod_down")
+KS_SHAPES = [("bfv", 8192, 6, 1, 1, 6), ("bfv", 8192, 6, 1, 64, 6),
+             ("bfv", 8192, 6, 2, 1, 6), ("bfv", 8192, 6, 2, 64, 6),
+             ("bfv", 16384, 13, 1, 1, 13), ("ckks", 32768, 8, 2, 1, 8),
+             ("ckks", 32768, 8, 2, 1, 3)]
+KS_EDGE_SHAPES = [KS_SHAPES[0], KS_SHAPES[1], KS_SHAPES[3], KS_SHAPES[5]]
+KS_TIMED = KS_SHAPES[:3] + KS_SHAPES[4:6]
 REPLACES = {
     "ntt_fwd": "abc_tpu/ops/pallas_ntt.py:265 (_fwd_kernel via "
                "pallas_fwd_ntt :417, pallas_fwd_ntt_fp :440)",
@@ -285,12 +318,20 @@ REPLACES = {
     "behz_tensor": "abc_tpu/crypto/behz.py:241 (tensor in multiply)",
     "behz_fast_floor": "abc_tpu/crypto/behz.py:161 (_fast_floor)",
     "behz_from_bsk": "abc_tpu/crypto/behz.py:172 (_from_bsk)",
+    "ks_decompose": "abc_tpu/crypto/bfv.py:941 (_decompose_ntt's digit "
+                    "lift), abc_tpu/crypto/ckks.py:848 (_decompose_ntt)",
+    "ks_contract": "abc_tpu/crypto/bfv.py:979 (_ks_inner's contraction), "
+                   "abc_tpu/crypto/ckks.py:880 (_ks_inner)",
+    "ks_mod_down": "abc_tpu/crypto/bfv.py:1026 (_mod_switch_down), "
+                   "abc_tpu/crypto/ckks.py:902 (_mod_switch_down), :775 "
+                   "(rescale)",
 }
 SOURCE = {"ntt_fwd": "abc_tpu_torch/csrc/ntt.cu",
           "ntt_inv": "abc_tpu_torch/csrc/ntt.cu",
           "ablate_ntt": "abc_tpu_torch/csrc/ntt_ablation.cu",
           "alu_chain": "abc_tpu_torch/csrc/ntt_ablation.cu",
-          **{name: "abc_tpu_torch/csrc/behz.cu" for name in BEHZ}}
+          **{name: "abc_tpu_torch/csrc/behz.cu" for name in BEHZ},
+          **{name: "abc_tpu_torch/csrc/keyswitch.cu" for name in KS}}
 # CKKS at the reference's own size (abc_tpu/benchsuite.py config 5): the
 # launches of one multiply(a, a, rescale=False) as (kernel, level, with the
 # special primes, batch): forward 2 x 8 = 16 rows (each operand) and 4 x 10 =
@@ -319,13 +360,50 @@ ALU_SHAPE, ALU_ITERS = (14, 128, 128), 512
 ABLATION_TIMED = {"ablate_ntt": "full", "alu_chain": "shoup"}
 
 
-def cuda_ms(fn, reps=10):
+# a read of five times the H100's 50 MB L2 before a timed call leaves none
+# of that call's operands in it: a "cold" reading, against the DRAM bound
+L2_FLUSH_BYTES = 256 << 20
+_l2 = {}
+
+
+def l2_flush():
+    """Read L2_FLUSH_BYTES on the card (a float sum, whose kernels
+    l2_flush_kernels names)."""
+    if "buf" not in _l2:
+        _l2["buf"] = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    _l2["buf"].sum()
+
+
+def l2_flush_kernels():
+    """The names of the device kernels l2_flush launches, read once from a
+    profile of its own, so that a cold kernel_profile leaves them out."""
+    from torch.profiler import ProfilerActivity, profile
+    if "names" not in _l2:
+        l2_flush()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                l2_flush()
+                torch.cuda.synchronize()
+            names = {ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA}
+            if names:
+                _l2["names"] = names
+                break
+        check("names" in _l2, "the profiler saw no kernel of the L2 flush")
+    return _l2["names"]
+
+
+def cuda_ms(fn, reps=10, cold=False):
     """Median time of one fn() call in ms between CUDA events (after a
-    warm-up): device time plus any host time the call adds between them."""
+    warm-up): device time plus any host time the call adds between them.
+    Cold: the L2 flushed before each call, outside the events."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if cold:
+            l2_flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -336,18 +414,22 @@ def cuda_ms(fn, reps=10):
     return statistics.median(times)
 
 
-def kernel_profile(fn, reps=5):
+def kernel_profile(fn, reps=5, cold=False):
     """Device kernels of fn() from torch.profiler, per call: (total kernel
     ms, kernel launches, {kernel name: ms}, {kernel name: launches}); None
     where the profiler saw no device activity in three tries (a trace now
-    and then comes back empty)."""
+    and then comes back empty). Cold: the L2 flushed before each call, its
+    kernels left out."""
     from torch.profiler import ProfilerActivity, profile
     from abc_tpu_torch.ops.modarith import CHAIN_PREFIX
+    skip = l2_flush_kernels() if cold else set()
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                if cold:
+                    l2_flush()
                 fn()
             torch.cuda.synchronize()
         by_name, counts, launches = {}, {}, 0
@@ -355,7 +437,7 @@ def kernel_profile(fn, reps=5):
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             if "memcpy" in ev.name.lower() or "memset" in ev.name.lower() \
-                    or ev.name.startswith(CHAIN_PREFIX):
+                    or ev.name.startswith(CHAIN_PREFIX) or ev.name in skip:
                 continue
             launches += 1
             by_name[ev.name] = by_name.get(ev.name, 0.0) + \
@@ -447,20 +529,23 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def _counters():
+    from abc_tpu_torch.ops import behz_kernels as bk
+    from abc_tpu_torch.ops import keyswitch_kernels as kk
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    return nk.launches, bk.launches, kk.launches
+
+
 def launch_counts():
     """Launches of every hand-written kernel of the main paths, by kernel:
-    the NTT kernels' and the BEHZ kernels' counts (ops/ntt_kernels.py,
-    ops/behz_kernels.py)."""
-    from abc_tpu_torch.ops import behz_kernels as bk
-    from abc_tpu_torch.ops import ntt_kernels as nk
-    return {**nk.launches, **bk.launches}
+    the NTT, BEHZ and key-switch kernels' counts (ops/ntt_kernels.py,
+    ops/behz_kernels.py, ops/keyswitch_kernels.py)."""
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def zero_launches():
     """Sets the counts of launch_counts() to 0."""
-    from abc_tpu_torch.ops import behz_kernels as bk
-    from abc_tpu_torch.ops import ntt_kernels as nk
-    for counts in (nk.launches, bk.launches):
+    for counts in _counters():
         for name in counts:
             counts[name] = 0
 
@@ -636,11 +721,15 @@ def phase_kernels(dev):
                         f"{b_by}]")
             if JSON_SHAPE[name] == (n, L, batch):
                 plain_prof = kernel_profile(plain)
+                cold_ms, cold = cuda_ms(kern, cold=True), \
+                    kernel_profile(kern, cold=True)
                 stats[name].update(
                     ms=ms, plain_ms=plain_ms, device_ms=prof and prof[0],
                     plain_device_ms=plain_prof and plain_prof[0],
+                    cold_ms=cold_ms, cold_device_ms=cold and cold[0],
                     bound_ms=b_ms, bound_by=b_by)
-                line.append(f"[plain device: {fmt(plain_prof)}]")
+                line.append(f"[plain device: {fmt(plain_prof)}; cold L2 "
+                            f"{cold_ms:.4f} ms, device {fmt(cold)}]")
         print("  " + "  ".join(line), flush=True)
     return stats
 
@@ -796,6 +885,179 @@ def phase_behz(dev):
             if (n, L, batch, t_bits) == BEHZ_SHAPES[0]:
                 stats[name].update(st, launch=rec)
         print(f"  {at}: every BEHZ kernel = plain"
+              + ("" if not line else "; " + "; ".join(line)), flush=True)
+    return stats
+
+
+def ks_imads(name, R, A=0, K=1, k=1, Lo=0):
+    """Integer multiply-adds per coefficient of one row of a key-switch
+    kernel's function, counted from csrc/keyswitch.cu's arithmetic
+    (BEHZ_IMAD's costs): R columns, A digits of K sources (the lift), k
+    primes divided out of Lo + k rows (the mod switch down)."""
+    w, sh, red = (BEHZ_IMAD[x] for x in ("wide", "shoup", "reduce64"))
+    if name == "ks_decompose":
+        # k = 1: conditional subtracts only; else per digit K products
+        # y_i, and per column a sum of K products reduced
+        return 0 if K == 1 else A * (K * sh + R * (K * w + -(-K // 16) *
+                                                   red))
+    if name == "ks_contract":
+        # per column both halves' sums of A products, reduced
+        return R * 2 * (A * w + -(-A // 16) * red)
+    # ks_mod_down: every kept row divided k times, the specials below each
+    # special once per step above them
+    return (Lo * k + k * (k - 1) // 2) * sh
+
+
+def ks_calls(scheme, n, L, k, batch, level, edge, dev):
+    """{label: (kernel, kernel call, plain call, bytes, integer
+    multiply-adds, output rows, library call or None)} of the key-switch
+    kernels at one shape:
+    the operands of one key switch of `batch` ciphertexts (one: no batch
+    axis) at `level` of an (n, L data primes, k special primes) context,
+    the digit lift, the contraction without and with a Galois permutation,
+    the mod switch down of both accumulators, and (CKKS below full level or
+    at it) the rescale of a ciphertext; with 0 and q-1 among random
+    residues, all 0 (`edge` "zero"), all q-1 ("max"), or the divided rows
+    at p>>1 and (p>>1)+1 ("half"). The bound counts each operand and
+    result once and the tables once, and the operations of ks_imads. The
+    k = 1 lift is one torch.remainder (each residue below 2 q_r, primes of
+    one size), the port never calls it; no single PyTorch call computes a
+    base conversion, a modular contraction or an exact division by a
+    prime."""
+    from abc_tpu_torch.crypto.ckks import CkksParams
+    from abc_tpu_torch.crypto.ntt import eval_perm_tables
+    from abc_tpu_torch.crypto.params import BfvParams
+    from abc_tpu_torch.ops import keyswitch_kernels as kk
+    from abc_tpu_torch.ops.modarith import as_residues, ratio_table
+    p = BfvParams.create(n, seed=11, ks_digits=k) if scheme == "bfv" else \
+        CkksParams.create(n, levels=L, seed=3, ks_digits=k)
+    check(p.L == L, f"{scheme} n={n}: L={p.L}")
+    qs = p.data_primes[:level]
+    cols = qs + p.special_primes
+    R = len(cols)
+    groups = [g for g in ([i for i in grp if i < level]
+                          for grp in p.digit_groups) if g]
+    A = len(groups)
+    digits = None if k == 1 else kk.Digits(p.data_primes, groups, cols, k,
+                                           dev)
+    div, rdiv = kk.Division(cols, k, dev), kk.Division(qs, 1, dev)
+    q = as_residues(np.asarray(cols, np.uint32).reshape(-1, 1), dev)
+    ratio = ratio_table(cols, dev)
+    e, pos = eval_perm_tables(n)
+    perm = torch.from_numpy(pos[(e * 3) % (2 * n)]).to(dev)
+    lead = () if batch == 1 else (batch,)
+
+    def operand(moduli, shape, seed, divided=0):
+        qcol = torch.tensor(moduli, dtype=torch.int64).reshape(-1, 1)
+        if edge in ("zero", "max"):
+            x = torch.zeros(shape + (len(moduli), n), dtype=torch.int64)
+            return (x + (qcol - 1 if edge == "max" else 0)).to(
+                torch.int32).to(dev)
+        x = rand_residues(moduli, shape + (len(moduli), n), seed, dev)
+        x[..., 0] = 0
+        x[..., 1::257] = (qcol - 1).to(torch.int32).to(dev)
+        if edge == "half":
+            for r in range(len(moduli) - divided, len(moduli)):
+                x[..., r, 0::2] = moduli[r] >> 1
+                x[..., r, 1::2] = (moduli[r] >> 1) + 1
+        return x
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    d = operand(qs, lead, 1)
+    D = operand(cols, lead + (A,), 2)
+    kb, ka = operand(cols, (A,), 3), operand(cols, (A,), 4)
+    x = operand(cols, lead + (2,), 5, k)
+    rows = batch
+    tabs = (q, ratio) + (() if digits is None else (digits.words,))
+    calls = {
+        "ks_decompose": (
+            "ks_decompose", lambda: kk.decompose(d, q, ratio, digits),
+            lambda: kk.lift_plain(d, q) if digits is None else
+            kk.decompose_plain(d, q, digits),
+            4 * rows * n * (level + A * R) + nbytes(*tabs),
+            rows * n * ks_imads("ks_decompose", R, A, k), rows * A * R,
+            (lambda: torch.remainder(d.unsqueeze(-2), q)) if digits is None
+            else None),
+        "ks_contract": (
+            "ks_contract", lambda: kk.contract(D, kb, ka, q, ratio),
+            lambda: kk.contract_plain(D, kb, ka, q),
+            4 * n * (rows * A * R + 2 * A * R + 2 * rows * R) + nbytes(q,
+                                                                       ratio),
+            rows * n * ks_imads("ks_contract", R, A), rows * R, None),
+        "ks_contract+perm": (
+            "ks_contract", lambda: kk.contract(D, kb, ka, q, ratio, perm),
+            lambda: kk.contract_plain(D, kb, ka, q, perm),
+            4 * n * (rows * A * R + 2 * A * R + 2 * rows * R)
+            + nbytes(q, ratio, perm),
+            rows * n * ks_imads("ks_contract", R, A), rows * R, None),
+        "ks_mod_down": (
+            "ks_mod_down", lambda: kk.mod_down(x, div),
+            lambda: kk.mod_down_plain(x, div),
+            4 * 2 * rows * n * (R + level) + nbytes(div.words),
+            2 * rows * n * ks_imads("ks_mod_down", R, k=k, Lo=level),
+            2 * rows * level, None)}
+    if scheme == "ckks" and level > 1:
+        r = operand(qs, (2,), 6, 1)
+        calls["rescale"] = (
+            "ks_mod_down", lambda: kk.mod_down(r, rdiv),
+            lambda: kk.mod_down_plain(r, rdiv),
+            4 * 2 * n * (2 * level - 1) + nbytes(rdiv.words),
+            2 * n * ks_imads("ks_mod_down", level, k=1, Lo=level - 1),
+            2 * (level - 1), None)
+    return calls
+
+
+def phase_keyswitch(dev):
+    """Phase 2c: every key-switch kernel against its plain version at
+    KS_SHAPES and on edge inputs; times, launches and compiler census at
+    the timed shapes. Returns the kernels line's stats (the main path's
+    shape)."""
+    from abc_tpu_torch.ops import _build
+    from abc_tpu_torch.ops import keyswitch_kernels as kk
+    from abc_tpu_torch.ops import kernel_census as kc
+
+    table = kc.kernel_table(_build.build_log, _build.sass(), prefix="ks_")
+    check(len(table) >= 3, f"no ptxas / SASS record of the key-switch "
+          f"kernels: {sorted(table)}")
+    stats = {name: {"max_abs_err": 0} for name in KS}
+    cases = [(shape, None) for shape in KS_SHAPES] + \
+        [(shape, edge) for shape in KS_EDGE_SHAPES
+         for edge in ("zero", "max", "half")]
+    for (scheme, n, L, k, batch, level), edge in cases:
+        at = f"{scheme} n={n} L={L} k={k} ciphertexts={batch} level={level}" \
+            + (f" edge {edge}" if edge else "")
+        line = []
+        for label, (name, kern, plain, n_bytes, imads, lines, library) in \
+                ks_calls(scheme, n, L, k, batch, level, edge, dev).items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            check(torch.equal(got, want), f"{label} != plain at {at}")
+            check(library is None or torch.equal(library(), got),
+                  f"{label}'s library call != the kernel at {at}")
+            if edge is not None or (scheme, n, L, k, batch, level) not in \
+                    KS_TIMED:
+                continue
+            info = kk.launch_info(name, lines, n, k if label != "rescale"
+                                  else 1)
+            key = kc.ks_launch_key(name, info)
+            row = table.get(key, {})
+            check(row, f"no ptxas / SASS record of {key}")
+            st = {}
+            line.append(
+                f"{label} " + _timed(st, kern, plain, [n, L, k, batch, level],
+                                     bound(n_bytes, imads), library)
+                + f" [{key}: {info['threads']} threads x {info['blocks']} "
+                f"blocks, {info['blocks_per_sm']} blocks "
+                f"({info['warps_per_sm']} warps) an SM; "
+                f"{kc.fmt_kernel(row)}]")
+            if (scheme, n, L, k, batch, level) == KS_SHAPES[0] and \
+                    label in KS:
+                stats[name].update(st, launch={"kernel": key, **info, **row})
+        print(f"  {at}: every key-switch kernel = plain"
               + ("" if not line else "; " + "; ".join(line)), flush=True)
     return stats
 
@@ -988,8 +1250,10 @@ def phase_laplace(dev):
     c = dict(factory.context.counters)
     check(c["decomp_hit"] > c["decomp"], f"no hoisting: {c}")
     launched = since(before)
-    # rotations and plaintext products only: no BEHZ kernel
+    # rotations and plaintext products only: no BEHZ kernel, every
+    # key-switch kernel
     check(launched["ntt_fwd"] > 0 and launched["ntt_inv"] > 0
+          and all(launched[name] for name in KS)
           and not any(launched[name] for name in BEHZ),
           f"laplace: {launched}")
     _, steady = run_dsl(factory, inputs_src, LAPLACE, "out = img2;")
@@ -1032,19 +1296,36 @@ def phase_keys(dev, used):
           flush=True)
 
 
-def _timed(stats, kern, plain, at, bound_of):
-    """Kernel and plain times (CUDA events and profiler) and the bound into
-    stats."""
+def _timed(stats, kern, plain, at, bound_of, library=None):
+    """Kernel and plain times (CUDA events and profiler), the kernel's with
+    the L2 warm (its calls one after another) and cold (flushed before each
+    call), the bound and, where one PyTorch call computes the same words,
+    that call's time into stats."""
     # the plain versions are 50-5000 times slower: fewer calls time them
     stats["ms"], stats["plain_ms"] = cuda_ms(kern), cuda_ms(plain, reps=3)
     prof, plain_prof = kernel_profile(kern), kernel_profile(plain, reps=1)
     stats["device_ms"] = prof and prof[0]
     stats["plain_device_ms"] = plain_prof and plain_prof[0]
+    stats["cold_ms"] = cuda_ms(kern, cold=True)
+    cold = kernel_profile(kern, cold=True)
+    stats["cold_device_ms"] = cold and cold[0]
     stats["bound_ms"], stats["bound_by"] = bound_of
     stats["at"] = at
+    lib = ""
+    if library is not None:
+        stats["library_ms"] = cuda_ms(library)
+        lib_prof = kernel_profile(library)
+        stats["library_device_ms"] = lib_prof and lib_prof[0]
+        lib = f"; library {stats['library_ms']:.4f} ms, device {fmt(lib_prof)}"
+    under = [what for what, p in (("warm", prof), ("cold", cold))
+             if p is not None and p[0] < stats["bound_ms"]]
     return (f"{stats['ms']:.4f} ms (plain {stats['plain_ms']:.4f} ms) "
-            f"[device: {fmt(prof)}; plain {fmt(plain_prof)}; bound "
-            f"{stats['bound_ms']:.5f} ms by {stats['bound_by']}]")
+            f"[device: {fmt(prof)}; cold L2 {stats['cold_ms']:.4f} ms, "
+            f"device {fmt(cold)}; plain {fmt(plain_prof)}{lib}; bound "
+            f"{stats['bound_ms']:.5f} ms by {stats['bound_by']}"
+            + ("" if not under else
+               f"; {' and '.join(under)} device time UNDER the bound: "
+               f"operands L2-resident, not a DRAM reading") + "]")
 
 
 def phase_ablation(dev):
@@ -1766,7 +2047,7 @@ def phase_ckks(dev, gold):
           f"{t_mv:.1f} s on the host clock", flush=True)
     launches = launch_counts()
     check(all(launches[name] > 0 for name in ("ntt_fwd", "ntt_inv",
-                                               "behz_tensor")),
+                                               "behz_tensor") + KS),
           f"the CKKS path launched a kernel no time: {launches}")
     return stats, launches
 
@@ -1801,7 +2082,7 @@ def phase_bench(dev, gold):
                                                  BfvCiphertext(y)),
            "rotate_rows": lambda x, y: ctx.rotate_rows(BfvCiphertext(x), 3)}
     census = {"multiply": MULT_RELIN_CENSUS,
-              "rotate_rows": {name: int(name.startswith("ntt_"))
+              "rotate_rows": {name: int(name.startswith(("ntt_", "ks_")))
                               for name in MULT_RELIN_CENSUS}}
     for name, op in ops.items():
         before = launch_counts()
@@ -2154,9 +2435,9 @@ def phase_checkpoint(dev, gold):
     launches = {}
     for scheme, rec in report.items():
         # hamming multiplies ciphertexts (every BEHZ kernel), the CKKS op
-        # takes the tensor product alone
-        need = ("ntt_fwd", "ntt_inv") + (BEHZ if scheme == "bfv" else
-                                         ("behz_tensor",))
+        # takes the tensor product alone; both key-switch
+        need = ("ntt_fwd", "ntt_inv") + KS + (
+            BEHZ if scheme == "bfv" else ("behz_tensor",))
         check(all(rec["launches"].get(k, 0) > 0 for k in need),
               f"the server's {scheme} path launched {rec['launches']}")
         for k, v in rec["launches"].items():
@@ -2715,6 +2996,8 @@ def main() -> int:
     stats = phase_kernels(dev)
     announce("phase 2b: the BEHZ kernels vs plain")
     stats.update(phase_behz(dev))
+    announce("phase 2c: the key-switch kernels vs plain")
+    stats.update(phase_keyswitch(dev))
     announce("phase 3: mult+relin n=8192")
     mult_eager = {k: phase_mult_relin(dev, k, gold[f"mult_relin_n8192_k{k}"])
                   for k in (1, 2)}
@@ -2757,8 +3040,10 @@ def main() -> int:
     check(not loaded, f"the reference or JAX was imported: {loaded}")
 
     # no single PyTorch call computes a negacyclic NTT mod q, these ALU
-    # chains, a modular RNS base conversion or a mod-q tensor product, so no
-    # kernel has a library yardstick
+    # chains, a modular RNS base conversion, a mod-q tensor product, a
+    # mod-q contraction or an exact division by a prime, so these kernels
+    # have no library yardstick; ks_decompose's k = 1 lift, its shape here,
+    # is one torch.remainder (phase 2c)
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 # the whole-program path counts while it sets up, warms up
@@ -2784,15 +3069,21 @@ def main() -> int:
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
                 "bound_ms": stats[name]["bound_ms"],
-                "bound_by": stats[name]["bound_by"], "library_ms": None,
+                "bound_by": stats[name]["bound_by"],
+                "library_ms": stats[name].get("library_ms"),
+                "library_device_ms": stats[name].get("library_device_ms"),
                 "device_ms": stats[name]["device_ms"],
+                # the same call with the L2 flushed before it: against the
+                # DRAM bound where "device_ms" may read under it
+                "cold_ms": stats[name].get("cold_ms"),
+                "cold_device_ms": stats[name].get("cold_device_ms"),
                 "plain_device_ms": stats[name]["plain_device_ms"],
                 "at": stats[name].get("at", list(JSON_SHAPE.get(name, ()))),
-                # the BEHZ kernels' launch at "at" and what the compiler
-                # made of it (phase 2b)
+                # the BEHZ and key-switch kernels' launch at "at" and what
+                # the compiler made of it (phases 2b, 2c)
                 "launch": stats[name].get("launch")}
                for name in ("ntt_fwd", "ntt_inv", "ablate_ntt",
-                            "alu_chain") + BEHZ]
+                            "alu_chain") + BEHZ + KS]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi[0]}")
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ tolerance is exact equality.
 """
 
 import ctypes
+import os
 import shutil
 import subprocess
 
@@ -32,6 +33,8 @@ pytestmark = pytest.mark.filterwarnings(
     "ignore:.*HE-standard 128-bit-security budget:UserWarning")
 
 M64 = (1 << 64) - 1
+HOST_STUB = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "host_cuda")
 
 
 @pytest.fixture
@@ -403,110 +406,23 @@ def test_reduce64_model_at_the_extremes():
 
 # ------------------------- the kernel source, compiled for the host (g++)
 
-_STUB = r"""
-// Host stand-in for the CUDA runtime: a launch runs its blocks one after
-// another on one std::thread per thread of a block; __syncthreads is a
-// std::barrier of the block, threadIdx is thread_local and __shared__
-// storage is static (one block runs at a time).
-#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cstddef>
-#include <cstdint>
-#include <thread>
-#include <vector>
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__ static
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-static thread_local dim3 threadIdx;
-static dim3 blockIdx, blockDim, gridDim;
-static std::barrier<>* block_barrier = nullptr;
-inline void __syncthreads() { block_barrier->arrive_and_wait(); }
-struct alignas(16) uint4 { unsigned x, y, z, w; };
-inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
-  return uint4{x, y, z, w};
-}
-using std::min;
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-struct cudaLaunchConfig_t {
-  dim3 gridDim, blockDim;
-  size_t dynamicSmemBytes;
-  cudaStream_t stream;
-  void* attrs;
-  unsigned numAttrs;
-};
-template <typename T> inline T __ldg(const T* p) { return *p; }
-inline uint32_t __umulhi(uint32_t a, uint32_t b) {
-  return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
-}
-inline unsigned long long __umul64hi(unsigned long long a,
-                                     unsigned long long b) {
-  return static_cast<unsigned long long>(
-      (static_cast<unsigned __int128>(a) * b) >> 64);
-}
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-template <typename K>
-cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K,
-                                                          int threads,
-                                                          size_t) {
-  *blocks = 2048 / threads;
-  return cudaSuccess;
-}
-template <typename... E, typename... A>
-cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
-                               void (*kernel)(E...), A&&... args) {
-  // one std::thread per thread of a block, reused block after block: the
-  // host sets blockIdx between two steps of `step`
-  const unsigned threads = cfg->blockDim.x, blocks = cfg->gridDim.x;
-  blockDim = cfg->blockDim;
-  gridDim = cfg->gridDim;
-  std::barrier<> bar(threads), step(threads + 1);
-  block_barrier = &bar;
-  std::vector<std::thread> pool;
-  for (unsigned t = 0; t < threads; ++t) {
-    pool.emplace_back([&, t] {
-      threadIdx = dim3(t);
-      for (unsigned b = 0; b < blocks; ++b) {
-        step.arrive_and_wait();
-        kernel(args...);
-        step.arrive_and_wait();
-      }
-    });
-  }
-  for (unsigned b = 0; b < blocks; ++b) {
-    blockIdx = dim3(b);
-    step.arrive_and_wait();
-    step.arrive_and_wait();
-  }
-  for (auto& th : pool) th.join();
-  return cudaSuccess;
-}
-"""
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """csrc/behz.cu compiled by g++ against the stub runtime above."""
+    """csrc/behz.cu compiled by g++ against the stub runtime of
+    tests/host_cuda: a launch runs its blocks one after another on one
+    std::thread per thread of a block; __syncthreads is a std::barrier of
+    the block, threadIdx is thread_local and __shared__ storage is static
+    (one block runs at a time)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
-    root = tmp_path_factory.mktemp("behz_host")
-    (root / "cuda_runtime.h").write_text(_STUB)
     src = [s for s in _build.SOURCES if s.endswith("behz.cu")][0]
-    lib_path = root / "libbehz_host.so"
+    lib_path = tmp_path_factory.mktemp("behz_host") / "libbehz_host.so"
     subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
-                    "-x", "c++",
-                    f"-I{root}", f"-I{_build._CSRC}", src, "-o",
-                    str(lib_path)], check=True, capture_output=True)
+                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}", src,
+                    "-o", str(lib_path)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     _build.bind_behz(lib)
     lib.abc_behz_launch_info.argtypes = [ctypes.c_int] * 3 + [
@@ -893,15 +809,25 @@ def test_views_are_copied_once_and_otherwise_refused_on_cuda(cuda):
 @pytest.mark.gpu
 def test_mult_relin_launch_census_on_cuda(cuda):
     """One n=8192 mult+relin of fresh operands: 2 / 1 / 1 / 1 BEHZ kernel
-    launches (to_bsk, tensor over both bases, fast_floor, from_bsk)."""
+    launches (to_bsk, tensor over both bases, fast_floor, from_bsk) and, for
+    the relinearization's key switch, one launch of each K4 kernel (digit
+    lift, contraction, mod switch down), at k = 1 and 2; 5 forward and 3
+    inverse NTTs."""
     from abc_tpu_torch.crypto.bfv import BfvContext
-    ctx = BfvContext(BfvParams.create(8192, seed=11), cuda)
-    a, b = ctx.encrypt_many([ctx.encode([3]), ctx.encode([5])])
-    ctx.get_relin_key()
-    before = dict(bk.launches)
-    got = ctx.multiply(a, b)
-    torch.cuda.synchronize()
-    assert {k: bk.launches[k] - before[k] for k in before} == {
-        "behz_to_bsk": 2, "behz_tensor": 1, "behz_fast_floor": 1,
-        "behz_from_bsk": 1}
-    assert ctx.decode(ctx.decrypt(got))[:1] == [15]
+    from abc_tpu_torch.ops import keyswitch_kernels as kk
+    from abc_tpu_torch.ops import ntt_kernels as nk
+    counts = (bk.launches, kk.launches, nk.launches)
+    for k in (1, 2):
+        ctx = BfvContext(BfvParams.create(8192, seed=11, ks_digits=k), cuda)
+        a, b = ctx.encrypt_many([ctx.encode([3]), ctx.encode([5])])
+        ctx.get_relin_key()
+        was = [dict(c) for c in counts]
+        got = ctx.multiply(a, b)
+        torch.cuda.synchronize()
+        made = {name: c[name] - w[name] for c, w in zip(counts, was)
+                for name in c}
+        assert made == {
+            "behz_to_bsk": 2, "behz_tensor": 1, "behz_fast_floor": 1,
+            "behz_from_bsk": 1, "ks_decompose": 1, "ks_contract": 1,
+            "ks_mod_down": 1, "ntt_fwd": 5, "ntt_inv": 3}, k
+        assert ctx.decode(ctx.decrypt(got))[:1] == [15]

@@ -70,7 +70,8 @@ def _representative_record(n_configs=6, note=""):
                          "value": 289.123456, "unit": "Gbutterflies/s",
                          "spread_Gbf_s": [288.1, 290.2],
                          "batch_curve": rows},
-        "mult_relin": {"batch_curve": {b: {"ops_per_s": v}
+        "mult_relin": {"batch_curve": {b: {"ops_per_s": v,
+                                           "fixed_ms": 0.123456}
                                        for b, v in ops.items()},
                        "speed_of_light": bench.mult_relin_floor(census, ops)},
         "suite": suite,

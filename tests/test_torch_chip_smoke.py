@@ -62,3 +62,30 @@ def test_an_empty_trace_fails(monkeypatch):
     stub_profiles(monkeypatch, [None])
     with pytest.raises(AssertionError, match="no device activity"):
         chip_smoke.census_profile(lambda: None, WALK, "a replay")
+
+
+@pytest.mark.parametrize("bound_ms,under", [(0.003, "warm"),
+                                            (0.005, "warm and cold"),
+                                            (0.001, None)])
+def test_a_timing_under_its_bound_is_marked(monkeypatch, bound_ms, under):
+    """_timed keeps the warm and the cold (L2 flushed) readings and the
+    library call's time, and marks a device time under the DRAM bound as
+    L2-resident instead of presenting it against the bound."""
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, reps=10, cold=False: 0.5 if cold else 0.25)
+    monkeypatch.setattr(
+        chip_smoke, "kernel_profile",
+        lambda fn, reps=5, cold=False: reading({"k": 1.0},
+                                               0.004 if cold else 0.002))
+    st = {}
+    line = chip_smoke._timed(st, None, None, [1], (bound_ms, "bytes"),
+                             library=lambda: None)
+    assert (st["ms"], st["cold_ms"], st["library_ms"]) == (0.25, 0.5, 0.25)
+    assert (st["device_ms"], st["cold_device_ms"]) == (0.002, 0.004)
+    if under is None:
+        assert "UNDER" not in line
+    else:
+        assert f"; {under} device time UNDER the bound" in line
+    st = {}
+    chip_smoke._timed(st, None, None, [1], (bound_ms, "bytes"))
+    assert "library_ms" not in st

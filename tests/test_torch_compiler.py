@@ -175,3 +175,56 @@ def test_examples_execute_on_the_dummy_backend(name, inputs_src, output_src,
         compiled, inputs, abc_tpu_torch.Parser.parse(output_src),
         DummyCiphertextFactory(8))
     assert [int(v) for v in pairs[0][1].values[:len(expected)]] == expected
+
+
+def _discount(pkg, factory, datatype):
+    """tests/test_examples.py::test_discount_on_server_executes_ckks's run
+    in package `pkg` on `factory`: the decrypted rate and the output
+    ciphertext."""
+    compiled = pkg.compile_program(
+        PROGRAMS["discount_on_server"][0],
+        {"qualifies": datatype.Datatype(datatype.Type.DOUBLE, True)})
+    inputs = pkg.Parser.parse("secret double qualifies = 1.0;")
+    _, pairs = pkg.run_compiled(compiled, inputs,
+                                pkg.Parser.parse("out = discountRate;"),
+                                factory)
+    return factory.decrypt(pairs[0][1])[0], pairs[0][1].ct
+
+
+def test_discount_on_server_executes_ckks():
+    """The float mux over a secret flag, encrypted on the port's CKKS
+    factory (seed 7: two products with plaintext constants, added at their
+    common scale), decrypts to 0.90, and its output words, level and scale
+    are abc_tpu's np64 factory's."""
+    import numpy as np
+    from abc_tpu.runtime.ckks_backend import CkksCiphertextFactory as RefCkks
+    from abc_tpu.utils import datatype as ref_datatype
+    from abc_tpu_torch.ops.modarith import to_host
+    from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
+    from abc_tpu_torch.utils import datatype
+    got, ct = _discount(abc_tpu_torch,
+                        CkksCiphertextFactory(seed=7, device="cpu"), datatype)
+    assert abs(got - 0.90) < 1e-2
+    _, ref_ct = _discount(abc_tpu, RefCkks(seed=7, engine="np64"),
+                          ref_datatype)
+    assert (ct.level, ct.scale) == (ref_ct.level, ref_ct.scale)
+    np.testing.assert_array_equal(to_host(ct.data), np.asarray(ref_ct.data))
+
+
+@pytest.mark.gpu
+def test_discount_on_server_executes_ckks_on_cuda():
+    """The same on the card: 0.90, and the words of the port's CPU run of
+    the same seed."""
+    import torch
+    from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
+    from abc_tpu_torch.utils import datatype
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    got, ct = _discount(abc_tpu_torch,
+                        CkksCiphertextFactory(seed=7, device="cuda"),
+                        datatype)
+    _, cpu_ct = _discount(abc_tpu_torch,
+                          CkksCiphertextFactory(seed=7, device="cpu"),
+                          datatype)
+    assert abs(got - 0.90) < 1e-2
+    assert torch.equal(ct.data.cpu(), cpu_ct.data)

@@ -40,6 +40,14 @@ def reference():
     return test_fuzz_extended, test_pipeline_fuzz
 
 
+def pipeline_fuzz():
+    """tests/test_pipeline_fuzz.py (its program generator and dummy-backend
+    runner) by its own name, as the `gpu` cases need it on the GPU host:
+    it imports no `tests.<module>`."""
+    import test_pipeline_fuzz
+    return test_pipeline_fuzz
+
+
 def reference_words(inputs_src, program_src, output_src, factory):
     """{output: words} of the program through abc_tpu's compile pipeline and
     eager executor on `factory` (cleartext outputs as their values)."""
@@ -175,3 +183,121 @@ def test_ckks_jit_fuzz_vs_numpy_oracle(seed):
         assert_same_words(port_words(raw), reference_words(
             inputs_src, program_src, "out = acc;",
             RefCkksFactory(engine="np64", **CKKS)))
+
+
+# ------------------------------------------- the BFV engine under random programs
+
+def _engine_fuzz(seed, device):
+    """tests/test_pipeline_fuzz.py::test_bfv_engine_fuzz_matches_dummy with
+    the port's BfvCiphertextFactory (n=1024, seed 5) under the port's eager
+    executor: the program's decrypted outputs against the dummy backend's;
+    returns the output words."""
+    pf = pipeline_fuzz()
+    rng = random.Random(3000 + seed)
+    while True:
+        inputs_src, program_src, output_src, scalar_mixed = \
+            pf.gen_program(rng)
+        if program_src.count("acc * ") + program_src.count("* v") <= 2:
+            break
+    dummy = pf.run_with(inputs_src, program_src, output_src, pf.ALL_ON)
+    factory = BfvCiphertextFactory(slots=1024, seed=5, device=device)
+    input_ast = Parser.parse(inputs_src)
+    compiled = Compiler(ALL_ON).compile_source(
+        program_src, input_types_from_ast(input_ast))
+    rv = RuntimeVisitor(factory, input_ast, compiled.secret_tainted)
+    rv.execute_ast(compiled.ast)
+    pairs = rv.get_output(Parser.parse(output_src))
+    n_cmp = 1 if scalar_mixed else 8
+    words = {}
+    for (dn, dv), (name, value) in zip(dummy, pairs):
+        assert dn == name
+        if isinstance(value, AbstractCiphertext):
+            got = factory.decrypt(value)
+            words[name] = to_host(value.ct.data)
+        else:
+            got = list(value.values)
+            words[name] = got
+        assert dv[:n_cmp] == [int(v) for v in got][:n_cmp], (
+            f"seed {seed}\nprogram: {program_src}\n"
+            f"dummy={dv[:n_cmp]} bfv={got[:n_cmp]}")
+    return inputs_src, program_src, output_src, words
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_bfv_engine_fuzz_matches_dummy(seed):
+    """Random programs (multiplicative depth at most 2) through the port's
+    eager executor and BFV engine on the CPU decrypt as the dummy backend
+    does, and their output words are abc_tpu's np64 factory's of the same
+    seed: every key switch and relinearization the programs make goes
+    through the key-switch plain versions."""
+    inputs_src, program_src, output_src, words = _engine_fuzz(seed, "cpu")
+    assert_same_words(words, reference_words(
+        inputs_src, program_src, output_src,
+        RefFactory(slots=1024, engine="np64", seed=5)))
+
+
+@pytest.mark.gpu
+def test_bfv_engine_fuzz_matches_dummy_on_cuda():
+    """The engine fuzz on the card (the key-switch and BEHZ kernels under
+    random programs): the dummy backend's outputs, and the words of the
+    port's CPU run of the same seed."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for seed in range(3):
+        on_card = _engine_fuzz(seed, "cuda")[3]
+        assert_same_words(on_card, _engine_fuzz(seed, "cpu")[3])
+
+
+# ------------------------------------------------------- the mesh path (limb)
+
+def _mesh_fuzz(seed, device, n=256):
+    """tests/test_fuzz_extended.py::test_mesh_jit_fuzz_matches_single_device
+    through the port: a random program as one graph on a dp=2 x limb=4
+    LocalComm mesh (the key switch's contraction sharded over limb, one
+    psum between it and the inverse NTT) and on one device, both on
+    build_context(n, data_limbs=4, seed=41); every dp row's outputs
+    equal the single device's in the compared slots (each row is encrypted
+    with randomness of its own, so words differ)."""
+    from abc_tpu_torch.parallel.dryrun import build_context
+    from abc_tpu_torch.parallel.sharding import make_mesh
+    pf = pipeline_fuzz()
+    rng = random.Random(12_000 + seed)
+    while True:
+        inputs_src, program_src, output_src, scalar_mixed = \
+            pf.gen_program(rng)
+        if program_src.count("acc * ") + program_src.count("* v") <= 1:
+            break
+    jp = jit_compile_program(
+        program_src, inputs_src, output_src, options=ALL_ON,
+        factory=BfvCiphertextFactory(context=build_context(
+            n=n, data_limbs=4, seed=41, device=device)),
+        mesh=make_mesh(dp=2, limb=4, device=device))
+    jp1 = jit_compile_program(
+        program_src, inputs_src, output_src, options=ALL_ON,
+        factory=BfvCiphertextFactory(context=build_context(
+            n=n, data_limbs=4, seed=41, device=device)))
+    mesh_out, single_out = jp.run(), jp1.run()
+    n_cmp = 1 if scalar_mixed else 8
+    for name, single_vals in single_out.items():
+        for row in mesh_out[name]:      # every dp row: the same inputs
+            assert [int(v) for v in row][:n_cmp] == \
+                [int(v) for v in single_vals][:n_cmp], (
+                f"seed {seed} {name}\nprogram: {program_src}\n"
+                f"mesh={row[:n_cmp]} single={single_vals[:n_cmp]}")
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_mesh_jit_fuzz_matches_single_device(seed):
+    _mesh_fuzz(seed, "cpu")
+
+
+@pytest.mark.gpu
+def test_mesh_jit_fuzz_matches_single_device_on_cuda():
+    """The mesh fuzz on the card, at n=1024 (the NTT kernels take n from
+    1024): the sharded contraction and its psum in a captured graph."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for seed in range(2):
+        _mesh_fuzz(seed, "cuda", n=1024)

@@ -1,0 +1,557 @@
+"""abc_tpu_torch.ops.keyswitch_kernels (K4: the hybrid key switch and the
+rescale): the plain torch versions, reached through BfvContext and
+CkksContext, against abc_tpu's np64 contexts word for word; the kernel
+source itself compiled for the host against the stub runtime of
+tests/host_cuda and held word-equal to the plain versions; the CPU routing;
+and, on a CUDA device, each kernel against its plain version at the main
+paths' shapes.
+
+Inputs are drawn with numpy from a seed; residues are integers, so the
+tolerance is exact equality.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from abc_tpu.crypto.bfv import BfvContext as RefBfvContext
+from abc_tpu.crypto.ckks import CkksCiphertext as RefCkksCiphertext
+from abc_tpu.crypto.ckks import CkksContext as RefCkksContext
+from abc_tpu.crypto.ckks import CkksParams as RefCkksParams
+from abc_tpu.crypto.params import BfvParams as RefBfvParams
+from abc_tpu_torch.crypto.bfv import BfvContext
+from abc_tpu_torch.crypto.ckks import CkksCiphertext, CkksContext, CkksParams
+from abc_tpu_torch.crypto.numthy import gen_ntt_primes
+from abc_tpu_torch.crypto.params import BfvParams
+from abc_tpu_torch.ops import _build
+from abc_tpu_torch.ops import keyswitch_kernels as kk
+from abc_tpu_torch.ops.modarith import as_residues, ratio_table, to_host
+
+pytestmark = pytest.mark.filterwarnings(
+    "ignore:.*HE-standard 128-bit-security budget:UserWarning")
+
+HOST_STUB = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "host_cuda")
+N = 256                   # the plain-vs-reference cases
+L = 5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _primes(n, L, k):
+    """t of 20 bits and L + k primes of 30 bits at ring degree n."""
+    t = gen_ntt_primes(20, 1, n)[0]
+    return t, gen_ntt_primes(30, L + k, n, exclude=[t])
+
+
+def _rand(moduli, lead, n, seed):
+    """uint32 residues [*lead, len(moduli), n] with 0 and q-1 among them."""
+    q = np.asarray(moduli, dtype=np.uint64).reshape(-1, 1)
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, q, size=tuple(lead) + (len(moduli), n),
+                     dtype=np.uint64)
+    x[..., 0] = 0
+    x[..., 1::7] = q - 1
+    return x.astype(np.uint32)
+
+
+def _special_edges(x, cols, k):
+    """x with the centring edges of each of its last k rows' prime p in its
+    first columns: 0, p - 1, p >> 1 and (p >> 1) + 1."""
+    x = x.copy()
+    for s in range(k):
+        p = cols[len(cols) - k + s]
+        x[..., len(cols) - k + s, :4] = [0, p - 1, p >> 1, (p >> 1) + 1]
+    return x
+
+
+def _rows(x):
+    return x.reshape((-1,) + x.shape[-2:])
+
+
+# ---------------------------------------------- plain versions vs the reference
+
+@pytest.fixture(scope="module", params=[1, 2, 3], ids=["k1", "k2", "k3"])
+def bfv_pair(request):
+    """(port BfvContext on the CPU, abc_tpu np64 BfvContext): n=256, 5 data
+    primes, k special primes, seed 5."""
+    k = request.param
+    t, primes = _primes(N, L, k)
+    kw = dict(n=N, coeff_modulus=primes, plain_modulus=t, seed=5,
+              ks_digits=k)
+    return BfvContext(BfvParams(**kw), "cpu"), \
+        RefBfvContext(RefBfvParams(engine="np64", **kw))
+
+
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["single", "batch3"])
+def test_bfv_decompose_matches_np64(bfv_pair, lead):
+    port, ref = bfv_pair
+    d = _rand(port.params.data_primes, lead, N, 1)
+    got = to_host(port._decompose_ntt(as_residues(d, "cpu")))
+    for row, want_d in zip(got.reshape((-1,) + got.shape[-3:]), _rows(d)):
+        np.testing.assert_array_equal(row, ref._decompose_ntt(want_d))
+
+
+@pytest.mark.parametrize("perm", [False, True], ids=["plain", "galois"])
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["single", "batch3"])
+def test_bfv_ks_inner_matches_np64(bfv_pair, lead, perm):
+    """The contraction, the inverse transform and the mod switch down of
+    random digits with a random key; a Galois permutation read inside the
+    contraction against the reference's permuted digits."""
+    port, ref = bfv_pair
+    moduli = port.params.coeff_modulus
+    alpha = port.params.num_ks_digits
+    D = _rand(moduli, lead + (alpha,), N, 2)
+    kb, ka = (_rand(moduli, (alpha,), N, s) for s in (3, 4))
+    g = pow(3, 5, 2 * N)
+    got = port._ks_inner(as_residues(D, "cpu"), as_residues(kb, "cpu"),
+                         as_residues(ka, "cpu"),
+                         perm=port._galois_perm_eval(g) if perm else None)
+    got = [to_host(h).reshape((-1,) + h.shape[-2:]) for h in got]
+    for i, Di in enumerate(D.reshape((-1,) + D.shape[-3:])):
+        if perm:
+            Di = Di[..., ref._galois_perm_eval(g)]
+        want = ref._ks_inner(Di, kb, ka)
+        for h in range(2):
+            np.testing.assert_array_equal(got[h][i], want[h])
+
+
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["single", "batch3"])
+def test_bfv_mod_switch_down_matches_np64(bfv_pair, lead):
+    """Random words over q∪P with 0, p-1, p>>1 and (p>>1)+1 in each special
+    row (both sides of the centring test)."""
+    port, ref = bfv_pair
+    moduli, k = port.params.coeff_modulus, port.params.ks_digits
+    x = _special_edges(_rand(moduli, lead, N, 6), moduli, k)
+    got = to_host(port._mod_switch_down(as_residues(x, "cpu")))
+    for row, xi in zip(got.reshape((-1,) + got.shape[-2:]), _rows(x)):
+        np.testing.assert_array_equal(row, ref._mod_switch_down(xi))
+
+
+@pytest.fixture(scope="module", params=[1, 2, 3], ids=["k1", "k2", "k3"])
+def ckks_pair(request):
+    """(port CkksContext on the CPU, abc_tpu np64 CkksContext): n=256, 5
+    data primes, k special primes, seed 9."""
+    k = request.param
+    _, primes = _primes(N, L, k)
+    kw = dict(n=N, coeff_modulus=primes, seed=9, ks_digits=k)
+    return CkksContext(CkksParams(**kw), "cpu"), \
+        RefCkksContext(RefCkksParams(engine="np64", **kw))
+
+
+def _cols(ctx, level):
+    p = ctx.params
+    return p.data_primes[:level] + p.special_primes
+
+
+@pytest.mark.parametrize("level", [L, 4, 3, 1])
+def test_ckks_decompose_and_ks_inner_match_np64(ckks_pair, level):
+    """At full level and below it (a partial last digit at k=2, 3): the
+    digit lift, and the contraction with a Galois permutation and without,
+    the inverse transform and the mod switch down."""
+    port, ref = ckks_pair
+    cols, k = _cols(port, level), port.params.ks_digits
+    d = _rand(port.params.data_primes[:level], (), N, level)
+    np.testing.assert_array_equal(
+        to_host(port._decompose_ntt(as_residues(d, "cpu"), level)),
+        ref._decompose_ntt(d, level))
+    alpha = -(-level // k)
+    D = _rand(cols, (alpha,), N, level + 1)
+    kb, ka = (_rand(cols, (alpha,), N, level + s) for s in (2, 3))
+    g = pow(3, 3, 2 * N)
+    for perm in (None, g):
+        got = port._ks_inner(
+            as_residues(D, "cpu"), as_residues(kb, "cpu"),
+            as_residues(ka, "cpu"), level,
+            perm=None if perm is None else port._galois_perm_eval(g))
+        Dr = D if perm is None else D[..., ref._galois_perm_eval(g)]
+        want = ref._ks_inner(Dr, kb, ka, level)
+        for h in range(2):
+            np.testing.assert_array_equal(to_host(got[h]), want[h])
+
+
+@pytest.mark.parametrize("level", [L, 3, 1])
+def test_ckks_mod_switch_down_matches_np64(ckks_pair, level):
+    port, ref = ckks_pair
+    cols, k = _cols(port, level), port.params.ks_digits
+    x = _special_edges(_rand(cols, (), N, 20 + level), cols, k)
+    np.testing.assert_array_equal(
+        to_host(port._mod_switch_down(as_residues(x, "cpu"), level)),
+        ref._mod_switch_down(x, level))
+    # both accumulators of a key switch in one call, as _ks_inner makes it
+    pair = _special_edges(_rand(cols, (2,), N, 30 + level), cols, k)
+    got = to_host(port._mod_switch_down(as_residues(pair, "cpu"), level))
+    for h in range(2):
+        np.testing.assert_array_equal(got[h],
+                                      ref._mod_switch_down(pair[h], level))
+
+
+@pytest.mark.parametrize("size", [2, 3])
+@pytest.mark.parametrize("level", [L, 4, 2])
+def test_ckks_rescale_matches_np64(ckks_pair, level, size):
+    """rescale of a ciphertext at full level and below (size 3: before
+    relinearization), the dropped limb holding the centring edges; and of a
+    mod_drop_to view of a higher-level one."""
+    port, ref = ckks_pair
+    qs = port.params.data_primes
+    x = _special_edges(_rand(qs[:level], (size,), N, 40 + level),
+                       qs[:level], 1)
+    got = port.rescale(CkksCiphertext(as_residues(x, "cpu"), level, 2.0 ** 40))
+    want = ref.rescale(RefCkksCiphertext(x, level, 2.0 ** 40))
+    assert got.level == want.level == level - 1 and got.scale == want.scale
+    np.testing.assert_array_equal(to_host(got.data), want.data)
+    wide = as_residues(_rand(qs, (size,), N, 50), "cpu")
+    wide[:, :level] = as_residues(x, "cpu")
+    view = port.mod_drop_to(CkksCiphertext(wide, L, 2.0 ** 40), level)
+    assert torch.equal(port.rescale(view).data, got.data)
+
+
+# --------------------------------------------------------------- the routing
+
+def test_cpu_route_launches_nothing(bfv_pair):
+    """A key switch and a rotation on CPU tensors run the plain versions."""
+    port, _ = bfv_pair
+    before = dict(kk.launches)
+    ct = port.encrypt(port.encode([1, 2, 3]))
+    port.rotate_rows(port.multiply(ct, ct), 1)
+    assert kk.launches == before
+    assert set(before) == {"ks_decompose", "ks_contract", "ks_mod_down"}
+
+
+def test_a_tensor_off_the_cpu_is_never_taken_by_the_plain_path():
+    """Only a CPU tensor takes a plain version: any other device goes to the
+    kernel's checks (here meta tensors, refused)."""
+    t, primes = _primes(64, 3, 1)
+    div = kk.Division(primes, 1, "meta")
+    q = as_residues(np.asarray(primes, np.uint32).reshape(-1, 1), "meta")
+    ratio = ratio_table(primes, "meta")
+    x = torch.empty((2, 4, 64), dtype=torch.int32, device="meta")
+    D = torch.empty((3, 4, 64), dtype=torch.int32, device="meta")
+    for call in (lambda: kk.mod_down(x, div),
+                 lambda: kk.decompose(x[:, :3], q, ratio),
+                 lambda: kk.contract(D, D, D, q, ratio)):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            call()
+
+
+def test_tables_have_the_source_layout():
+    """The packed words have csrc/keyswitch.cu's sizes, and the division's
+    steps are those of the plain loop (k of them, rows Lo + s)."""
+    t, primes = _primes(64, 5, 3)
+    div = kk.Division(primes, 3, "cpu")
+    assert len(div) == 3 and div.Lo == 5
+    assert div.words.numel() == 3 * kk.REC * (1 + 8)
+    assert [s[0].shape[0] for s in div.steps] == [5, 6, 7]
+    assert [s[3] for s in div.steps] == [p >> 1 for p in primes[5:]]
+    dg = kk.Digits(primes[:5], [[0, 1, 2], [3, 4]], primes, 3, "cpu")
+    assert (dg.alpha, dg.k) == (2, 3)
+    assert dg.words.numel() == 2 * 3 * (kk.REC + 8)
+    assert dg.inv_qhat[1, 2, 0] == 0          # the short digit's padding
+
+
+# ---------------------- the kernel source, compiled for the host (g++)
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """csrc/keyswitch.cu compiled by g++ against tests/host_cuda's stub
+    runtime (a launch runs its blocks in turn, a std::thread per thread)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel source for the host")
+    lib_path = tmp_path_factory.mktemp("ks_host") / "libks_host.so"
+    src = [s for s in _build.SOURCES if s.endswith("keyswitch.cu")][0]
+    subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
+                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}", src,
+                    "-o", str(lib_path)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    _build.bind_keyswitch(lib)
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _base(n, L, k, cut=None):
+    """(data primes, columns q ∪ P as a [R, 1] column and ratios) at ring
+    degree n: L data primes and k special primes of 30 bits."""
+    _, primes = _primes(n, L, k)
+    cols = primes if cut is None else primes[:cut] + primes[L:]
+    return primes[:L], cols, as_residues(
+        np.asarray(cols, np.uint32).reshape(-1, 1), "cpu"), \
+        ratio_table(cols, "cpu")
+
+
+def _stride(x):
+    """The words between x's [L, n] rows, as the wrappers pass them."""
+    stride = kk._row_stride(x)
+    assert stride is not None
+    return stride
+
+
+def _host_decompose(lib, d, q, ratio, digits):
+    rows, Lin, n = d.numel() // (d.shape[-2] * d.shape[-1]), d.shape[-2], \
+        d.shape[-1]
+    A, K = (Lin, 1) if digits is None else (digits.alpha, digits.k)
+    out = torch.empty(tuple(d.shape[:-2]) + (A, q.shape[0], n),
+                      dtype=torch.int32)
+    assert lib.abc_ks_decompose(
+        d.data_ptr(), out.data_ptr(), q.data_ptr(), ratio.data_ptr(),
+        _ptr(None if digits is None else digits.words), rows, _stride(d),
+        Lin, A, q.shape[0], K, n.bit_length() - 1, None) == 0
+    return out
+
+
+def _host_contract(lib, D, kb, ka, q, ratio, perm):
+    A, R, n = D.shape[-3:]
+    rows = D.numel() // (A * R * n)
+    krows = kb.numel() // (A * R * n)
+    out = torch.empty(tuple(D.shape[:-3]) + (2, R, n), dtype=torch.int32)
+    assert lib.abc_ks_contract(
+        D.data_ptr(), kb.data_ptr(), ka.data_ptr(), out.data_ptr(),
+        _ptr(perm), q.data_ptr(), ratio.data_ptr(), rows, krows, A, R,
+        n.bit_length() - 1, None) == 0
+    return out
+
+
+def _host_mod_down(lib, x, div):
+    n = x.shape[-1]
+    rows = x.numel() // (x.shape[-2] * n)
+    out = torch.empty(tuple(x.shape[:-2]) + (div.Lo, n), dtype=torch.int32)
+    assert lib.abc_ks_mod_down(x.data_ptr(), out.data_ptr(),
+                               div.words.data_ptr(), rows, _stride(x),
+                               div.Lo, div.k, n.bit_length() - 1, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("n,L,k,lead", [
+    (4, 5, 1, (3,)), (64, 6, 1, ()), (512, 13, 1, (2,)), (8, 5, 2, (2,)),
+    (64, 6, 2, ()), (128, 8, 3, (3,)), (256, 27, 2, ()), (32, 20, 17, ())])
+def test_decompose_source_on_the_host(host_lib, n, L, k, lead):
+    """ks_decompose on the host: the k = 1 lift and the k >= 2 fast base
+    conversion (a short last digit where k does not divide L; 17 sources a
+    digit, past one 64-bit sum of 16 products), n from 4 to 512, with and
+    without a leading axis."""
+    qs, cols, q, ratio = _base(n, L, k)
+    digits = None if k == 1 else kk.Digits(
+        qs, [list(range(j, min(j + k, L))) for j in range(0, L, k)], cols,
+        k, "cpu")
+    d = as_residues(_rand(qs, lead, n, n + L), "cpu")
+    want = kk.lift_plain(d, q) if digits is None else \
+        kk.decompose_plain(d, q, digits)
+    assert torch.equal(_host_decompose(host_lib, d, q, ratio, digits), want)
+    # the same rows read in place as component 1 of a batch of ciphertexts
+    wide = torch.zeros(lead + (3,) + tuple(d.shape[-2:]), dtype=torch.int32)
+    wide[..., 1, :, :] = d
+    assert torch.equal(_host_decompose(host_lib, wide[..., 1, :, :], q,
+                                       ratio, digits), want)
+
+
+@pytest.mark.parametrize("perm", [False, True], ids=["plain", "galois"])
+@pytest.mark.parametrize("n,A,lead,klead", [
+    (4, 6, (3,), ()), (64, 16, (), ()), (64, 17, (2,), ()),
+    (128, 27, (), ()), (512, 6, (2,), ()), (32, 27, (2, 4), (4,)),
+    (16, 3, (4,), (4,)), (8, 33, (), ())])
+def test_contract_source_on_the_host(host_lib, perm, n, A, lead, klead):
+    """ks_contract on the host: α up to 33 digits (products summed past 16
+    and 32 terms), a Galois permutation read in the loads or none, a key
+    without leading axes and one with D's last leading axis (a LocalComm
+    shard axis), n from 4 to 512."""
+    _, cols, q, ratio = _base(n, 6, 1)
+    D = as_residues(_rand(cols, lead + (A,), n, A), "cpu")
+    kb, ka = (as_residues(_rand(cols, klead + (A,), n, A + s), "cpu")
+              for s in (1, 2))
+    p = torch.from_numpy(np.random.default_rng(n).permutation(n)) \
+        if perm else None
+    got = _host_contract(host_lib, D, kb, ka, q, ratio, p)
+    assert torch.equal(got, kk.contract_plain(D, kb, ka, q, p))
+
+
+@pytest.mark.parametrize("n,L,k,lead,cut", [
+    (4, 5, 1, (3,), None), (64, 6, 1, (2,), None), (64, 6, 2, (), None),
+    (128, 5, 3, (2, 2), None), (512, 13, 1, (2,), None),
+    (64, 5, 3, (), 3), (32, 5, 5, (2,), None), (16, 5, 16, (), None)])
+def test_mod_down_source_on_the_host(host_lib, n, L, k, lead, cut):
+    """ks_mod_down on the host: k = 1 .. 16 special primes divided out in
+    one launch (every instantiation), a level below full (`cut` data
+    primes), n from 4 to 512, the centring edges in each special row."""
+    _, cols, _, _ = _base(n, L, k, cut)
+    div = kk.Division(cols, k, "cpu")
+    x = as_residues(_special_edges(_rand(cols, lead, n, n + k), cols, k),
+                    "cpu")
+    want = kk.mod_down_plain(x, div)
+    assert torch.equal(_host_mod_down(host_lib, x, div), want)
+    # the same rows read in place among wider ones
+    wide = torch.zeros(lead + (len(cols) + 2, n), dtype=torch.int32)
+    wide[..., :len(cols), :] = x
+    assert torch.equal(_host_mod_down(host_lib, wide[..., :len(cols), :],
+                                      div), want)
+
+
+@pytest.mark.parametrize("level,size", [(6, 2), (2, 3)])
+def test_rescale_source_on_the_host(host_lib, level, size):
+    """A rescale is ks_mod_down's division of a level by its last prime."""
+    qs, _, _, _ = _base(64, 6, 1)
+    div = kk.Division(qs[:level], 1, "cpu")
+    x = as_residues(_special_edges(_rand(qs[:level], (size,), 64, level),
+                                   qs[:level], 1), "cpu")
+    assert torch.equal(_host_mod_down(host_lib, x, div),
+                       kk.mod_down_plain(x, div))
+
+
+def test_host_launch_info_and_refusals(host_lib):
+    """abc_ks_launch_info: a quad a thread, 128 a block, ks_mod_down's
+    instantiation by k; shapes the kernels do not take are refused."""
+    info = (ctypes.c_longlong * 6)()
+    assert host_lib.abc_ks_launch_info(1, 2 * 7, 1, 13, info) == 0
+    assert tuple(info[:4]) == (0, 0, 128, 2 * 7 * 8192 // 4 // 128)
+    for k, arg in ((1, 1), (2, 2), (3, 4), (5, 16), (16, 16)):
+        assert host_lib.abc_ks_launch_info(2, 12, k, 13, info) == 0
+        assert info[0] == arg
+    assert host_lib.abc_ks_launch_info(2, 12, 17, 13, info) != 0
+    assert host_lib.abc_ks_mod_down(None, None, None, 1, 23 << 13, 6, 17,
+                                    13, None) != 0
+    assert host_lib.abc_ks_mod_down(None, None, None, 1, 6 << 13, 6, 1, 13,
+                                    None) != 0          # rows overlap
+    assert host_lib.abc_ks_contract(None, None, None, None, None, None, None,
+                                    3, 2, 6, 7, 13, None) != 0
+    assert host_lib.abc_ks_decompose(None, None, None, None, None, 1,
+                                     6 << 13, 6, 5, 7, 1, 13, None) != 0
+
+
+def test_row_strides_the_kernels_take():
+    """The lift and the mod switch read rows at one stride (a component of
+    a batch, a level's limbs of a wider ciphertext); rows whose leading
+    axes need two strides (a LocalComm shard axis over a component) are
+    refused, and the contexts copy them once."""
+    x = torch.zeros((4, 3, 6, 64), dtype=torch.int32)
+    assert kk._row_stride(x) == 6 * 64
+    assert kk._row_stride(x[:, 2]) == 3 * 6 * 64
+    assert kk._row_stride(x[:, :, :4]) == 6 * 64
+    assert kk._row_stride(x[0, 1]) == 6 * 64
+    assert kk._row_stride(x[:, 1].unflatten(-2, (2, 3))) is None
+    assert kk._row_stride(x[..., ::2]) is None
+
+
+@pytest.mark.parametrize("edge", [None, "zero", "max", "half"])
+def test_chip_smoke_library_call_is_the_k1_lift(edge):
+    """chip_smoke.py phase 2c's library yardstick of ks_decompose, one
+    torch.remainder, gives the plain lift's words at the main path's k = 1
+    shape and on its edge inputs; a k = 2 shape (a base conversion) has
+    none."""
+    import chip_smoke
+    k1, k2 = chip_smoke.KS_SHAPES[0], chip_smoke.KS_SHAPES[2]
+    assert k1[3] == 1 and k2[3] == 2
+    _, _, plain, _, _, _, library = chip_smoke.ks_calls(
+        *k1, edge, "cpu")["ks_decompose"]
+    assert torch.equal(library(), plain())
+    assert chip_smoke.ks_calls(*k2, edge, "cpu")["ks_decompose"][-1] is None
+
+
+# ------------------------------------------------------------- on the card
+
+def _card_inputs(n, cols, lead, k, dev):
+    """Random residues over `cols` with the centring edges in the last k
+    rows, on the card and on the CPU."""
+    h = _special_edges(_rand(cols, lead, n, n + len(cols)), cols, k)
+    return as_residues(h, dev), as_residues(h, "cpu")
+
+
+def _card_cases(scheme, n, L, k, lead, level, dev):
+    """(kernel name, kernel call, plain call) of the three kernels of one
+    context's key switch (and a CKKS rescale) at one shape."""
+    if scheme == "bfv":
+        params = BfvParams.create(n, seed=11, ks_digits=k)
+        assert params.L == L
+        ctx, cpu = BfvContext(params, dev), BfvContext(params, "cpu")
+        cols, alpha = params.coeff_modulus, params.num_ks_digits
+        lift, ks, msd = (lambda c, d: c._decompose_ntt(d)), \
+            (lambda c, *a, perm=None: c._ks_partials(*a, perm=perm)), \
+            (lambda c, x: c._mod_switch_down(x))
+        qs, perm_g = params.data_primes, pow(3, 7, 2 * n)
+    else:
+        params = CkksParams.create(n, levels=L, seed=3, ks_digits=k)
+        ctx, cpu = CkksContext(params, dev), CkksContext(params, "cpu")
+        cols, alpha = params.data_primes[:level] + params.special_primes, \
+            -(-level // k)
+        lift = (lambda c, d: c._decompose_ntt(d, level))
+        ks = (lambda c, D, b, a, perm=None: kk.contract(
+            D, b, a, c._ntt_cols[level].q_col, c._ntt_cols[level].ratio,
+            perm))
+        msd = (lambda c, x: c._mod_switch_down(x, level))
+        qs, perm_g = params.data_primes[:level], pow(3, 7, 2 * n)
+    d, dc = _card_inputs(n, qs, lead, 0, dev)
+    D, Dc = _card_inputs(n, cols, lead + (alpha,), k, dev)
+    (kb, kbc), (ka, kac) = (_card_inputs(n, cols, (alpha,), k, dev)
+                            for _ in range(2))
+    x, xc = _card_inputs(n, cols, lead + (2,), k, dev)
+    perm = ctx._galois_perm_eval(perm_g)
+    cases = [
+        ("ks_decompose", lambda: lift(ctx, d), lambda: lift(cpu, dc)),
+        ("ks_contract", lambda: ks(ctx, D, kb, ka),
+         lambda: ks(cpu, Dc, kbc, kac)),
+        ("ks_contract", lambda: ks(ctx, D, kb, ka, perm=perm),
+         lambda: ks(cpu, Dc, kbc, kac, perm=perm.cpu())),
+        ("ks_mod_down", lambda: msd(ctx, x), lambda: msd(cpu, xc))]
+    if scheme == "ckks" and level > 1:
+        r, rc = _card_inputs(n, qs, (2,), 1, dev)
+        cases.append(("ks_mod_down",
+                      lambda: ctx.rescale(CkksCiphertext(r, level, 1.0)).data,
+                      lambda: cpu.rescale(CkksCiphertext(rc, level,
+                                                         1.0)).data))
+    return cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,n,L,k,lead,level", [
+    ("bfv", 8192, 6, 1, (), None), ("bfv", 8192, 6, 2, (), None),
+    ("bfv", 8192, 6, 1, (64,), None), ("bfv", 8192, 6, 2, (64,), None),
+    ("bfv", 16384, 13, 1, (), None), ("ckks", 32768, 8, 2, (), 8),
+    ("ckks", 32768, 8, 2, (), 7), ("ckks", 32768, 8, 2, (), 3)])
+def test_kernels_equal_plain_on_cuda(cuda, scheme, n, L, k, lead, level):
+    """Each kernel on the card against its plain version at the main paths'
+    shapes: BFV n=8192 L=6 k=1 and 2 at one ciphertext and at B=64, n=16384
+    L=13 (LaplaceSharpening), CKKS n=32768 at full level, one below and
+    level 3 (a partial digit), with and without a Galois permutation."""
+    for name, kern, plain in _card_cases(scheme, n, L, k, lead, level,
+                                         cuda):
+        before = kk.launches[name]
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert kk.launches[name] == before + 1, name
+        assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.gpu
+def test_views_are_copied_once_and_otherwise_refused_on_cuda(cuda):
+    """The lift and the mod switch read rows at one stride in place; the
+    contexts copy a view of two strides once; any other layout handed to a
+    kernel raises."""
+    params = BfvParams.create(1024, seed=3)
+    ctx = BfvContext(params, cuda)
+    ct = as_residues(_rand(params.data_primes, (4, 2), 1024, 1), cuda)
+    got = ctx._decompose_ntt(ct[:, 1])            # rows at one stride
+    assert torch.equal(got, ctx._decompose_ntt(ct[:, 1].contiguous()))
+    split = ct[:, 1].unflatten(-2, (params.L, 1))   # two strides
+    with pytest.raises(ValueError, match="contiguous"):
+        kk.decompose(split, ctx.ntt_qp.q_col, ctx.ntt_qp.ratio)
+    x = as_residues(_rand(params.coeff_modulus, (2, 2), 1024, 2), cuda)
+    assert torch.equal(kk.mod_down(x[:, 0], ctx._division),
+                       kk.mod_down(x[:, 0].contiguous(), ctx._division))
+    for bad in (x[..., ::2], x.transpose(0, 1)):
+        with pytest.raises(ValueError, match="contiguous"):
+            kk.mod_down(bad, ctx._division)
+    D = as_residues(_rand(params.coeff_modulus, (2, 5), 1024, 3), cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kk.contract(D[:, :4], D[0, :4].contiguous(), D[0, :4].contiguous(),
+                    ctx.ntt_qp.q_col, ctx.ntt_qp.ratio)
