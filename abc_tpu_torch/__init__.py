@@ -30,7 +30,7 @@ Layout (module for module the reference's):
                          their packed tables; the tensor product's plain
                          version (the conversions' are BehzContext's)
   crypto/numthy.py, params.py — primes and parameter presets
-  crypto/prng.py       — Threefry-2x32 streams (numpy words, torch polynomials)
+  crypto/prng.py       — Threefry-2x32 stream keys (numpy words)
   crypto/ntt.py        — twiddle tables, NttContext over [..., L, n] residues,
                          leveled views (subset)
   crypto/rlwe.py       — what BFV and CKKS share: randomness, keygen, the

@@ -5,8 +5,9 @@ relinearization, hybrid key switching for k = 1 and k ≥ 2, Galois rotations
 with hoisting).
 
 Everything key- or ciphertext-sized is computed on the context's device
-through the torch engine, the port's NttContext (CUDA kernels on the card,
-the plain stage loop on the CPU) and the torch Threefry: only n-sized
+through the port's kernels (ops/*_kernels.py: CUDA kernels on the card,
+their plain torch versions on the CPU), the NTT's and those of keys,
+encryption and decryption (ops/rlwe_kernels.py) among them: only n-sized
 samples cross from the host. The scalar tables are host bigint
 precomputation, as in the reference.
 
@@ -51,10 +52,10 @@ from abc_tpu_torch.crypto.numthy import modinv
 from abc_tpu_torch.crypto.params import BfvParams
 from abc_tpu_torch.crypto.rlwe import RlweKeys
 from abc_tpu_torch.ops import keyswitch_kernels as kk
+from abc_tpu_torch.ops import rlwe_kernels as rk
 from abc_tpu_torch.ops.modarith import as_residues, in_chain, t64, to_host
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
-_M32 = 0xFFFFFFFF
 _SLOT_MAP_CACHE: Dict[int, np.ndarray] = {}
 
 
@@ -114,6 +115,12 @@ class BfvContext(RlweKeys):
         self._digits = None if k == 1 else kk.Digits(
             params.data_primes, params.digit_groups, moduli, k, dev)
         self._division = kk.Division(moduli, k, dev)
+        # encryption's Δ mod q_j with its Shoup companions, and the
+        # decryption's scale-and-round (ops/rlwe_kernels.py)
+        self._delta = rk.shoup_pairs(host["delta_mod_q"], params.data_primes,
+                                     dev)
+        self._dec_round = rk.DecRound(params.data_primes,
+                                      params.plain_modulus, dev)
         self._slot_to_pos = torch.from_numpy(_build_slot_map(n)).to(dev)
         self._op_cache: OrderedDict = OrderedDict()
         self._dec_cache: OrderedDict = OrderedDict()
@@ -146,15 +153,6 @@ class BfvContext(RlweKeys):
             for r, qr in enumerate(moduli):
                 factors[j, r, 0] = (P * w) % qr
         host["ks_factors"] = factors
-        # decrypt tables (exact fixed-point scale-and-round):
-        # m = round(Σ_l y_l·θ_l) mod t with y_l = [v_l·(q/q_l)^{-1}]_{q_l}
-        # and θ_l = t·q̂_l/q = t/q_l < 1 (t is below every prime, so the
-        # integer CRT part vanishes); θ_l is carried as the 64-bit
-        # fixed-point pair (f_hi, f_lo) = floor(θ_l·2^64)
-        host["dec_qinv"] = col([modinv((q_big // qi) % qi, qi) for qi in qs])
-        theta_fp = [(t << 64) // qi for qi in qs]
-        host["dec_f_hi"] = col([f >> 32 for f in theta_fp])
-        host["dec_f_lo"] = col([f & _M32 for f in theta_fp])
         return host
 
     # -------------------------------------------------------------- encoding
@@ -185,60 +183,51 @@ class BfvContext(RlweKeys):
         return self.encrypt_many([pt])[0]
 
     def encrypt_many(self, pts: Sequence[Plaintext]) -> List[BfvCiphertext]:
-        """Encrypt a batch in one batched NTT + pointwise pass on the
-        device; the generator is drawn per ciphertext in the order u, e0,
-        e1."""
+        """Encrypt a batch in one pass on the device: u lifted (rlwe_lift)
+        and transformed, u·pk as one contraction of one digit with the
+        public key's two halves (ks_contract), one inverse NTT of [B, 2, L,
+        n], then c0 = ci0 + e0 + Δ·m and c1 = ci1 + e1 in one rlwe_lift.
+        The generator is drawn per ciphertext in the order u, e0, e1."""
         if not pts:
             return []
         samples = [(self._sample_ternary(), self._sample_error(),
                     self._sample_error()) for _ in pts]
-        u, e0, e1 = (self._lift_signed(np.stack([s[i] for s in samples]),
-                                       self.q_q) for i in range(3))
+        u = self._lift_signed(np.stack([s[0] for s in samples]), self.q_q)
+        e = self._small(np.stack([s[1:] for s in samples]))    # [B, 2, n]
         u_ntt = self.ntt_q.fwd(u)                              # [B, L, n]
-        pre = torch.stack([t64.mul(self.pk_b_ntt, u_ntt, self.q_q),
-                           t64.mul(self.pk_a_ntt, u_ntt, self.q_q)], dim=1)
+        pre = kk.contract(u_ntt[:, None], self.pk_b_ntt[None],
+                          self.pk_a_ntt[None], self.q_q, self.ntt_q.ratio)
         ci = self.ntt_q.inv(pre)                               # [B, 2, L, n]
         m = torch.stack([pt.coeffs for pt in pts])             # [B, n]
-        dm = t64.mul(m[:, None, :], self._tab["delta_mod_q"], self.q_q)
-        c0 = t64.add(t64.add(ci[:, 0], e0, self.q_q), dm, self.q_q)
-        c1 = t64.add(ci[:, 1], e1, self.q_q)
-        data = torch.stack([c0, c1], dim=1)
+        data = rk.rlwe_lift(e, self.q_q, base=ci, msg=m, delta=self._delta)
         return [BfvCiphertext(data[i]) for i in range(len(pts))]
 
     # --------------------------------------------------------------- decrypt
     def _dot_secret(self, ct: BfvCiphertext) -> torch.Tensor:
         """v = Σ_k c_k·s^k mod q, [L, n] coefficient-domain residues
-        (size-3 ciphertexts before relinearization included)."""
-        s = self._secret()[:self.params.L]
-        c_ntt = self.ntt_q.fwd(ct.data)
-        acc = t64.add(c_ntt[0], t64.mul(c_ntt[1], s, self.q_q), self.q_q)
-        if ct.size == 3:
-            s2 = t64.mul(s, s, self.q_q)
-            acc = t64.add(acc, t64.mul(c_ntt[2], s2, self.q_q), self.q_q)
-        elif ct.size != 2:
+        (size-3 ciphertexts before relinearization included): one
+        contraction of the components' transforms with the rows [1, s,
+        s²] (ks_contract, one half)."""
+        if ct.size not in (2, 3):
             raise RuntimeExecutionError(f"cannot decrypt size-{ct.size}")
-        return self.ntt_q.inv(acc)
+        L = self.params.L
+        c_ntt = self.ntt_q.fwd(ct.data)
+        acc = kk.contract(c_ntt[None], self._secret_powers(L, ct.size), None,
+                          self.q_q, self.ntt_q.ratio)
+        return self.ntt_q.inv(acc[0, 0])
 
     def decrypt(self, ct: BfvCiphertext) -> Plaintext:
         """Dot product with the secret and exact fixed-point CRT
-        scale-and-round on the device (table notes in _scalar_tables): the
-        fractional parts of y_l·θ_l are summed exactly in 2^-32 units. A
-        coefficient within 4096·2^-32 of the rounding boundary (noise at
-        capacity) sends the whole ciphertext to the exact bigint path."""
-        t = self.params.plain_modulus
+        scale-and-round on the device (bfv_dec_round): the fractional parts
+        of y_l·θ_l are summed exactly in 2^-32 units. A coefficient within
+        4096·2^-32 of the rounding boundary (noise at capacity) sets the
+        kernel's flag and sends the whole ciphertext to the exact bigint
+        path."""
         v = self._dot_secret(ct)
-        y = t64.mul(v, self._tab["dec_qinv"], self.q_q).to(torch.int64)
-        f_hi = self._tab["dec_f_hi"].to(torch.int64) & _M32
-        f_lo = self._tab["dec_f_lo"].to(torch.int64) & _M32
-        p_hi = y * f_hi                        # < 2^62: exact in int64
-        frac = ((p_hi & _M32) + ((y * f_lo) >> 32)).sum(dim=0)
-        whole = (p_hi >> 32).sum(dim=0) + (frac >> 32)
-        frac = frac & _M32
-        half = 1 << 31
-        if bool(((frac - half).abs() < 4096).any()):
+        m, flag = rk.bfv_dec_round(v, self._dec_round)
+        if bool(flag):
             return self._decrypt_exact(to_host(v))[0]
-        m = torch.remainder(whole + (frac >= half), t)
-        return Plaintext(m.to(torch.int32))
+        return Plaintext(m)
 
     def _crt_compose_host(self, v: np.ndarray) -> np.ndarray:
         """[L, n] residues → object array of exact bigints in [0, q)."""

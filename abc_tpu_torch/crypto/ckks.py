@@ -49,6 +49,7 @@ from abc_tpu_torch.crypto.ntt import NttContext
 from abc_tpu_torch.crypto.numthy import centered, gen_ntt_primes, modinv
 from abc_tpu_torch.crypto.rlwe import RlweKeys
 from abc_tpu_torch.ops import keyswitch_kernels as kk
+from abc_tpu_torch.ops import rlwe_kernels as rk
 from abc_tpu_torch.ops.behz_kernels import behz_tensor
 from abc_tpu_torch.ops.modarith import (as_residues, chain_range, in_chain,
                                           t64, to_host)
@@ -331,8 +332,10 @@ class CkksContext(RlweKeys):
 
     # --------------------------------------------------------------- encrypt
     def encrypt(self, pt: CkksPlaintext) -> CkksCiphertext:
-        """The generator is drawn in the order u, e0, e1; the products with
-        the public key go through one batched inverse NTT."""
+        """The generator is drawn in the order u, e0, e1: u lifted
+        (rlwe_lift) and transformed, u·pk as one contraction of one digit
+        with the public key's two halves (ks_contract), one inverse NTT,
+        then c0 = ci0 + e0 + m and c1 = ci1 + e1 in one rlwe_lift."""
         L = self.params.L
         if pt.level != L:
             raise RuntimeExecutionError("encrypt expects a full-level plaintext")
@@ -340,26 +343,25 @@ class CkksContext(RlweKeys):
         u = self._sample_ternary()
         e0, e1 = self._sample_error(), self._sample_error()
         u_ntt = self.ntt_q.fwd(self._lift_signed(u, q))
-        e = self._lift_signed(np.stack([e0, e1]), q)             # [2, L, n]
-        ci = self.ntt_q.inv(torch.stack([t64.mul(self.pk_b_ntt, u_ntt, q),
-                                         t64.mul(self.pk_a_ntt, u_ntt, q)]))
-        c = t64.add(ci, e, q)
-        c0 = t64.add(c[0], self._plain_dev(pt, L), q)
-        return CkksCiphertext(torch.stack([c0, c[1]]), L, pt.scale)
+        pre = kk.contract(u_ntt[None, None], self.pk_b_ntt[None],
+                          self.pk_a_ntt[None], q, self.ntt_q.ratio)
+        ci = self.ntt_q.inv(pre[0])                              # [2, L, n]
+        data = rk.rlwe_lift(self._small(np.stack([e0, e1])), q, base=ci,
+                            msg=self._plain_dev(pt, L))
+        return CkksCiphertext(data, L, pt.scale)
 
     def decrypt(self, ct: CkksCiphertext) -> CkksPlaintext:
-        """c₀ + c₁·s (+ c₂·s² …) via NTT-domain dot + inverse transform on
-        the device; only the [level, n] coefficient residues cross to the
-        host, where decode (exact CRT + float embedding) reads them."""
+        """c₀ + c₁·s (+ c₂·s² …): one contraction of the components'
+        transforms with the rows [1, s, s², ...] at the ciphertext's level
+        (ks_contract, one half) and the inverse transform on the device;
+        only the [level, n] coefficient residues cross to the host, where
+        decode (exact CRT + float embedding) reads them."""
         level = ct.level
-        ntt, q = self._ntt_at(level), self._q_at(level)
-        s = self._secret()[:level]
+        ntt = self._ntt_at(level)
         f = ntt.fwd(ct.data)
-        v, s_pow = f[0], None
-        for k in range(1, ct.size):
-            s_pow = s if s_pow is None else t64.mul(s_pow, s, q)
-            v = t64.add(v, t64.mul(f[k], s_pow, q), q)
-        return CkksPlaintext(to_host(ntt.inv(v)), level, ct.scale)
+        v = kk.contract(f[None], self._secret_powers(level, ct.size), None,
+                        ntt.q_col, ntt.ratio)
+        return CkksPlaintext(to_host(ntt.inv(v[0, 0])), level, ct.scale)
 
     # --------------------------------------------------------- homomorphic ops
     def _ntt_at(self, level: int) -> NttContext:

@@ -33,19 +33,29 @@ Randomness follows the reference draw for draw:
 A switching key toward a target secret s2 is the hybrid construction with
 digit size k = params.ks_digits: ksk_j = (−(a_j·s + e_j) + P·W_j·s2, a_j)
 over q∪P, W_j the CRT basis element of digit Q_j.
+
+On the device these are the kernels of csrc/rlwe.cu (ops/rlwe_kernels.py,
+which routes a CPU tensor to their plain versions): `rlwe_lift` lifts the
+small host draws, `ksk_compose` draws the uniform halves and composes the
+public key and every missing switching key of a `materialize_keys` call in
+one launch, `rns_uniform` regenerates the uniform halves a restored context
+was given without. Only the int8 draws and the Threefry key words cross
+from the host.
 """
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from abc_tpu_torch.crypto.ntt import eval_perm_tables
-from abc_tpu_torch.crypto.prng import (derive_key, seeded_rng, split_domain,
-                                       uniform_rns)
+from abc_tpu_torch.crypto.prng import derive_keys, seeded_rng, split_domain
+from abc_tpu_torch.ops import rlwe_kernels as rk
 from abc_tpu_torch.ops.modarith import as_residues, t64
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
@@ -62,6 +72,11 @@ class RlweKeys:
         context's, see convert.py), in which case nothing is drawn."""
         params, dev = self.params, self.device
         self._perm_dev: Dict = {}
+        # ksk_compose's P·W_j factors with their Shoup companions, and the
+        # decryption's NTT-form rows [1, s, s², ...] by level
+        self._ks_fac = rk.shoup_pairs(self._tab["ks_factors"],
+                                      params.coeff_modulus, dev)
+        self._s_powers: Dict[int, torch.Tensor] = {}
         # switching keys by id ("relin" / "galois_<g>") → device (b, a)
         self._keys: Dict[str, Tuple] = {}
         self._master_seed = int(
@@ -95,12 +110,14 @@ class RlweKeys:
     def _lift_signed(self, coeffs: np.ndarray, q_col: torch.Tensor
                      ) -> torch.Tensor:
         """Small signed host coefficients [..., n] (|v| ≤ 127) → residues
-        [..., L', n] on the device, L' the rows of q_col. Only the int8
-        samples cross to the device."""
-        v = torch.from_numpy(np.ascontiguousarray(coeffs, dtype=np.int8)
-                             ).to(self.device).to(torch.int64)
-        return torch.remainder(v[..., None, :],
-                               q_col.to(torch.int64)).to(torch.int32)
+        [..., L', n] on the device, L' the rows of q_col (rlwe_lift). Only
+        the int8 samples cross to the device."""
+        return rk.rlwe_lift(self._small(coeffs), q_col)
+
+    def _small(self, coeffs: np.ndarray) -> torch.Tensor:
+        """Small signed host coefficients as an int8 tensor on the device."""
+        return torch.from_numpy(np.ascontiguousarray(
+            coeffs, dtype=np.int8)).to(self.device)
 
     @property
     def public_seed(self) -> int:
@@ -109,44 +126,49 @@ class RlweKeys:
         secret and error draws, which are keyed from the other domain."""
         return self._prng_seed
 
+    def _key_words(self, streams: Sequence[str]) -> torch.Tensor:
+        """int32 [len(streams), 2] Threefry key words of the streams at the
+        public seed, on the device."""
+        return as_residues(derive_keys(self._prng_seed, streams),
+                           self.device)
+
     def _uniform_rns(self, num_limbs: int, streams) -> torch.Tensor:
         """Uniform residues over the first num_limbs moduli on the device,
         from the counter PRNG at (public seed, stream): [L', n] for one
-        stream label, [len(streams), L', n] for a list of them."""
+        stream label, [len(streams), L', n] for a list of them, in one
+        rns_uniform launch."""
         single = isinstance(streams, str)
-        keys = [derive_key(self._prng_seed, s)
-                for s in ([streams] if single else streams)]
-        k0, k1 = [k[0] for k in keys], [k[1] for k in keys]
-        if single:
-            k0, k1 = k0[0], k1[0]
-        return uniform_rns(k0, k1, self.params.coeff_modulus[:num_limbs],
-                           self.params.n, self.device)
+        u = rk.rns_uniform(self._key_words([streams] if single else streams),
+                           self.ntt_qp.q_col[:num_limbs],
+                           self.ntt_qp.ratio[:num_limbs], self.params.n)
+        return u[0] if single else u
 
     # ---------------------------------------------------------------- keygen
     def _keygen(self) -> None:
         """Secret key (NTT form over q∪P) and public key over q, NTT domain:
-        (b = −(a·s + e), a), computed on the device."""
-        L = self.params.L
+        (b = −(a·s + e), a), computed on the device: the public key is
+        ksk_compose's key of one digit and no target term."""
         self.s_coeffs = self._sample_ternary()
         e_pk = self._sample_error()
         self.s_ntt_full = self.ntt_qp.fwd(
             self._lift_signed(self.s_coeffs, self._tab["q_full"]))
-        a_ntt = self._uniform_rns(L, "pk")   # uniform is uniform in NTT form
         e_ntt = self.ntt_q.fwd(self._lift_signed(e_pk, self.q_q))
-        as_ntt = t64.mul(a_ntt, self.s_ntt_full[:L], self.q_q)
-        self.pk_b_ntt = t64.sub(t64.neg(as_ntt, self.q_q), e_ntt, self.q_q)
-        self.pk_a_ntt = a_ntt
+        b, a = rk.ksk_compose(self._key_words(["pk"]).reshape(1, 1, 2),
+                              e_ntt[None, None], self.s_ntt_full, self.q_q,
+                              self.ntt_q.ratio)
+        self.pk_b_ntt, self.pk_a_ntt = b[0, 0], a[0, 0]
 
     def _ksk_errors(self, stream: str) -> np.ndarray:
-        """[α, n] Gaussian errors for one switching key, from a generator
-        keyed by (secret seed, stream): order-independent, so repeated
-        builds give the same key. float32 ziggurat normals drawn with numpy,
-        as the reference draws them."""
+        """int8 [α, n] Gaussian errors for one switching key, from a
+        generator keyed by (secret seed, stream): order-independent, so
+        repeated builds give the same key. float32 ziggurat normals drawn
+        with numpy, as the reference draws them."""
         rng_e = seeded_rng(self._sec_seed, f"{stream}/e")
-        e = np.rint(rng_e.standard_normal(
+        e = rng_e.standard_normal(
             (self.params.num_ks_digits, self.params.n), dtype=np.float32)
-            * np.float32(self.params.error_std))
-        return np.clip(e, -19, 19).astype(np.int64)
+        np.multiply(e, np.float32(self.params.error_std), out=e)
+        np.rint(e, out=e)
+        return np.clip(e, -19, 19, out=e).astype(np.int8)
 
     def _secret(self) -> torch.Tensor:
         """The secret in NTT form over q∪P; raises where the context holds
@@ -160,46 +182,80 @@ class RlweKeys:
                 "keys it holds, and cannot decrypt or build a switching key")
         return self.s_ntt_full
 
-    def _ksk_target(self, key_id: str) -> torch.Tensor:
-        """NTT-domain target secret for a key id: s² for "relin", τ_g(s) for
-        "galois_<g>", the latter as the evaluation-domain permutation."""
+    def _build_keys_batch(self, key_ids: Sequence[str]) -> Dict[str, Tuple]:
+        """Switching keys toward the target secrets of `key_ids` ("relin":
+        s², "galois_<g>": τ_g(s) as the evaluation-domain permutation), each
+        (ksk_b, ksk_a) of [α, L+k, n], in one ksk_compose launch: the
+        uniform halves drawn in the kernel from the streams "<key id>/d<i>"
+        at the public seed, the errors one int8 [K, α, n] host draw lifted
+        by rlwe_lift and transformed by one forward NTT of K·α·(L+k) rows,
+        the targets read in the kernel's loads. The stream label is the key
+        id, so any engine regenerates the same key from (seed, id) alone.
+
+        Each key's errors come from a generator of its own, so they are
+        drawn on a thread a key (numpy fills arrays without the interpreter
+        lock), while this thread makes the key words and the targets; the
+        words equal one-at-a-time draws."""
         s = self._secret()
-        if key_id == "relin":
-            return t64.mul(s, s, self._tab["q_full"])
-        g = int(key_id[len("galois_"):])
-        return s.index_select(-1, self._galois_perm_eval(g))
-
-    def _build_key(self, key_id: str) -> Tuple:
-        """One switching key toward the target secret of `key_id`, on the
-        device: (ksk_b, ksk_a), each [α, L+k, n]. All α digits in one
-        batch: one Threefry call, one forward NTT of α·(L+k) rows. The
-        stream label is the key id, so any engine regenerates the same key
-        from (seed, id) alone."""
+        alpha = self.params.num_ks_digits
         q_full = self._tab["q_full"]
-        target = self._ksk_target(key_id)
-        a = self._ksk_uniform(key_id)
-        e_ntt = self.ntt_qp.fwd(
-            self._lift_signed(self._ksk_errors(key_id), q_full))
-        term = t64.mul(target[None], self._tab["ks_factors"], q_full)
-        a_s = t64.mul(a, self.s_ntt_full[None], q_full)
-        b = t64.add(t64.sub(t64.neg(a_s, q_full), e_ntt, q_full), term,
-                    q_full)
-        return b, a
+        with ThreadPoolExecutor(min(len(key_ids), os.cpu_count() or 1)) \
+                as pool:
+            draws = pool.map(self._ksk_errors, key_ids)
+            keys = self._key_words([f"{kid}/d{i}" for kid in key_ids
+                                    for i in range(alpha)]
+                                   ).reshape(len(key_ids), alpha, 2)
+            target: List[int] = []
+            perms: List[torch.Tensor] = []
+            for kid in key_ids:
+                if kid == "relin":
+                    target.append(-1)
+                else:
+                    target.append(len(perms))
+                    perms.append(self._galois_perm_eval(
+                        int(kid[len("galois_"):])))
+            errors = np.stack(list(draws))
+        e_ntt = self.ntt_qp.fwd(self._lift_signed(errors, q_full))
+        b, a = rk.ksk_compose(
+            keys, e_ntt, s, q_full, self.ntt_qp.ratio, self._ks_fac,
+            torch.tensor(target, dtype=torch.int32, device=self.device),
+            torch.stack(perms) if perms else None)
+        return {kid: (b[j], a[j]) for j, kid in enumerate(key_ids)}
 
-    def _ksk_uniform(self, key_id: str) -> torch.Tensor:
-        """The uniform halves [α, L+k, n] of a switching key: one stream
-        "<key id>/d<i>" per digit at the public seed."""
+    def _ksk_uniform(self, key_ids: Sequence[str]) -> torch.Tensor:
+        """The uniform halves [K, α, L+k, n] of K switching keys: one stream
+        "<key id>/d<i>" per digit at the public seed, one rns_uniform
+        launch."""
+        alpha = self.params.num_ks_digits
         return self._uniform_rns(
-            self.full,
-            [f"{key_id}/d{i}" for i in range(self.params.num_ks_digits)])
+            self.full, [f"{kid}/d{i}" for kid in key_ids
+                        for i in range(alpha)]
+        ).reshape(len(key_ids), alpha, self.full, self.params.n)
 
     def materialize_keys(self, key_ids: Sequence[str]) -> Dict[str, Tuple]:
         """Device key pairs for a set of key ids ("relin" / "galois_<g>"),
-        building each missing one once."""
-        for key_id in key_ids:
-            if key_id not in self._keys:
-                self._keys[key_id] = self._build_key(key_id)
+        building every missing one in one batch."""
+        missing = [kid for kid in dict.fromkeys(key_ids)
+                   if kid not in self._keys]
+        if missing:
+            self._keys.update(self._build_keys_batch(missing))
         return {key_id: self._keys[key_id] for key_id in key_ids}
+
+    def _secret_powers(self, level: int, size: int) -> torch.Tensor:
+        """[size, level, n]: the NTT-form rows 1, s, s², ... over the first
+        `level` primes, against which a decryption contracts its
+        ciphertext's components (keyswitch_kernels.contract with one half);
+        made once per level (at least three rows) and kept until the keys
+        change."""
+        rows = self._s_powers.get(level)
+        if rows is None or rows.shape[0] < size:
+            s = self._secret()[:level]
+            q = self._tab["q_full"][:level]
+            pows = [torch.ones_like(s), s]
+            while len(pows) < max(3, size):
+                pows.append(t64.mul(pows[-1], s, q))
+            rows = self._s_powers[level] = torch.stack(pows)
+        return rows[:size]
 
     def get_relin_key(self) -> Tuple:
         return self.materialize_keys(["relin"])["relin"]
@@ -241,16 +297,21 @@ class RlweKeys:
         self.pk_b_ntt = as_residues(pk_b_ntt, dev)
         self.pk_a_ntt = (self._uniform_rns(self.params.L, "pk")
                          if pk_a_ntt is None else as_residues(pk_a_ntt, dev))
+        missing = [kid for kid, (_, a) in switching_keys.items() if a is None]
+        uniform = dict(zip(missing, self._ksk_uniform(missing))) \
+            if missing else {}
         self._keys = {
             key_id: (as_residues(ksk_b, dev),
-                     self._ksk_uniform(key_id) if ksk_a is None
+                     uniform[key_id] if ksk_a is None
                      else as_residues(ksk_a, dev))
             for key_id, (ksk_b, ksk_a) in switching_keys.items()}
         self._forget_key_tables()
 
     def _forget_key_tables(self) -> None:
         """Empty every table derived from the keys (the identity-keyed
-        caches; a context with per-key tables of its own extends this)."""
+        caches, the decryption's powers of s; a context with per-key tables
+        of its own extends this)."""
+        self._s_powers.clear()
         with self.fresh_caches():
             pass
 

@@ -50,22 +50,6 @@ constexpr int kMaxSpecials = 16;
 // words of one record of the mod-down table (module note of abc_ks_mod_down)
 constexpr int kRec = 4;
 
-// Where a thread's quad lies: `line` counts the output rows before it
-// (every axis but the last, flattened), c is its first coefficient.
-struct At {
-  long long line;
-  size_t c;
-};
-
-__device__ __forceinline__ At at_of(long long t, int logn) {
-  const int qlog = logn - 2;
-  return {t >> qlog, static_cast<size_t>(t & ((1LL << qlog) - 1)) * 4};
-}
-
-__device__ __forceinline__ uint64_t ld64(const uint64_t* p) {
-  return __ldg(reinterpret_cast<const unsigned long long*>(p));
-}
-
 // ----------------------------------------------------------- digit lift
 
 // K4c. d: rows of [L_in, n] coefficient-domain residues over the data
@@ -135,9 +119,10 @@ ks_decompose_kernel(const uint32_t* __restrict__ d,
 // [A, R, n] (the switching key's halves; row `row` of D reads key row row %
 // krows, so a key without leading axes has krows 1 and a key sharded like
 // D carries D's last leading axes); out: rows of [2, R, n], the sums over
-// the A digits of D kb and D ka mod q_r. With perm ([n] int64), output
-// column c reads D at column perm[c] (a Galois automorphism in the NTT
-// domain) and the key at c.
+// the A digits of D kb and D ka mod q_r; with ka null, rows of [1, R, n],
+// the sum of D kb alone (a decryption's dot product with [1, s, s^2, ...]).
+// With perm ([n] int64), output column c reads D at column perm[c] (a
+// Galois automorphism in the NTT domain) and the key at c.
 __global__ void __launch_bounds__(kThreads)
 ks_contract_kernel(const uint32_t* __restrict__ D,
                    const uint32_t* __restrict__ kb,
@@ -158,8 +143,9 @@ ks_contract_kernel(const uint32_t* __restrict__ D,
   const uint32_t* dp = D + static_cast<size_t>(row) * A * plane + rn;
   const size_t kofs = static_cast<size_t>(row % krows) * A * plane + rn +
                       at.c;
+  const bool two = ka != nullptr;
   const uint32_t* bp = kb + kofs;
-  const uint32_t* ap = ka + kofs;
+  const uint32_t* ap = two ? ka + kofs : nullptr;
   const uint32_t m = ld(q + r);
   const uint64_t ra = ld64(ratio + r);
   size_t p[4] = {at.c, at.c + 1, at.c + 2, at.c + 3};
@@ -176,12 +162,17 @@ ks_contract_kernel(const uint32_t* __restrict__ D,
                         ? ld4(di + at.c)
                         : make_uint4(ld(di + p[0]), ld(di + p[1]),
                                      ld(di + p[2]), ld(di + p[3]));
-    const uint4 b = ld4(bp + i * plane), a = ld4(ap + i * plane);
+    const uint4 b = ld4(bp + i * plane);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const uint64_t xe = lane_of(x, e);
-      acc_b[e] += xe * lane_of(b, e);
-      acc_a[e] += xe * lane_of(a, e);
+      acc_b[e] += static_cast<uint64_t>(lane_of(x, e)) * lane_of(b, e);
+    }
+    if (two) {
+      const uint4 a = ld4(ap + i * plane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_a[e] += static_cast<uint64_t>(lane_of(x, e)) * lane_of(a, e);
+      }
     }
     if ((i & 15) == 15 && i + 1 < A) {
 #pragma unroll
@@ -191,9 +182,11 @@ ks_contract_kernel(const uint32_t* __restrict__ D,
       }
     }
   }
-  uint32_t* o = out + static_cast<size_t>(row) * 2 * plane + rn + at.c;
+  uint32_t* o = out + static_cast<size_t>(row) * (two ? 2 : 1) * plane +
+                rn + at.c;
   st4(o, make_uint4(reduce64(acc_b[0], m, ra), reduce64(acc_b[1], m, ra),
                     reduce64(acc_b[2], m, ra), reduce64(acc_b[3], m, ra)));
+  if (!two) return;
   st4(o + plane,
       make_uint4(reduce64(acc_a[0], m, ra), reduce64(acc_a[1], m, ra),
                  reduce64(acc_a[2], m, ra), reduce64(acc_a[3], m, ra)));
@@ -328,8 +321,8 @@ int abc_ks_decompose(const void* d, void* out, const void* q,
 }
 
 // K4a: D [rows, A, R, n], kb and ka [krows, A, R, n] (rows a multiple of
-// krows), perm [n] int64 or null, q [R] uint32 and ratio [R] uint64 ->
-// out [rows, 2, R, n].
+// krows; ka may be null), perm [n] int64 or null, q [R] uint32 and ratio
+// [R] uint64 -> out [rows, 2, R, n] ([rows, 1, R, n] without ka).
 int abc_ks_contract(const void* D, const void* kb, const void* ka, void* out,
                     const void* perm, const void* q, const void* ratio,
                     long long rows, long long krows, int A, int R, int logn,

@@ -1,6 +1,6 @@
 // Loads, stores and the modular steps of the RNS kernels (behz.cu,
-// keyswitch.cu): residues are uint32 below 2^30, read and written four
-// coefficients at a time with one 16-byte access.
+// keyswitch.cu, rlwe.cu): residues are uint32 below 2^30, read and written
+// four coefficients at a time with one 16-byte access.
 #pragma once
 
 #include <cstdint>
@@ -12,6 +12,10 @@ namespace {
 
 __device__ __forceinline__ uint32_t ld(const uint32_t* p) { return __ldg(p); }
 
+__device__ __forceinline__ uint64_t ld64(const uint64_t* p) {
+  return __ldg(reinterpret_cast<const unsigned long long*>(p));
+}
+
 __device__ __forceinline__ uint4 ld4(const uint32_t* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
@@ -22,6 +26,19 @@ __device__ __forceinline__ void st4(uint32_t* p, uint4 v) {
 
 __device__ __forceinline__ uint32_t lane_of(const uint4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Where a thread of a kernel with a thread a quad (keyswitch.cu, rlwe.cu)
+// works: `line` counts the output rows before it (every axis but the last,
+// flattened), c is its first coefficient.
+struct At {
+  long long line;
+  size_t c;
+};
+
+__device__ __forceinline__ At at_of(long long t, int logn) {
+  const int qlog = logn - 2;
+  return {t >> qlog, static_cast<size_t>(t & ((1LL << qlog) - 1)) * 4};
 }
 
 // x mod q for any 64-bit x, ratio = floor(2^64 / q): the quotient estimate

@@ -20,7 +20,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = [os.path.join(_CSRC, f) for f in ("ntt.cu", "ntt_ablation.cu",
-                                             "behz.cu", "keyswitch.cu")]
+                                             "behz.cu", "keyswitch.cu",
+                                             "rlwe.cu")]
 HEADERS = [os.path.join(_CSRC, f) for f in ("ntt_common.cuh",
                                              "ntt_passes.cuh",
                                              "rns_common.cuh")]
@@ -115,6 +116,7 @@ def load() -> ctypes.CDLL:
     lib.abc_alu_chain.restype = i32
     bind_behz(lib)
     bind_keyswitch(lib)
+    bind_rlwe(lib)
     lib.abc_behz_launch_info.argtypes = [i32, i32, i32, i64, i32, vp]
     lib.abc_behz_launch_info.restype = i32
     lib.abc_cuda_error_string.argtypes = [i32]
@@ -175,6 +177,22 @@ def bind_keyswitch(lib: ctypes.CDLL) -> None:
     lib.abc_ks_launch_info.argtypes = [i32, i64, i32, i32, vp]
     for fn in (lib.abc_ks_decompose, lib.abc_ks_contract, lib.abc_ks_mod_down,
                lib.abc_ks_launch_info):
+        fn.restype = i32
+
+
+def bind_rlwe(lib: ctypes.CDLL) -> None:
+    """The argument and return types of the key generation, encryption and
+    decryption kernels' C entry points (csrc/rlwe.cu) on a library that
+    holds them."""
+    vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_uint32)
+    lib.abc_rns_uniform.argtypes = [vp] * 4 + [i64, i32, i32, vp]
+    lib.abc_ksk_compose.argtypes = [vp] * 10 + [i64, i32, i32, i32, vp]
+    lib.abc_rlwe_lift.argtypes = [vp] * 6 + [i64, i32, i32, vp]
+    lib.abc_bfv_dec_round.argtypes = [vp] * 4 + [i64, i32, u32, i32, vp]
+    lib.abc_rlwe_launch_info.argtypes = [i32, i64, i32, vp]
+    for fn in (lib.abc_rns_uniform, lib.abc_ksk_compose, lib.abc_rlwe_lift,
+               lib.abc_bfv_dec_round, lib.abc_rlwe_launch_info):
         fn.restype = i32
 
 

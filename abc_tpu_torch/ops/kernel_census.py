@@ -6,8 +6,9 @@ Generic: `sass_functions` and `opcode` (the SASS of each function),
 `ptxas_table` (registers, shared memory and spills of each entry function)
 and `kernel_key` (one name for a kernel, mangled or demangled);
 `kernel_table` (both tables merged, for the kernels of one source: the BEHZ
-kernels of csrc/behz.cu, the key-switch kernels of csrc/keyswitch.cu) and
-`fmt_kernel`. For the BEHZ kernels: `launch_of` and `launch_key` (which
+kernels of csrc/behz.cu, the key-switch kernels of csrc/keyswitch.cu, the
+key generation, encryption and decryption kernels of csrc/rlwe.cu by the
+prefix RLWE) and `fmt_kernel`. For the BEHZ kernels: `launch_of` and `launch_key` (which
 instantiation a launch of one mult+relin runs, as
 `behz_kernels.launch_info` reports it) and `shape_params`, the parameters
 of a measured shape; for the key-switch kernels `ks_launch_key`. Host-only text parsing; imports no
@@ -113,10 +114,16 @@ def sass_table(text: str) -> dict:
     return table
 
 
+# the key generation, encryption and decryption kernels of csrc/rlwe.cu, a
+# prefix of kernel_table
+RLWE = ("rns_uniform", "ksk_compose", "rlwe_lift", "bfv_dec_round")
+
+
 def kernel_table(build_log: str, sass_text: str,
-                 prefix: str = "behz_") -> dict:
+                 prefix="behz_") -> dict:
     """ptxas_table and sass_table of the kernels whose names start with
-    `prefix` (the BEHZ kernels, or "ks_"), merged by key."""
+    `prefix` (the BEHZ kernels, "ks_", or a tuple of names such as RLWE),
+    merged by key."""
     ptx, sass = ptxas_table(build_log), sass_table(sass_text)
     return {k: {**ptx.get(k, {}), **sass.get(k, {})}
             for k in sorted(set(ptx) | set(sass)) if k.startswith(prefix)}

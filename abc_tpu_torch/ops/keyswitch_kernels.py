@@ -143,13 +143,14 @@ def decompose_plain(d, q, digits: Digits):
 
 def contract_plain(D, ksk_b, ksk_a, q, perm=None):
     """Σ_i D_i ⊙ ksk_i over the digit axis (dim -3) for both key halves:
-    [..., α, R, n] → [..., 2, R, n] mod q ([R, 1]); with `perm`, D's
-    columns permuted first (D[..., perm])."""
+    [..., α, R, n] → [..., 2, R, n] mod q ([R, 1]); ksk_a None: the first
+    half alone, [..., 1, R, n]; with `perm`, D's columns permuted first
+    (D[..., perm])."""
     if perm is not None:
         D = D.index_select(-1, perm)
     q3 = q.reshape(1, q.shape[0], 1)
-    return torch.stack([t64.sum_mod(t64.mul(D, ksk_b, q3), q, dim=-3),
-                        t64.sum_mod(t64.mul(D, ksk_a, q3), q, dim=-3)],
+    return torch.stack([t64.sum_mod(t64.mul(D, key, q3), q, dim=-3)
+                        for key in (ksk_b, ksk_a) if key is not None],
                        dim=-3)
 
 
@@ -263,14 +264,18 @@ def contract(D, ksk_b, ksk_a, q, ratio, perm=None):
     """Σ_i D_i ⊙ ksk_i for both halves of a switching key, one [..., 2, R, n]
     tensor from D [..., α, R, n] and keys [α, R, n], or keys with leading
     axes equal to D's last ones (a LocalComm shard axis); q [R, 1], ratio
-    [R] int64. perm ([n] int64): output column c reads D at perm[c], the
-    Galois permutation of a hoisted rotation."""
+    [R] int64. ksk_a None: the first half alone, [..., 1, R, n] (a
+    decryption's Σ_k c_k·s^k against the rows [1, s, s², ...]). perm ([n]
+    int64): output column c reads D at perm[c], the Galois permutation of a
+    hoisted rotation."""
     if D.device.type == "cpu":
         return contract_plain(D, ksk_b, ksk_a, q, perm)
     rows, n, _ = _operand(D, "D", 3)
     A, R = D.shape[-3], D.shape[-2]
     klead = tuple(ksk_b.shape[:-3])
     for name, key in (("ksk_b", ksk_b), ("ksk_a", ksk_a)):
+        if key is None and name == "ksk_a":
+            continue
         _operand(key, name, 3)
         lead = tuple(D.shape[:-3])
         if tuple(key.shape) != klead + (A, R, n) or key.device != D.device \
@@ -285,10 +290,12 @@ def contract(D, ksk_b, ksk_a, q, ratio, perm=None):
     if perm is not None:
         _table(perm, "perm", D.device, n, torch.int64)
     krows = int(np.prod(klead, dtype=np.int64))
-    out = torch.empty(tuple(D.shape[:-3]) + (2, R, n), dtype=torch.int32,
-                      device=D.device)
+    halves = 1 if ksk_a is None else 2
+    out = torch.empty(tuple(D.shape[:-3]) + (halves, R, n),
+                      dtype=torch.int32, device=D.device)
     _launch("ks_contract", D.device, lambda lib, s: lib.abc_ks_contract(
-        D.data_ptr(), ksk_b.data_ptr(), ksk_a.data_ptr(), out.data_ptr(),
+        D.data_ptr(), ksk_b.data_ptr(),
+        None if ksk_a is None else ksk_a.data_ptr(), out.data_ptr(),
         None if perm is None else perm.data_ptr(), q.data_ptr(),
         ratio.data_ptr(), rows, krows, A, R, n.bit_length() - 1, s))
     return out

@@ -7,6 +7,7 @@
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 #define __global__
@@ -47,7 +48,24 @@ inline unsigned long long __umul64hi(unsigned long long a,
   return static_cast<unsigned long long>(
       (static_cast<unsigned __int128>(a) * b) >> 64);
 }
+// A warp shuffle as an exchange across the block: every thread of the
+// block must call it, as the kernels' shuffles are, and each reads the
+// value of thread threadIdx.x ^ lane_mask (lane_mask < 32: the same warp).
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T value, int lane_mask) {
+  static T slots[1024];
+  slots[threadIdx.x] = value;
+  __syncthreads();
+  const T got = slots[threadIdx.x ^ lane_mask];
+  __syncthreads();
+  return got;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes,
+                                   cudaStream_t) {
+  std::memset(p, value, bytes);
+  return cudaSuccess;
+}
 template <typename K>
 cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K,
                                                           int threads,

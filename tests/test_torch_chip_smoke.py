@@ -89,3 +89,27 @@ def test_a_timing_under_its_bound_is_marked(monkeypatch, bound_ms, under):
     st = {}
     chip_smoke._timed(st, None, None, [1], (bound_ms, "bytes"))
     assert "library_ms" not in st
+
+
+@pytest.mark.parametrize("seen,want", [(5, 0.2), (3, 0.2), (10, 0.4),
+                                       (9, 0.4)])
+def test_lost_records_scale_to_whole_launches(seen, want):
+    """kernel_profile's ms a call: a kernel launched once a call whose
+    trace kept 3 of 5 records reads its whole time (the mean of the records
+    seen), and one launched twice a call reads two means."""
+    got = chip_smoke.per_call_ms({"k": 0.2 * seen}, {"k": seen / 5}, 5)
+    assert got["k"] == pytest.approx(want)
+
+
+def test_a_timing_under_an_operations_bound_is_marked(monkeypatch):
+    """An operations bound a kernel beats is not read as L2 residency: it
+    is a fault of the bound's operation count."""
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, reps=10, cold=False: 0.25)
+    monkeypatch.setattr(chip_smoke, "kernel_profile",
+                        lambda fn, reps=5, cold=False: reading({"k": 1.0},
+                                                               0.002))
+    line = chip_smoke._timed({}, None, None, [1], (0.003, "operations"))
+    assert "warm and cold device time UNDER the bound: the bound counts " \
+        "more operations than the kernel issues" in line and \
+        "L2-resident" not in line

@@ -18,7 +18,8 @@ from abc_tpu.crypto.params import BfvParams as RefBfvParams
 from abc_tpu_torch.crypto import prng
 from abc_tpu_torch.crypto.bfv import BfvContext
 from abc_tpu_torch.crypto.params import BfvParams
-from abc_tpu_torch.ops.modarith import to_host
+from abc_tpu_torch.ops import rlwe_kernels as rk
+from abc_tpu_torch.ops.modarith import as_residues, ratio_table, to_host
 
 pytestmark = pytest.mark.filterwarnings(
     "ignore:.*HE-standard 128-bit-security budget:UserWarning")
@@ -32,6 +33,16 @@ def _words(values):
     return torch.tensor(values, dtype=torch.int64)
 
 
+def _uniform(k0, k1, moduli, n):
+    """rns_uniform of key words k0, k1 (ints, or nested lists of one shape)
+    on CPU tensors: [..., L, n]."""
+    keys = as_residues(np.stack([np.asarray(k0, dtype=np.uint64),
+                                 np.asarray(k1, dtype=np.uint64)], axis=-1),
+                       "cpu")
+    q = as_residues(np.asarray(moduli, np.uint64).reshape(-1, 1), "cpu")
+    return rk.rns_uniform(keys, q, ratio_table(moduli, "cpu"), n)
+
+
 # ------------------------------------------------------------------ Threefry
 
 @pytest.mark.parametrize("key,ctr,want", [
@@ -42,8 +53,8 @@ def _words(values):
 ], ids=["zeros", "ones", "pi"])
 def test_threefry_known_answers(key, ctr, want):
     """Random123's known-answer vectors for Threefry-2x32, 20 rounds."""
-    x0, x1 = prng.threefry2x32(_words(key[0]), _words(key[1]),
-                               _words([ctr[0]]), _words([ctr[1]]))
+    x0, x1 = rk.threefry2x32(_words(key[0]), _words(key[1]),
+                             _words([ctr[0]]), _words([ctr[1]]))
     assert (int(x0[0]), int(x1[0])) == want
 
 
@@ -56,9 +67,9 @@ def test_threefry_matches_reference_on_the_same_counters(seed):
     c0[:2], c1[:2] = (0, M32), (M32, 0)
     want = ref_prng.threefry2x32(np, k0, k1, c0.astype(np.uint32),
                                  c1.astype(np.uint32))
-    got = prng.threefry2x32(_words(k0), _words(k1),
-                            torch.from_numpy(c0.astype(np.int64)),
-                            torch.from_numpy(c1.astype(np.int64)))
+    got = rk.threefry2x32(_words(k0), _words(k1),
+                          torch.from_numpy(c0.astype(np.int64)),
+                          torch.from_numpy(c1.astype(np.int64)))
     for g, w in zip(got, want):
         assert g.dtype == torch.int64 and int(g.min()) >= 0
         np.testing.assert_array_equal(g.numpy().astype(np.uint32), w)
@@ -84,7 +95,7 @@ def test_host_words_match_reference(stream):
 def test_uniform_rns_matches_reference_host_path(stream):
     want = ref_prng.uniform_rns_np(987654321, stream, MODULI, 512)
     k0, k1 = prng.derive_key(987654321, stream)
-    got = prng.uniform_rns(k0, k1, MODULI, 512, "cpu")
+    got = _uniform(k0, k1, MODULI, 512)
     assert got.dtype == torch.int32 and tuple(got.shape) == (3, 512)
     np.testing.assert_array_equal(to_host(got), want)
 
@@ -96,7 +107,7 @@ def test_uniform_rns_batched_keys_match_per_stream_calls():
     keys = [[prng.derive_key(7, s) for s in row] for row in streams]
     k0 = [[k[0] for k in row] for row in keys]
     k1 = [[k[1] for k in row] for row in keys]
-    got = prng.uniform_rns(k0, k1, MODULI, 128, "cpu")
+    got = _uniform(k0, k1, MODULI, 128)
     assert tuple(got.shape) == (2, 3, 3, 128)
     for j, row in enumerate(streams):
         for i, s in enumerate(row):
@@ -106,7 +117,7 @@ def test_uniform_rns_batched_keys_match_per_stream_calls():
 
 def test_uniform_rns_in_range_and_spread():
     k0, k1 = prng.derive_key(7, "x")
-    u = to_host(prng.uniform_rns(k0, k1, MODULI, 256, "cpu"))
+    u = to_host(_uniform(k0, k1, MODULI, 256))
     for row, q in zip(u, MODULI):
         assert row.max() < q
         assert abs(row.astype(np.float64).mean() / q - 0.5) < 0.1
