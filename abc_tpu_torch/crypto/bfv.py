@@ -51,9 +51,10 @@ from abc_tpu_torch.crypto.ntt import NttContext, _bit_reverse_vec
 from abc_tpu_torch.crypto.numthy import modinv
 from abc_tpu_torch.crypto.params import BfvParams
 from abc_tpu_torch.crypto.rlwe import RlweKeys
+from abc_tpu_torch.ops import elementwise_kernels as ew
 from abc_tpu_torch.ops import keyswitch_kernels as kk
 from abc_tpu_torch.ops import rlwe_kernels as rk
-from abc_tpu_torch.ops.modarith import as_residues, in_chain, t64, to_host
+from abc_tpu_torch.ops.modarith import as_residues, in_chain, to_host
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
 _SLOT_MAP_CACHE: Dict[int, np.ndarray] = {}
@@ -298,41 +299,47 @@ class BfvContext(RlweKeys):
             self._op_cache.clear()
             self._dec_cache.clear()
 
+    # The ciphertext and plaintext arithmetic is one launch of the RNS
+    # elementwise kernel each on the card (ops/elementwise_kernels.py), its
+    # plain t64 chain on the CPU.
     def add(self, a: BfvCiphertext, b: BfvCiphertext) -> BfvCiphertext:
-        return BfvCiphertext(t64.add(a.data, b.data, self.q_q))
+        return BfvCiphertext(ew.add(a.data, b.data, self.q_q,
+                                    self.ntt_q.ratio))
 
     def sub(self, a: BfvCiphertext, b: BfvCiphertext) -> BfvCiphertext:
-        return BfvCiphertext(t64.sub(a.data, b.data, self.q_q))
+        return BfvCiphertext(ew.sub(a.data, b.data, self.q_q,
+                                    self.ntt_q.ratio))
 
     def negate(self, a: BfvCiphertext) -> BfvCiphertext:
-        return BfvCiphertext(t64.neg(a.data, self.q_q))
+        return BfvCiphertext(ew.neg(a.data, self.q_q))
 
     def _plain_m(self, pt: Plaintext) -> torch.Tensor:
         """Plaintext coefficients broadcast over the L limbs, [L, n] (they
         are below t, hence below every q_j)."""
         return pt.coeffs.expand(self.params.L, -1)
 
-    def _plain_dm(self, pt: Plaintext) -> torch.Tensor:
-        """Δ·m in RNS on the device, [L, n]."""
-        return t64.mul(self._plain_m(pt), self._tab["delta_mod_q"], self.q_q)
-
     def add_plain(self, a: BfvCiphertext, pt: Plaintext) -> BfvCiphertext:
-        c0 = t64.add(a.data[..., 0, :, :], self._plain_dm(pt), self.q_q)
-        return BfvCiphertext(_set0(a.data, c0))
+        """c0 + Δ·m (Δ mod q_j times the plaintext's coefficients)."""
+        return BfvCiphertext(ew.add(a.data, self._plain_m(pt), self.q_q,
+                                    self.ntt_q.ratio,
+                                    w=self._tab["delta_mod_q"], first=True))
 
     def sub_plain(self, a: BfvCiphertext, pt: Plaintext) -> BfvCiphertext:
-        c0 = t64.sub(a.data[..., 0, :, :], self._plain_dm(pt), self.q_q)
-        return BfvCiphertext(_set0(a.data, c0))
+        return BfvCiphertext(ew.sub(a.data, self._plain_m(pt), self.q_q,
+                                    self.ntt_q.ratio,
+                                    w=self._tab["delta_mod_q"], first=True))
 
     def sub_from_plain(self, a: BfvCiphertext, pt: Plaintext) -> BfvCiphertext:
-        """Δ·m − ct (plain minus ciphertext, non-commutative case)."""
-        neg = t64.neg(a.data, self.q_q)
-        c0 = t64.add(neg[..., 0, :, :], self._plain_dm(pt), self.q_q)
-        return BfvCiphertext(_set0(neg, c0))
+        """Δ·m − ct (plain minus ciphertext, non-commutative case): −ct with
+        Δ·m added to c0."""
+        return BfvCiphertext(ew.neg(a.data, self.q_q, self.ntt_q.ratio,
+                                    b=self._plain_m(pt),
+                                    w=self._tab["delta_mod_q"]))
 
     def multiply_plain(self, a: BfvCiphertext, pt: Plaintext) -> BfvCiphertext:
         m_ntt = self.ntt_q.fwd(self._plain_m(pt))
-        prod = t64.mul(self.ntt_q.fwd(a.data), m_ntt, self.q_q)
+        prod = ew.mul(self.ntt_q.fwd(a.data), m_ntt, self.q_q,
+                      self.ntt_q.ratio)
         return BfvCiphertext(self.ntt_q.inv(prod))
 
     def multiply(self, a: BfvCiphertext, b: BfvCiphertext,
@@ -362,17 +369,16 @@ class BfvContext(RlweKeys):
                             lambda: behz.precompute_operand(ct_data))
 
     def relinearize(self, ct: BfvCiphertext) -> BfvCiphertext:
-        """Size-3 → size-2 via key switching of the s² component."""
+        """Size-3 → size-2 via key switching of the s² component; the adds
+        of c0 and c1 run in the mod switch down's launch (relin tail)."""
         if ct.size == 2:
             return ct
         if ct.size != 3:
             raise RuntimeExecutionError(f"cannot relinearize size-{ct.size}")
         self.counters["relin"] += 1
         d = ct.data
-        k0, k1 = self._key_switch(d[..., 2, :, :], self.get_relin_key())
-        c0 = t64.add(d[..., 0, :, :], k0, self.q_q)
-        c1 = t64.add(d[..., 1, :, :], k1, self.q_q)
-        return BfvCiphertext(torch.stack([c0, c1], dim=-3))
+        return BfvCiphertext(self._key_switch(
+            d[..., 2, :, :], self.get_relin_key(), kk.Tail("relin", d)))
 
     # ----------------------------------------------------------- key switching
     # --------------------------------------------- mesh (limb-sharded) mode
@@ -476,13 +482,15 @@ class BfvContext(RlweKeys):
         return kk.contract(D, ksk_b, ksk_a, ntt.q_col, ntt.ratio, perm)
 
     @in_chain("ks_inner")
-    def _ks_inner(self, D, ksk_b, ksk_a, perm=None) -> Tuple:
+    def _ks_inner(self, D, ksk_b, ksk_a, perm=None, tail=None):
         """Inner product of a decomposition D (its columns permuted by
         `perm`, if given) with a switching key, then mod-switch down: the
-        cheap half of a key switch. Limb-sharded, a whole key is cut to this
+        cheap half of a key switch, (k0, k1); with a keyswitch_kernels.Tail,
+        the finished ciphertext [..., 2, L, n] of a relinearization or a
+        rotation instead. Limb-sharded, a whole key is cut to this
         process's digit rows (a key of shard_keys already holds only them)
         and the shards' partial contractions are combined by one modular
-        psum each."""
+        psum each, before the tail."""
         mesh, axis = self._limb_mesh, self._limb_axis
         alpha = self.params.num_ks_digits
         if axis is None and ksk_b.shape[-3] != alpha:
@@ -497,20 +505,22 @@ class BfvContext(RlweKeys):
             q_full = self._tab["q_full"]
             acc = torch.stack([mesh.psum_mod(acc[..., h, :, :], q_full, axis)
                                for h in (0, 1)], dim=-3)
-        out = self._mod_switch_down(self.ntt_qp.inv(acc))
-        return out[..., 0, :, :], out[..., 1, :, :]
+        out = self._mod_switch_down(self.ntt_qp.inv(acc), tail)
+        return out if tail is not None else (out[..., 0, :, :],
+                                             out[..., 1, :, :])
 
-    def _key_switch(self, d, ksk) -> Tuple:
+    def _key_switch(self, d, ksk, tail=None):
         """d: [..., L, n] coeff-domain poly over q → (k0, k1) over q with
-        k0 + k1·s ≈ d·s2 (both coeff domain)."""
-        return self._ks_inner(self._decompose_ntt(d), *ksk)
+        k0 + k1·s ≈ d·s2 (both coeff domain); with a tail, the ciphertext
+        it finishes (_ks_inner)."""
+        return self._ks_inner(self._decompose_ntt(d), *ksk, tail=tail)
 
     @in_chain("mod_switch_down")
-    def _mod_switch_down(self, x):
+    def _mod_switch_down(self, x, tail=None):
         """[..., L+k, n] over q∪P → [..., L, n] over q: k successive exact
         centered divisions (x − centered([x]_{p_s}))·p_s^{-1}, last special
-        first."""
-        return kk.mod_down(x, self._division)
+        first; with a tail, in the same launch."""
+        return kk.mod_down(x, self._division, tail)
 
     # --------------------------------------------------------------- rotations
     def _decompose_cached(self, ct_data):
@@ -525,14 +535,12 @@ class BfvContext(RlweKeys):
                      ksk: Optional[Tuple] = None) -> BfvCiphertext:
         """Galois automorphism g of ct given c1's decomposition D: permute D
         in the NTT domain, key-switch (with the context's key for g, or
-        `ksk`), and apply the signed coefficient gather to c0."""
-        k0, k1 = self._ks_inner(D, *(ksk or self.get_galois_key(g)),
-                                perm=self._galois_perm_eval(g))
-        gather, sign_pos = self._galois_perm(g)
-        c0g = ct.data[..., 0, :, :].index_select(-1, gather)
-        c0g = torch.where(sign_pos, c0g, t64.neg(c0g, self.q_q))
-        return BfvCiphertext(torch.stack([t64.add(c0g, k0, self.q_q), k1],
-                                         dim=-3))
+        `ksk`), and add the signed coefficient gather of c0 to k0 in the
+        mod switch down's launch (rotate tail)."""
+        tail = kk.Tail("rotate", ct.data[..., 0, :, :], *self._galois_perm(g))
+        return BfvCiphertext(self._ks_inner(
+            D, *(ksk or self.get_galois_key(g)),
+            perm=self._galois_perm_eval(g), tail=tail))
 
     def apply_galois(self, ct: BfvCiphertext, g: int) -> BfvCiphertext:
         """Galois automorphism + key switch, in the hoisted formulation."""
@@ -570,11 +578,6 @@ class BfvContext(RlweKeys):
     def rotate_columns(self, ct: BfvCiphertext) -> BfvCiphertext:
         """Swap the two batching rows (galois element 2n−1)."""
         return self.apply_galois(ct, 2 * self.params.n - 1)
-
-
-def _set0(data, c0):
-    """data ([..., k, L, n]) with its first component replaced by c0."""
-    return torch.cat([c0[..., None, :, :], data[..., 1:, :, :]], dim=-3)
 
 
 def _build_slot_map(n: int) -> np.ndarray:

@@ -48,11 +48,12 @@ import torch
 from abc_tpu_torch.crypto.ntt import NttContext
 from abc_tpu_torch.crypto.numthy import centered, gen_ntt_primes, modinv
 from abc_tpu_torch.crypto.rlwe import RlweKeys
+from abc_tpu_torch.ops import elementwise_kernels as ew
 from abc_tpu_torch.ops import keyswitch_kernels as kk
 from abc_tpu_torch.ops import rlwe_kernels as rk
 from abc_tpu_torch.ops.behz_kernels import behz_tensor
 from abc_tpu_torch.ops.modarith import (as_residues, chain_range, in_chain,
-                                          t64, to_host)
+                                          to_host)
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
 
@@ -397,14 +398,19 @@ class CkksContext(RlweKeys):
         super()._forget_key_tables()
         self._ksk_dev_cache.clear()
 
+    # The ciphertext arithmetic is one launch of the RNS elementwise kernel
+    # each on the card (ops/elementwise_kernels.py), its plain t64 chain on
+    # the CPU.
     def add(self, a: CkksCiphertext, b: CkksCiphertext) -> CkksCiphertext:
         a, b = self._align(a, b)
-        return CkksCiphertext(t64.add(a.data, b.data, self._q_at(a.level)),
+        return CkksCiphertext(ew.add(a.data, b.data, self._q_at(a.level),
+                                     self._ntt_at(a.level).ratio),
                               a.level, a.scale)
 
     def sub(self, a: CkksCiphertext, b: CkksCiphertext) -> CkksCiphertext:
         a, b = self._align(a, b)
-        return CkksCiphertext(t64.sub(a.data, b.data, self._q_at(a.level)),
+        return CkksCiphertext(ew.sub(a.data, b.data, self._q_at(a.level),
+                                     self._ntt_at(a.level).ratio),
                               a.level, a.scale)
 
     def _align(self, a: CkksCiphertext, b: CkksCiphertext,
@@ -491,7 +497,8 @@ class CkksContext(RlweKeys):
                 np.asarray([m % int(p) for p in
                             self.params.data_primes[:level]],
                            dtype=np.uint32).reshape(-1, 1), self.device)
-        return CkksCiphertext(t64.mul(ct.data, mv, self._q_at(level)), level,
+        return CkksCiphertext(ew.mul(ct.data, mv, self._q_at(level),
+                                     self._ntt_at(level).ratio), level,
                               ct.scale * m)
 
     def mod_drop_to(self, ct: CkksCiphertext, level: int) -> CkksCiphertext:
@@ -530,18 +537,18 @@ class CkksContext(RlweKeys):
         ct = self.mod_drop_to(ct, level)
         ntt, q = self._ntt_at(level), self._q_at(level)
         m = self._plain_dev(pt, level)
-        prod = t64.mul(ntt.fwd(ct.data), ntt.fwd(m), q)
+        prod = ew.mul(ntt.fwd(ct.data), ntt.fwd(m), q, ntt.ratio)
         return CkksCiphertext(ntt.inv(prod), level, ct.scale * pt.scale)
 
     def relinearize(self, ct: CkksCiphertext) -> CkksCiphertext:
+        """Size-3 → size-2; the adds of c0 and c1 run in the mod switch
+        down's launch (relin tail)."""
         if ct.size == 2:
             return ct
         self.counters["relin"] += 1
-        k0, k1 = self._key_switch(ct.data[2], "relin", ct.level)
-        q = self._q_at(ct.level)
-        c0 = t64.add(ct.data[0], k0, q)
-        c1 = t64.add(ct.data[1], k1, q)
-        return CkksCiphertext(torch.stack([c0, c1]), ct.level, ct.scale)
+        return CkksCiphertext(
+            self._key_switch(ct.data[2], "relin", ct.level,
+                             kk.Tail("relin", ct.data)), ct.level, ct.scale)
 
     @in_chain("rescale")
     def rescale(self, ct: CkksCiphertext) -> CkksCiphertext:
@@ -599,31 +606,35 @@ class CkksContext(RlweKeys):
 
     @in_chain("ks_inner")
     def _ks_inner(self, D: torch.Tensor, ksk_b, ksk_a, level: int,
-                  perm=None) -> Tuple:
+                  perm=None, tail=None):
         """Inner product of a decomposition D (its columns permuted by
         `perm`, if given) with a switching key's per-level slices, both
         halves in one tensor, one batched inverse NTT, then one mod switch
-        down of both."""
+        down of both: (k0, k1), or with a keyswitch_kernels.Tail the
+        ciphertext it finishes."""
         ntt = self._ntt_cols[level]
         acc = ntt.inv(kk.contract(D, ksk_b, ksk_a, ntt.q_col, ntt.ratio,
                                   perm))
-        out = self._mod_switch_down(acc, level)
-        return out[..., 0, :, :], out[..., 1, :, :]
+        out = self._mod_switch_down(acc, level, tail)
+        return out if tail is not None else (out[..., 0, :, :],
+                                             out[..., 1, :, :])
 
-    def _key_switch(self, d: torch.Tensor, key_id: str, level: int) -> Tuple:
+    def _key_switch(self, d: torch.Tensor, key_id: str, level: int,
+                    tail=None):
         """Hybrid key switch at `level`: α(level) digit rows, limbs
         {0..level-1} ∪ specials."""
         ksk_b, ksk_a = self._ksk_device(key_id, level)
         return self._ks_inner(self._decompose_ntt(d, level), ksk_b, ksk_a,
-                              level)
+                              level, tail=tail)
 
     @in_chain("mod_switch_down")
-    def _mod_switch_down(self, x: torch.Tensor, level: int) -> torch.Tensor:
+    def _mod_switch_down(self, x: torch.Tensor, level: int,
+                         tail=None) -> torch.Tensor:
         """[..., level+k, n] over q^(level)∪P → [..., level, n]: k
         successive exact centered divisions (x − centered([x]_{p_s}))·
         p_s^{-1}, last special first (rows ordered [active data...,
-        specials...])."""
-        return kk.mod_down(x, self._msd[level])
+        specials...]); with a tail, in the same launch."""
+        return kk.mod_down(x, self._msd[level], tail)
 
     # --------------------------------------------------------------- rotations
     def _decompose_cached(self, ct_data: torch.Tensor, level: int):
@@ -636,18 +647,15 @@ class CkksContext(RlweKeys):
 
     def _rotate_with(self, ct: CkksCiphertext, D, g: int) -> CkksCiphertext:
         """Galois automorphism g of ct given c1's decomposition D: permute D
-        in the NTT domain, key-switch, and apply the signed coefficient
-        gather to c0."""
+        in the NTT domain, key-switch, and add the signed coefficient gather
+        of c0 to k0 in the mod switch down's launch (rotate tail)."""
         level = ct.level
-        q = self._q_at(level)
         ksk_b, ksk_a = self._ksk_device(f"galois_{g}", level)
-        k0, k1 = self._ks_inner(D, ksk_b, ksk_a, level,
-                                perm=self._galois_perm_eval(g))
-        gather, sign_pos = self._galois_perm(g)
-        c0g = ct.data[0].index_select(-1, gather)
-        c0g = torch.where(sign_pos, c0g, t64.neg(c0g, q))
-        return CkksCiphertext(torch.stack([t64.add(c0g, k0, q), k1]), level,
-                              ct.scale)
+        tail = kk.Tail("rotate", ct.data[0], *self._galois_perm(g))
+        return CkksCiphertext(
+            self._ks_inner(D, ksk_b, ksk_a, level,
+                           perm=self._galois_perm_eval(g), tail=tail),
+            level, ct.scale)
 
     def hoisted_rotations(self, ct: CkksCiphertext,
                           steps_list: Sequence[int]) -> List[CkksCiphertext]:

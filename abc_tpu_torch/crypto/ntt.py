@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from abc_tpu_torch.crypto.numthy import find_minimal_2nth_root, modinv
-from abc_tpu_torch.ops.modarith import as_residues, ratio_table, shoup, t64
+from abc_tpu_torch.ops import elementwise_kernels as ew
+from abc_tpu_torch.ops.modarith import as_residues, ratio_table, shoup
 from abc_tpu_torch.ops.ntt_kernels import ntt_fwd, ntt_inv
 
 
@@ -155,18 +156,18 @@ class NttContext:
         return ntt_inv(a.contiguous(), self.q, self.inv_tw, self.inv_tw_sh,
                        self.n_inv, self.n_inv_sh)
 
-    # --- pointwise helpers ---------------------------------------------------
+    # --- pointwise helpers (the RNS elementwise kernel) ----------------------
     def pointwise_mul(self, a, b):
-        return t64.mul(a, b, self.q_col)
+        return ew.mul(a, b, self.q_col, self.ratio)
 
     def add(self, a, b):
-        return t64.add(a, b, self.q_col)
+        return ew.add(a, b, self.q_col, self.ratio)
 
     def sub(self, a, b):
-        return t64.sub(a, b, self.q_col)
+        return ew.sub(a, b, self.q_col, self.ratio)
 
     def neg(self, a):
-        return t64.neg(a, self.q_col)
+        return ew.neg(a, self.q_col)
 
     def negacyclic_mul(self, a, b):
         """Full polynomial product in R_q = Z_q[x]/(x^n+1) via NTT."""

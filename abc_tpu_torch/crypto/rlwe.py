@@ -55,12 +55,28 @@ import torch
 
 from abc_tpu_torch.crypto.ntt import eval_perm_tables
 from abc_tpu_torch.crypto.prng import derive_keys, seeded_rng, split_domain
+from abc_tpu_torch.ops import elementwise_kernels as ew
 from abc_tpu_torch.ops import rlwe_kernels as rk
-from abc_tpu_torch.ops.modarith import as_residues, t64
+from abc_tpu_torch.ops.modarith import as_residues
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
 _CACHE_CAP = 8
 
+
+def galois_gather(n: int, g: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The signed coefficient gather of x → x^g on [n] coefficients:
+    ([n] int64 indices, [n] bool keep-sign flags) on `device`; coefficient
+    j of the image is c[gather[j]], negated where the flag is False."""
+    j = np.arange(n, dtype=np.int64)
+    jg = (j * g) % (2 * n)
+    wrap = jg >= n
+    idx = np.where(wrap, jg - n, jg)
+    gather = np.empty(n, dtype=np.int64)
+    sign_pos = np.empty(n, dtype=bool)
+    gather[idx] = j
+    sign_pos[idx] = ~wrap
+    return (torch.from_numpy(gather).to(device),
+            torch.from_numpy(sign_pos).to(device))
 
 class RlweKeys:
     """Secret, public key and switching keys of one parameter set on one
@@ -252,8 +268,9 @@ class RlweKeys:
             s = self._secret()[:level]
             q = self._tab["q_full"][:level]
             pows = [torch.ones_like(s), s]
+            ratio = self.ntt_qp.ratio[:level]
             while len(pows) < max(3, size):
-                pows.append(t64.mul(pows[-1], s, q))
+                pows.append(ew.mul(pows[-1], s, q, ratio))
             rows = self._s_powers[level] = torch.stack(pows)
         return rows[:size]
 
@@ -323,20 +340,10 @@ class RlweKeys:
 
     # ------------------------------------------------------- Galois tables
     def _galois_perm(self, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Coefficient-domain gather indices + keep-sign mask for x → x^g,
-        on the device, cached per g."""
+        """Coefficient-domain gather indices + keep-sign mask for x → x^g
+        (galois_gather), on the device, cached per g."""
         if g not in self._perm_dev:
-            n = self.params.n
-            j = np.arange(n, dtype=np.int64)
-            jg = (j * g) % (2 * n)
-            wrap = jg >= n
-            idx = np.where(wrap, jg - n, jg)
-            gather = np.empty(n, dtype=np.int64)
-            sign_pos = np.empty(n, dtype=bool)
-            gather[idx] = j
-            sign_pos[idx] = ~wrap
-            self._perm_dev[g] = (torch.from_numpy(gather).to(self.device),
-                                 torch.from_numpy(sign_pos).to(self.device))
+            self._perm_dev[g] = galois_gather(self.params.n, g, self.device)
         return self._perm_dev[g]
 
     def _galois_perm_eval(self, g: int) -> torch.Tensor:

@@ -16,6 +16,12 @@
 //                    CkksContext._mod_switch_down (ckks.py:902) and
 //                    CkksContext.rescale (ckks.py:775): exact centred
 //                    division by one prime or more
+//   ks_mod_down_relin, ks_mod_down_rotate (K9a)
+//                 <- the same division with the tail of a relinearization
+//                    (bfv.py:904-907, ckks.py:771-774: the two adds and the
+//                    stack) or of a rotation (bfv.py:1117-1121, :1165;
+//                    ckks.py:993, :1021: the signed coefficient gather of
+//                    c0, its add, the stack) in its epilogue
 //
 // Data: row-major [rows, ..., n] uint32 residues (the port stores them as
 // int32; every modulus is below 2^30), n = 2^logn >= 4; `rows` flattens every
@@ -218,18 +224,37 @@ __device__ __forceinline__ uint4 divide_step4(const uint4& x, const uint4& v,
                     divide_step(x.w, v.w, half, rec));
 }
 
+// What ks_mod_down adds to a kept row before it stores it (K9a). The output
+// rows are [..., 2, Lo, n], the two halves (h = row & 1) of a key switch of
+// ciphertext b = row >> 1; c holds the ciphertext's components, b's at
+// c + b c_stride, component h at + h c_comp, rows of n words apart.
+//   kNoTail: nothing, the halves (k0, k1) themselves;
+//   kRelin:  out[h] = k_h + c[h] mod q, c the size-3 product (h = 0, 1);
+//   kRotate: out[0] = k0 + (sign[j] ? c0[gather[j]] : -c0[gather[j]]) mod
+//            q at column j, the signed coefficient gather of x -> x^g
+//            (gather [n] int64, sign [n] bytes), out[1] = k1.
+enum Tail { kNoTail, kRelin, kRotate };
+
+struct TailArgs {
+  const uint32_t* c;
+  long long c_stride, c_comp;
+  const long long* gather;
+  const uint8_t* sign;
+};
+
 // K4b. x: rows of [Lo + k, n] (Lo rows kept, then the k primes divided
 // out), x_stride words apart; out: rows of [Lo, n]. Step s (s = k-1 down to 0) divides every row
 // below Lo + s by the prime of row Lo + s, so a thread carries the k
 // special rows' running values through the steps (the specials below s are
 // divided at step s too) and applies the k steps to its own row. Step s's
 // table: word 0 = half, then a record (rec above) per row t < Lo + s, at
-// tab + s (4 + 4 (Lo + k)).
-template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
-ks_mod_down_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                   const uint32_t* __restrict__ tab, long long quads,
-                   long long x_stride, int Lo, int k, int logn) {
+// tab + s (4 + 4 (Lo + k)). The row's modulus for the tail is the first
+// word of its record at step 0.
+template <int KMAX, Tail T>
+__device__ __forceinline__ void mod_down_body(
+    const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+    const uint32_t* __restrict__ tab, long long quads, long long x_stride,
+    int Lo, int k, int logn, const TailArgs& tail) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (t >= quads) return;
@@ -245,6 +270,29 @@ ks_mod_down_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     if (s < k) v[s] = ld4(in + (Lo + s) * n);
   }
   uint4 own = ld4(in + tr * n);
+  // the tail's addend, loaded beside x so that its latency overlaps the
+  // divisions (0 where the tail adds nothing: k1 of a rotation)
+  uint4 y = make_uint4(0, 0, 0, 0);
+  uint32_t m = 0;
+  if (T != kNoTail) {
+    m = ld(tab + kRec * (1 + tr));
+    const int h = static_cast<int>(row & 1);
+    const uint32_t* c = tail.c + static_cast<size_t>((row >> 1) *
+                                                     tail.c_stride) +
+                        (static_cast<size_t>(tr) << logn);
+    if (T == kRelin) {
+      y = ld4(c + h * tail.c_comp + at.c);
+    } else if (h == 0) {
+      uint32_t g[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const size_t j = at.c + e;
+        const uint32_t w = ld(c + __ldg(tail.gather + j));
+        g[e] = __ldg(tail.sign + j) ? w : neg_mod(w, m);
+      }
+      y = make_uint4(g[0], g[1], g[2], g[3]);
+    }
+  }
 #pragma unroll
   for (int s = KMAX - 1; s >= 0; --s) {
     if (s >= k) continue;
@@ -256,7 +304,45 @@ ks_mod_down_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     }
     own = divide_step4(own, v[s], half, step + kRec * (1 + tr));
   }
+  if (T != kNoTail) {
+    own = make_uint4(add_mod(own.x, y.x, m), add_mod(own.y, y.y, m),
+                     add_mod(own.z, y.z, m), add_mod(own.w, y.w, m));
+  }
   st4(out + (static_cast<size_t>(at.line) << logn) + at.c, own);
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(kThreads)
+ks_mod_down_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                   const uint32_t* __restrict__ tab, long long quads,
+                   long long x_stride, int Lo, int k, int logn,
+                   TailArgs tail) {
+  mod_down_body<KMAX, kNoTail>(x, out, tab, quads, x_stride, Lo, k, logn,
+                               tail);
+}
+
+// K9a: ks_mod_down with the relinearization's tail
+template <int KMAX>
+__global__ void __launch_bounds__(kThreads)
+ks_mod_down_relin_kernel(const uint32_t* __restrict__ x,
+                         uint32_t* __restrict__ out,
+                         const uint32_t* __restrict__ tab, long long quads,
+                         long long x_stride, int Lo, int k, int logn,
+                         TailArgs tail) {
+  mod_down_body<KMAX, kRelin>(x, out, tab, quads, x_stride, Lo, k, logn,
+                              tail);
+}
+
+// K9a: ks_mod_down with the rotation's tail
+template <int KMAX>
+__global__ void __launch_bounds__(kThreads)
+ks_mod_down_rotate_kernel(const uint32_t* __restrict__ x,
+                          uint32_t* __restrict__ out,
+                          const uint32_t* __restrict__ tab, long long quads,
+                          long long x_stride, int Lo, int k, int logn,
+                          TailArgs tail) {
+  mod_down_body<KMAX, kRotate>(x, out, tab, quads, x_stride, Lo, k, logn,
+                               tail);
 }
 
 // ------------------------------------------------------------- launching
@@ -276,13 +362,21 @@ cudaError_t launch(Kernel kernel, long long quads, void* stream,
   return cudaGetLastError();
 }
 
-// ks_mod_down's instantiation for k special primes, passed to `go`.
+// The instantiation of ks_mod_down with tail T for k special primes,
+// passed to `go`.
+template <int KMAX>
+auto mod_down_kernel(Tail tail) {
+  return tail == kRelin    ? ks_mod_down_relin_kernel<KMAX>
+         : tail == kRotate ? ks_mod_down_rotate_kernel<KMAX>
+                           : ks_mod_down_kernel<KMAX>;
+}
+
 template <typename Go>
-cudaError_t by_specials(int k, Go go) {
-  if (k == 1) return go(ks_mod_down_kernel<1>);
-  if (k == 2) return go(ks_mod_down_kernel<2>);
-  if (k <= 4) return go(ks_mod_down_kernel<4>);
-  return go(ks_mod_down_kernel<kMaxSpecials>);
+cudaError_t by_specials(int k, Tail tail, Go go) {
+  if (k == 1) return go(mod_down_kernel<1>(tail));
+  if (k == 2) return go(mod_down_kernel<2>(tail));
+  if (k <= 4) return go(mod_down_kernel<4>(tail));
+  return go(mod_down_kernel<kMaxSpecials>(tail));
 }
 
 int specials_arg(int k) {
@@ -340,29 +434,56 @@ int abc_ks_contract(const void* D, const void* kb, const void* ka, void* out,
       quads, krows, A, R, logn));
 }
 
+// K9a: abc_ks_mod_down with a tail (1 relin, 2 rotate; 0 none) over rows
+// = 2 B rows, the two halves of B key switches: c the ciphertexts'
+// components ([B, C, Lo, n] rows of n words; ciphertext b at c + b
+// c_stride, component h at + h c_comp, both multiples of 4); the rotation
+// reads component 0 at gather [n] int64 with keep-sign bytes sign [n].
+int abc_ks_mod_down_tail(const void* x, void* out, const void* tab,
+                         long long rows, long long x_stride, int Lo, int k,
+                         int logn, int tail, const void* c,
+                         long long c_stride, long long c_comp,
+                         const void* gather, const void* sign,
+                         void* stream) {
+  if (logn < 2 || rows < 0 || Lo < 1 || k < 1 || k > kMaxSpecials ||
+      x_stride < (static_cast<long long>(Lo + k) << logn) || x_stride % 4 ||
+      tail < kNoTail || tail > kRotate) {
+    return cudaErrorInvalidValue;
+  }
+  if (tail != kNoTail &&
+      (c == nullptr || rows % 2 || c_stride % 4 || c_comp % 4 ||
+       (tail == kRotate && (gather == nullptr || sign == nullptr)))) {
+    return cudaErrorInvalidValue;
+  }
+  const TailArgs args = {static_cast<const uint32_t*>(c), c_stride, c_comp,
+                         static_cast<const long long*>(gather),
+                         static_cast<const uint8_t*>(sign)};
+  const long long quads = ((rows * Lo) << logn) / 4;
+  return static_cast<int>(by_specials(k, static_cast<Tail>(tail),
+                                      [&](auto kernel) {
+    return launch(kernel, quads, stream, static_cast<const uint32_t*>(x),
+                  static_cast<uint32_t*>(out),
+                  static_cast<const uint32_t*>(tab), quads, x_stride, Lo, k,
+                  logn, args);
+  }));
+}
+
 // K4b: x [rows, Lo + k, n], rows x_stride words apart (a multiple of 4,
 // at least (Lo + k) n) -> out [rows, Lo, n], tab the table of
 // ks_mod_down_kernel (k steps of 4 + 4 (Lo + k) words), 1 <= k <= 16.
 int abc_ks_mod_down(const void* x, void* out, const void* tab, long long rows,
                     long long x_stride, int Lo, int k, int logn,
                     void* stream) {
-  if (logn < 2 || rows < 0 || Lo < 1 || k < 1 || k > kMaxSpecials ||
-      x_stride < (static_cast<long long>(Lo + k) << logn) || x_stride % 4) {
-    return cudaErrorInvalidValue;
-  }
-  const long long quads = ((rows * Lo) << logn) / 4;
-  return static_cast<int>(by_specials(k, [&](auto kernel) {
-    return launch(kernel, quads, stream, static_cast<const uint32_t*>(x),
-                  static_cast<uint32_t*>(out),
-                  static_cast<const uint32_t*>(tab), quads, x_stride, Lo, k,
-                  logn);
-  }));
+  return abc_ks_mod_down_tail(x, out, tab, rows, x_stride, Lo, k, logn,
+                              kNoTail, nullptr, 0, 0, nullptr, nullptr,
+                              stream);
 }
 
 // The launch that abc_ks_<kernel> makes (kernel: 0 decompose, 1 contract,
-// 2 mod_down) for `lines` output rows of n = 2^logn (the product of every
-// output axis but the last) and k special primes (mod_down), into info[6]:
-// the instantiation's special primes (mod_down, else 0), 0, threads a
+// 2 mod_down, 3 and 4 mod_down with the relin and the rotate tail) for
+// `lines` output rows of n = 2^logn (the product of every output axis but
+// the last) and k special primes (mod_down), into info[6]: the
+// instantiation's special primes (mod_down, else 0), 0, threads a
 // block, blocks, and the kernel's theoretical occupancy
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor): blocks and warps an SM.
 // Returns the cudaError_t of the query.
@@ -380,11 +501,13 @@ int abc_ks_launch_info(int kernel, long long lines, int k, int logn,
   switch (kernel) {
     case 0: err = query(ks_decompose_kernel); break;
     case 1: err = query(ks_contract_kernel); break;
-    case 2: err = by_specials(k, query); break;
+    case 2: err = by_specials(k, kNoTail, query); break;
+    case 3: err = by_specials(k, kRelin, query); break;
+    case 4: err = by_specials(k, kRotate, query); break;
     default: return cudaErrorInvalidValue;
   }
   const long long quads = (lines << logn) / 4;
-  info[0] = kernel == 2 ? specials_arg(k) : 0;
+  info[0] = kernel >= 2 ? specials_arg(k) : 0;
   info[1] = 0;
   info[2] = kThreads;
   info[3] = (quads + kThreads - 1) / kThreads;

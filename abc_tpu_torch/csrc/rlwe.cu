@@ -104,17 +104,6 @@ __device__ __forceinline__ uint4 uniform_quad(const uint32_t* keys,
                     uniform_word(k0, k1, ctr + 3u, q, ratio));
 }
 
-__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b,
-                                            uint32_t q, uint64_t ratio) {
-  return reduce64(static_cast<uint64_t>(a) * b, q, ratio);
-}
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
-                                            uint32_t q) {
-  const uint32_t s = a + b;
-  return s >= q ? s - q : s;
-}
-
 // ------------------------------------------------------------ uniform draw
 
 // K5a. keys: [rows][2] key words; out: rows of [R, n], row `row` column r

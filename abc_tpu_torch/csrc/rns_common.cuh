@@ -1,6 +1,6 @@
 // Loads, stores and the modular steps of the RNS kernels (behz.cu,
-// keyswitch.cu, rlwe.cu): residues are uint32 below 2^30, read and written
-// four coefficients at a time with one 16-byte access.
+// keyswitch.cu, rlwe.cu, elementwise.cu): residues are uint32 below 2^30,
+// read and written four coefficients at a time with one 16-byte access.
 #pragma once
 
 #include <cstdint>
@@ -62,6 +62,23 @@ __device__ __forceinline__ uint32_t mul_const(uint32_t a, uint32_t w,
 __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
                                             uint32_t q) {
   return a >= b ? a - b : a + q - b;
+}
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
+                                            uint32_t q) {
+  const uint32_t s = a + b;
+  return s >= q ? s - q : s;
+}
+
+// -a mod q, 0 kept 0
+__device__ __forceinline__ uint32_t neg_mod(uint32_t a, uint32_t q) {
+  return a == 0 ? 0 : q - a;
+}
+
+// a * b mod q for residues, ratio = floor(2^64 / q)
+__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b,
+                                            uint32_t q, uint64_t ratio) {
+  return reduce64(static_cast<uint64_t>(a) * b, q, ratio);
 }
 
 }  // namespace

@@ -21,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = [os.path.join(_CSRC, f) for f in ("ntt.cu", "ntt_ablation.cu",
                                              "behz.cu", "keyswitch.cu",
-                                             "rlwe.cu")]
+                                             "rlwe.cu", "elementwise.cu")]
 HEADERS = [os.path.join(_CSRC, f) for f in ("ntt_common.cuh",
                                              "ntt_passes.cuh",
                                              "rns_common.cuh")]
@@ -117,6 +117,7 @@ def load() -> ctypes.CDLL:
     bind_behz(lib)
     bind_keyswitch(lib)
     bind_rlwe(lib)
+    bind_elementwise(lib)
     lib.abc_behz_launch_info.argtypes = [i32, i32, i32, i64, i32, vp]
     lib.abc_behz_launch_info.restype = i32
     lib.abc_cuda_error_string.argtypes = [i32]
@@ -174,9 +175,23 @@ def bind_keyswitch(lib: ctypes.CDLL) -> None:
     lib.abc_ks_decompose.argtypes = [vp] * 5 + [i64, i64] + [i32] * 5 + [vp]
     lib.abc_ks_contract.argtypes = [vp] * 7 + [i64, i64] + [i32] * 3 + [vp]
     lib.abc_ks_mod_down.argtypes = [vp] * 3 + [i64, i64] + [i32] * 3 + [vp]
+    lib.abc_ks_mod_down_tail.argtypes = [vp] * 3 + [i64, i64] + [i32] * 4 + \
+        [vp, i64, i64] + [vp] * 3
     lib.abc_ks_launch_info.argtypes = [i32, i64, i32, i32, vp]
     for fn in (lib.abc_ks_decompose, lib.abc_ks_contract, lib.abc_ks_mod_down,
-               lib.abc_ks_launch_info):
+               lib.abc_ks_mod_down_tail, lib.abc_ks_launch_info):
+        fn.restype = i32
+
+
+def bind_elementwise(lib: ctypes.CDLL) -> None:
+    """The argument and return types of the RNS elementwise kernel's C entry
+    points (csrc/elementwise.cu) on a library that holds them."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    operand = [vp] + [i64] * 4
+    lib.abc_rns_ew.argtypes = [i32] + operand * 2 + [i32] + [vp] * 4 + \
+        [i64] + [i32] * 4 + [vp]
+    lib.abc_ew_launch_info.argtypes = [i32, i64, i32, vp]
+    for fn in (lib.abc_rns_ew, lib.abc_ew_launch_info):
         fn.restype = i32
 
 

@@ -8,7 +8,8 @@ and `kernel_key` (one name for a kernel, mangled or demangled);
 `kernel_table` (both tables merged, for the kernels of one source: the BEHZ
 kernels of csrc/behz.cu, the key-switch kernels of csrc/keyswitch.cu, the
 key generation, encryption and decryption kernels of csrc/rlwe.cu by the
-prefix RLWE) and `fmt_kernel`. For the BEHZ kernels: `launch_of` and `launch_key` (which
+prefix RLWE, the elementwise kernels of csrc/elementwise.cu by "rns_ew_")
+and `fmt_kernel`. For the BEHZ kernels: `launch_of` and `launch_key` (which
 instantiation a launch of one mult+relin runs, as
 `behz_kernels.launch_info` reports it) and `shape_params`, the parameters
 of a measured shape; for the key-switch kernels `ks_launch_key`. Host-only text parsing; imports no
@@ -149,10 +150,11 @@ def launch_key(name: str, info: dict) -> str:
 
 
 def ks_launch_key(name: str, info: dict) -> str:
-    """The kernel key of a `keyswitch_kernels.launch_info`: ks_mod_down is
-    instantiated by its largest number of special primes."""
-    if name == "ks_mod_down":
-        return f"ks_mod_down_kernel<{info['arg0']}>"
+    """The kernel key of a `keyswitch_kernels.launch_info`: ks_mod_down, and
+    its forms with a tail, are instantiated by their largest number of
+    special primes."""
+    if name.startswith("ks_mod_down"):
+        return f"{name}_kernel<{info['arg0']}>"
     return f"{name}_kernel"
 
 

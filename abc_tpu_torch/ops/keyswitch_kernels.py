@@ -3,10 +3,12 @@ with a switching key, the exact division by primes): launch wrappers of
 csrc/keyswitch.cu, their plain torch versions and the tables both read.
 
 `decompose`, `contract` and `mod_down` route themselves, as
-behz_kernels.behz_tensor does: a CPU tensor goes to the plain version (int64
-torch with exact `%`, the chains BfvContext and CkksContext ran before the
-kernels: the CPU route and the oracle of the tests and of chip_smoke.py),
-any other to one launch of the kernel. The kernels are built at first use;
+behz_kernels.behz_tensor does (`mod_down` with a `Tail`, K9a, finishes the
+ciphertext of a relinearization or a rotation in the same launch): a CPU
+tensor goes to the plain version (int64 torch with exact `%`, the chains
+BfvContext and CkksContext ran before the kernels: the CPU route and the
+oracle of the tests and of chip_smoke.py), any other to one launch of the
+kernel. The kernels are built at first use;
 a failed build, a failed launch or an operand the kernel does not take
 raises. `launches` counts kernel launches per kernel and nothing else.
 
@@ -18,7 +20,7 @@ the two give the same canonical words.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,7 +28,8 @@ import torch
 from abc_tpu_torch.crypto.numthy import modinv
 from abc_tpu_torch.ops.modarith import as_residues, shoup, t64
 
-launches = {"ks_decompose": 0, "ks_contract": 0, "ks_mod_down": 0}
+launches = {"ks_decompose": 0, "ks_contract": 0, "ks_mod_down": 0,
+            "ks_mod_down_relin": 0, "ks_mod_down_rotate": 0}
 
 # words of a record of the packed tables, and the most special primes one
 # ks_mod_down launch divides out (csrc/keyswitch.cu)
@@ -113,6 +116,20 @@ class Division:
         return self.k
 
 
+class Tail(NamedTuple):
+    """What `mod_down` adds to the halves (k0, k1) of a key switch of
+    [..., 2, Lo + k, n] before it stores them (K9a), finishing a ciphertext
+    [..., 2, Lo, n]: "relin" adds components 0 and 1 of the size-3 product
+    `c` ([..., 3, Lo, n]) to k0 and k1; "rotate" adds the signed coefficient
+    gather of `c` (c0 [..., Lo, n]) to k0, coefficient j reading c0 at
+    gather[j] ([n] int64), negated where sign_pos[j] ([n] bool) is False,
+    and keeps k1 (crypto/rlwe.galois_gather's tables)."""
+    kind: str
+    c: torch.Tensor
+    gather: Optional[torch.Tensor] = None
+    sign_pos: Optional[torch.Tensor] = None
+
+
 # ----------------------------------------------------------- plain versions
 
 def lift_plain(d, q):
@@ -154,11 +171,12 @@ def contract_plain(D, ksk_b, ksk_a, q, perm=None):
                        dim=-3)
 
 
-def mod_down_plain(x, division: Division):
+def mod_down_plain(x, division: Division, tail: Optional[Tail] = None):
     """[..., Lo + k, n] → [..., Lo, n]: k successive exact centred divisions
     (x − centred([x]_p))·p^{-1}, last prime first. The reference's steps
     word for word: [x]_p reduced mod q by one conditional subtract (primes
-    of one size), the centring test on the unreduced residue."""
+    of one size), the centring test on the unreduced residue. With a tail,
+    x is [..., 2, Lo + k, n] and the tail's chain follows (tail_plain)."""
     for s in reversed(range(division.k)):
         qv, p_mod, p_inv, half = division.steps[s]
         rows = qv.shape[0]
@@ -166,7 +184,21 @@ def mod_down_plain(x, division: Division):
         x_p_red = torch.where(x_p >= qv, x_p - qv, x_p)
         corr = torch.where(x_p > half, t64.sub(x_p_red, p_mod, qv), x_p_red)
         x = t64.mul(t64.sub(x_rest, corr, qv), p_inv, qv)
-    return x
+    return x if tail is None else tail_plain(x, tail, division.steps[0][0])
+
+
+def tail_plain(k, tail: Tail, q):
+    """The chains a relinearization and a rotation ran after the key switch
+    (k [..., 2, Lo, n], q [Lo, 1]): the two adds and the stack, or the
+    signed gather of c0, its negation, the add to k0 and the stack."""
+    k0, k1 = k[..., 0, :, :], k[..., 1, :, :]
+    if tail.kind == "relin":
+        c = tail.c
+        return torch.stack([t64.add(c[..., 0, :, :], k0, q),
+                            t64.add(c[..., 1, :, :], k1, q)], dim=-3)
+    c0g = tail.c.index_select(-1, tail.gather)
+    c0g = torch.where(tail.sign_pos, c0g, t64.neg(c0g, q))
+    return torch.stack([t64.add(c0g, k0, q), k1], dim=-3)
 
 
 # ---------------------------------------------------------------- launching
@@ -301,12 +333,14 @@ def contract(D, ksk_b, ksk_a, q, ratio, perm=None):
     return out
 
 
-def mod_down(x, division: Division):
+def mod_down(x, division: Division, tail: Optional[Tail] = None):
     """x [..., Lo + k, n] (on the card its rows may lie at one stride,
     _operand) → [..., Lo, n], the exact centred division by the last k
-    primes of the division's base."""
+    primes of the division's base. With a tail (K9a), x holds the halves
+    of key switches, [..., 2, Lo + k, n], and the launch writes the
+    finished ciphertexts [..., 2, Lo, n] (Tail)."""
     if x.device.type == "cpu":
-        return mod_down_plain(x, division)
+        return mod_down_plain(x, division, tail)
     rows, n, x_stride = _operand(x, "x", 2, strided=True)
     Lo, k = division.Lo, division.k
     if x.shape[-2] != Lo + k or k > MAX_SPECIALS:
@@ -316,14 +350,60 @@ def mod_down(x, division: Division):
     _table(division.words, "division", x.device, k * REC * (1 + Lo + k))
     out = torch.empty(tuple(x.shape[:-2]) + (Lo, n), dtype=torch.int32,
                       device=x.device)
-    _launch("ks_mod_down", x.device, lambda lib, s: lib.abc_ks_mod_down(
-        x.data_ptr(), out.data_ptr(), division.words.data_ptr(), rows,
-        x_stride, Lo, k, n.bit_length() - 1, s))
+    if tail is None:
+        _launch("ks_mod_down", x.device, lambda lib, s: lib.abc_ks_mod_down(
+            x.data_ptr(), out.data_ptr(), division.words.data_ptr(), rows,
+            x_stride, Lo, k, n.bit_length() - 1, s))
+        return out
+    c_stride, c_comp = _tail_operand(x, tail, Lo, n)
+    kind = _TAILS[tail.kind]
+    _launch(f"ks_mod_down_{tail.kind}", x.device,
+            lambda lib, s: lib.abc_ks_mod_down_tail(
+                x.data_ptr(), out.data_ptr(), division.words.data_ptr(), rows,
+                x_stride, Lo, k, n.bit_length() - 1, kind, tail.c.data_ptr(),
+                c_stride, c_comp,
+                None if tail.gather is None else tail.gather.data_ptr(),
+                None if tail.sign_pos is None else tail.sign_pos.data_ptr(),
+                s))
     return out
 
 
+# abc_ks_mod_down_tail's tail numbers
+_TAILS = {"relin": 1, "rotate": 2}
+
+
+def _tail_operand(x, tail: Tail, Lo, n):
+    """(words between ciphertexts, words between components) of a tail's
+    ciphertext rows, which must lie where the kernel reads them: one
+    ciphertext per pair of x's rows, [Lo, n] rows of consecutive words."""
+    if tail.kind not in _TAILS:
+        raise ValueError(f"key-switch mod down: no tail {tail.kind!r}")
+    c, lead = tail.c, tuple(x.shape[:-3])
+    relin = tail.kind == "relin"
+    first = c[..., 0, :, :] if relin else c
+    if x.dim() < 3 or x.shape[-3] != 2 or c.device != x.device or \
+            c.dtype != torch.int32 or tuple(first.shape) != lead + (Lo, n) \
+            or (relin and c.shape[-3] < 2):
+        raise ValueError(f"key-switch mod down's {tail.kind} tail: x "
+                         f"{tuple(x.shape)} must be [..., 2, {Lo} + k, {n}] "
+                         f"and its ciphertext {tuple(c.shape)} int32 "
+                         f"{'[..., >= 2' if relin else '[...'}, {Lo}, {n}] "
+                         "on x's device")
+    c_stride = _row_stride(first)
+    c_comp = c.stride(-3) if relin else 0
+    if c_stride is None or c.data_ptr() % 16 or c_stride % 4 or c_comp % 4:
+        raise ValueError(f"key-switch mod down's {tail.kind} tail: rows of "
+                         f"{(Lo, n)} at one stride, 16-byte aligned, got "
+                         f"strides {c.stride()} of {tuple(c.shape)}")
+    if not relin:
+        _table(tail.gather, "gather", x.device, n, torch.int64)
+        _table(tail.sign_pos, "sign_pos", x.device, n, torch.bool)
+    return c_stride, c_comp
+
+
 # abc_ks_launch_info's kernel numbers
-_INFO_KERNEL = {"ks_decompose": 0, "ks_contract": 1, "ks_mod_down": 2}
+_INFO_KERNEL = {"ks_decompose": 0, "ks_contract": 1, "ks_mod_down": 2,
+                "ks_mod_down_relin": 3, "ks_mod_down_rotate": 4}
 
 
 def launch_info(name: str, lines: int, n: int, k: int = 1) -> dict:

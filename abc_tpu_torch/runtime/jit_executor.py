@@ -297,9 +297,11 @@ class JittedProgram:
             # ones left
             torch.cuda.empty_cache()
             reserved0 = torch.cuda.memory_reserved(self.device)
-            self._graph = torch.cuda.CUDAGraph()
+            # keep_graph: the graph's nodes stay readable (debug_dump)
+            self._graph = torch.cuda.CUDAGraph(keep_graph=True)
             with capture_graph(self._graph):
                 self._static_out = self.run_eager(self._static_in)
+            self._graph.instantiate()
             _mark("capture")
         self.device_bytes = {
             "total": torch.cuda.memory_allocated(self.device) - allocated0,

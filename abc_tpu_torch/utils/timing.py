@@ -82,10 +82,14 @@ def graph_of(run: Callable, x0: torch.Tensor) -> "torch.cuda.CUDAGraph":
     input was freed replays into memory that the next capture frees with
     cudaFree (`torch.cuda.graph` empties the allocator's cache as it
     starts): a segmentation fault in cudaGraphLaunch, an illegal address or
-    wrong words."""
-    g = torch.cuda.CUDAGraph()
+    wrong words.
+
+    The graph keeps its cudaGraph_t (keep_graph) beside the instantiated
+    one, so that its nodes can be read back (CUDAGraph.debug_dump)."""
+    g = torch.cuda.CUDAGraph(keep_graph=True)
     with capture_graph(g):
         g.output = run(x0)
+    g.instantiate()
     g.held = (run, x0)
     return g
 

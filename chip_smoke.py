@@ -76,29 +76,49 @@ Phases, each of which raises on failure (the script then exits nonzero):
    version's time, the
    compiler's census and the launch with its occupancy
    (abc_rlwe_launch_info).
+2e. The K9 kernels: ks_mod_down_relin and ks_mod_down_rotate (ks_mod_down
+   of csrc/keyswitch.cu with the relinearization's adds, or the rotation's
+   signed coefficient gather of c0 and its add, in the same launch) and the
+   RNS elementwise ops of csrc/elementwise.cu (rns_ew_add, rns_ew_sub,
+   rns_ew_mul, rns_ew_neg: ciphertext adds, plaintext products, the CKKS
+   integer multiply by a column, the component-0 forms of add_plain and
+   sub_from_plain) torch.equal to their plain versions on the card at
+   phase 2c's shapes (BFV n=8192, L=6, k=1 and 2 at one ciphertext and at
+   B=64, n=16384, L=13, CKKS n=32768, 8 + 2 primes at level 8 and level
+   3), the rotation at Galois elements 3 and 2n-1 (both signs), inputs
+   holding 0 and q-1, and on inputs all 0 and all q-1; at one ciphertext
+   and B=64 (k=1), k=2 and CKKS level 8 warm and cold time, device time,
+   the bound, the plain version's time, the compiler's census and the
+   launch with its occupancy.
 3. BFV mult+relin at n=8192 (6 data primes, k=1 and k=2): keys,
    ciphertexts and result on the card equal to the port's CPU context of
    the same seed and to the golden digests; one multiply of fresh operands
    launches exactly 5 forward and 3 inverse transforms (154 limb rows at
    k=1), 2 behz_to_bsk, 1 behz_tensor, 1 behz_fast_floor and 1
-   behz_from_bsk, and 1 ks_decompose, 1 ks_contract and 1 ks_mod_down;
-   ms per op; the op captured as a CUDA graph, its replay
-   profiled (kernels per replay, each hand-written kernel in it as often as
-   the eager op launched it) and timed; device time per named elementwise
-   chain (the torch.profiler ranges of ops/modarith.chain_range), with the
-   kernels under the ranges counted against the replay's census, at one
-   ciphertext and (k=1) at a batch of 64.
+   behz_from_bsk, and 1 ks_decompose, 1 ks_contract and 1
+   ks_mod_down_relin; ms per op; the op captured as a CUDA graph, whose
+   node list holds exactly those 16 kernels and no other, its replay
+   timed and profiled; device time per named elementwise chain (the torch.profiler
+   ranges of ops/modarith.chain_range), with no kernel outside the ranges,
+   at one ciphertext and (k=1) at a batch of 64.
 4. The main path: the README hamming program, compiled by the port's passes
    and run encrypted through run_compiled with the port's factory at
-   n=8192. Launch counts of every hand-written kernel are taken over this
-   run and its decryption alone, and each must be launched (but
-   rns_uniform: only a context restored without its uniform key halves
-   draws them apart from ksk_compose). Its output words equal the CPU run
-   and the golden digest, and decrypt to 2.
+   n=8192, and a second request on the same factory (PLAIN_ARITH: a
+   plaintext minus a ciphertext, a plaintext product, a ciphertext add,
+   plaintext subtract and add, a negation). Launch counts of every
+   hand-written kernel are taken over these runs and their decryptions
+   alone, and each must be launched (but rns_uniform: only a context
+   restored without its uniform key halves draws them apart from
+   ksk_compose; and ks_mod_down: every BFV key switch ends in a tail, the
+   plain form is the CKKS rescale's, counted in phase 9). Hamming's output
+   words equal the CPU run and the golden digest, and decrypt to 2; the
+   second request's equal the CPU run and decrypt to the plain oracle.
 5. LaplaceSharpening at the reference's parameters (n=16384, 13 data
    primes): decrypts equal to the plain oracle, rotations share one hoisted
-   decomposition, the NTT and key-switch kernels launched and no BEHZ
-   kernel, ksk_compose, rlwe_lift and bfv_dec_round launched; phase times.
+   decomposition, the NTT and key-switch kernels of a rotation, the
+   elementwise adds and plaintext products launched and no BEHZ kernel and
+   no relinearization, ksk_compose, rlwe_lift and bfv_dec_round launched;
+   phase times.
 6. Keys on the card: a fresh factory (keygen) and every Galois key that
    LaplaceSharpening used, timed, equal to phase 5's keys, with the key
    build's device time (profiler) beside its host clock; an encryption and
@@ -122,8 +142,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    phase 4's seed: run() decrypts to 2, the raw output words equal phase
    4's eager words and the golden digest; kernel launch counts are taken
    over this path alone (they move at set-up, warm-up and capture only),
-   and a profiled replay holds as many NTT kernels as one eager walk of the
-   program launches.
+   and the program's graph holds, by its node list, as many hand-written
+   kernels of each kind as one eager walk of the program launches.
    Serving: three fresh input pairs through encrypt_inputs -> run_raw ->
    decrypt_outputs, each equal to the plain oracle and, word for word, to an
    eager executor run on the same ciphertexts, with ntt_kernels.launches and
@@ -161,7 +181,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    and the bound at the op's shapes. The op: multiply(a, a, rescale=False),
    eager: public key, relinearization key, ciphertext and result equal to
    the port's CPU run and the golden digests; 3 forward launches of 16, 16,
-   40 rows and 2 inverse of 24, 20; ms/op; device time by kernel name. A
+   40 rows and 2 inverse of 24, 20; ms/op; device time by kernel name; as
+   a graph exactly its 9 hand-written kernels a replay. A
    leveled run at scale 2^29 (multiply with rescale, a second multiply at
    level 7 with its partial last digit, rotate and hoisted rotations of it,
    its rescale): words equal to the CPU run, decoded values against numpy. As a graph: the op
@@ -242,6 +263,7 @@ JAX or of abc_tpu. Prints the card's name and power limit, a
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -319,14 +341,30 @@ PHASE3_BATCH = 64       # the bench curve's largest batch
 # (no key generation, encryption or decryption kernel)
 NO_RLWE = {"rns_uniform": 0, "ksk_compose": 0, "rlwe_lift": 0,
            "bfv_dec_round": 0}
+# the K9 kernels: ks_mod_down with the relinearization's and the
+# rotation's tails (csrc/keyswitch.cu) and the RNS elementwise ops
+# (csrc/elementwise.cu)
+K9A = ("ks_mod_down_relin", "ks_mod_down_rotate")
+K9B = ("rns_ew_add", "rns_ew_sub", "rns_ew_mul", "rns_ew_neg")
+NO_K9B = {name: 0 for name in K9B}
+# every launch of a replay is one of these: a relinearization finishes in
+# ks_mod_down_relin, and the BFV multiply and the CKKS op run no
+# elementwise op
 MULT_RELIN_CENSUS = {"ntt_fwd": 5, "ntt_inv": 3, "behz_to_bsk": 2,
                      "behz_tensor": 1, "behz_fast_floor": 1,
                      "behz_from_bsk": 1, "ks_decompose": 1, "ks_contract": 1,
-                     "ks_mod_down": 1, **NO_RLWE}
+                     "ks_mod_down": 0, "ks_mod_down_relin": 1,
+                     "ks_mod_down_rotate": 0, **NO_RLWE, **NO_K9B}
 CKKS_OP_CENSUS = {"ntt_fwd": 3, "ntt_inv": 2, "behz_to_bsk": 0,
                   "behz_tensor": 1, "behz_fast_floor": 0, "behz_from_bsk": 0,
-                  "ks_decompose": 1, "ks_contract": 1, "ks_mod_down": 1,
-                  **NO_RLWE}
+                  "ks_decompose": 1, "ks_contract": 1, "ks_mod_down": 0,
+                  "ks_mod_down_relin": 1, "ks_mod_down_rotate": 0,
+                  **NO_RLWE, **NO_K9B}
+# one BFV rotation: the decomposition's forward transform, the inverse of
+# the accumulators and the key switch ending in its tail
+ROTATE_CENSUS = {name: int(name in ("ntt_fwd", "ntt_inv", "ks_decompose",
+                                    "ks_contract", "ks_mod_down_rotate"))
+                 for name in MULT_RELIN_CENSUS}
 # the key-switch kernels (K4, csrc/keyswitch.cu) and their shapes in phase
 # 2c, (scheme, n, L data primes, k special primes, ciphertexts, level): BFV
 # at the main path's n=8192 (k = 1 and 2, one ciphertext and the bench's
@@ -396,14 +434,32 @@ REPLACES = {
                  "(_enc_jit's adds)",
     "bfv_dec_round": "abc_tpu/crypto/bfv.py:1311 (_dec_jit's "
                      "scale-and-round)",
+    "ks_mod_down_relin": "abc_tpu/crypto/bfv.py:904-907 (relinearize's "
+                         "adds and stack), abc_tpu/crypto/ckks.py:771-774",
+    "ks_mod_down_rotate": "abc_tpu/crypto/bfv.py:1117-1121 (apply_galois's "
+                          "signed gather, add and stack), :1165 "
+                          "(hoisted_rotations), abc_tpu/crypto/ckks.py:993, "
+                          ":1021",
+    "rns_ew_add": "abc_tpu/ops/modarith.py:116 (jx32.add) at "
+                  "abc_tpu/crypto/bfv.py:802, :817, "
+                  "abc_tpu/crypto/ckks.py:624",
+    "rns_ew_sub": "abc_tpu/ops/modarith.py:122 (jx32.sub) at "
+                  "abc_tpu/crypto/bfv.py:806, :821, "
+                  "abc_tpu/crypto/ckks.py:629",
+    "rns_ew_mul": "abc_tpu/ops/modarith.py:132 (jx32.mul) at "
+                  "abc_tpu/crypto/bfv.py:812, :831, "
+                  "abc_tpu/crypto/ckks.py:718, :761",
+    "rns_ew_neg": "abc_tpu/ops/modarith.py:127 (jx32.neg) at "
+                  "abc_tpu/crypto/bfv.py:809, :825",
 }
 SOURCE = {"ntt_fwd": "abc_tpu_torch/csrc/ntt.cu",
           "ntt_inv": "abc_tpu_torch/csrc/ntt.cu",
           "ablate_ntt": "abc_tpu_torch/csrc/ntt_ablation.cu",
           "alu_chain": "abc_tpu_torch/csrc/ntt_ablation.cu",
           **{name: "abc_tpu_torch/csrc/behz.cu" for name in BEHZ},
-          **{name: "abc_tpu_torch/csrc/keyswitch.cu" for name in KS},
-          **{name: "abc_tpu_torch/csrc/rlwe.cu" for name in RLWE}}
+          **{name: "abc_tpu_torch/csrc/keyswitch.cu" for name in KS + K9A},
+          **{name: "abc_tpu_torch/csrc/rlwe.cu" for name in RLWE},
+          **{name: "abc_tpu_torch/csrc/elementwise.cu" for name in K9B}}
 # CKKS at the reference's own size (abc_tpu/benchsuite.py config 5): the
 # launches of one multiply(a, a, rescale=False) as (kernel, level, with the
 # special primes, batch): forward 2 x 8 = 16 rows (each operand) and 4 x 10 =
@@ -460,14 +516,19 @@ _names = {}
 
 def kernels_of(fn):
     """The names of the device kernels fn() launches, read once from a
-    profile of its own, so that kernel_profile leaves them out."""
+    profile of its own, so that kernel_profile leaves them out. The first
+    profiles of a process can come back without a kernel record (three in
+    a row once, on an H100 80GB HBM3 at 700 W, before any other profile of
+    the process), so fn() runs three times a profile, up to ten
+    profiles."""
     from torch.profiler import ProfilerActivity, profile
     if fn not in _names:
         fn()
         torch.cuda.synchronize()
-        for _ in range(3):
+        for _ in range(10):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
+                for _ in range(3):
+                    fn()
                 torch.cuda.synchronize()
             names = {ev.name for ev in prof.events()
                      if ev.device_type == torch.autograd.DeviceType.CUDA}
@@ -596,6 +657,14 @@ def chain_profile(fn, reps=3):
     return table, kernels / reps, len(ranges) / reps
 
 
+def check_in_ranges(chains, what):
+    """Every kernel of a chain_profile ran inside a named chain or is a
+    hand-written NTT kernel: none is left "outside the ranges"."""
+    outside = chains[0].get("(outside the ranges)")
+    check(outside is None, f"{what}: kernels outside every named chain "
+          f"(ms, kernels a call): {outside}; all chains: {chains[0]}")
+
+
 def fmt_chains(chains, expect_kernels):
     """The per-chain table on one line, largest first, and whether its
     kernels add up to what one op launches."""
@@ -630,29 +699,37 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def check_launched(launches, what, regenerates=False):
+def check_launched(launches, what, regenerates=False, absent=()):
     """Every kernel of `launches` launched at least once, but rns_uniform
     where the path regenerates no uniform key half (a fresh context draws
     its public key's inside ksk_compose): only a context restored from
-    files without those halves calls it."""
+    files without those halves calls it; and but the kernels `absent`
+    names, which the path does not run (its caller says why)."""
     check(all(v > 0 for k, v in launches.items()
-              if regenerates or k != "rns_uniform"),
+              if (regenerates or k != "rns_uniform") and k not in absent),
           f"{what} launched a kernel no time: {launches}")
+
+
+# a BFV key switch always ends in a tail (relinearization, rotation), so
+# the plain ks_mod_down runs on the CKKS rescale and a mesh's key switch
+BFV_ABSENT = ("ks_mod_down",)
 
 
 def _counters():
     from abc_tpu_torch.ops import behz_kernels as bk
+    from abc_tpu_torch.ops import elementwise_kernels as ew
     from abc_tpu_torch.ops import keyswitch_kernels as kk
     from abc_tpu_torch.ops import ntt_kernels as nk
     from abc_tpu_torch.ops import rlwe_kernels as rk
-    return nk.launches, bk.launches, kk.launches, rk.launches
+    return nk.launches, bk.launches, kk.launches, rk.launches, ew.launches
 
 
 def launch_counts():
     """Launches of every hand-written kernel of the main paths, by kernel:
-    the NTT, BEHZ, key-switch and key generation / encryption / decryption
-    kernels' counts (ops/ntt_kernels.py, ops/behz_kernels.py,
-    ops/keyswitch_kernels.py, ops/rlwe_kernels.py)."""
+    the NTT, BEHZ, key-switch, key generation / encryption / decryption and
+    elementwise kernels' counts (ops/ntt_kernels.py, ops/behz_kernels.py,
+    ops/keyswitch_kernels.py, ops/rlwe_kernels.py,
+    ops/elementwise_kernels.py)."""
     return {k: v for counts in _counters() for k, v in counts.items()}
 
 
@@ -668,42 +745,99 @@ def since(before):
     return {k: v - before[k] for k, v in launch_counts().items()}
 
 
-def in_profile(prof):
-    """Launches of each hand-written kernel in a kernel_profile."""
-    return {name: round(sum(c for kernel, c in prof[3].items()
-                            if name in kernel)) for name in launch_counts()}
+def hand_written(kernels):
+    """({counter: launches}, {other kernel: launches}) of {kernel name:
+    launches}: a kernel counts for the longest counter name it holds
+    (ks_mod_down_relin_kernel<1> for ks_mod_down_relin, not for
+    ks_mod_down); a kernel that holds none is not hand-written (a library
+    or torch kernel)."""
+    names = sorted(launch_counts(), key=len, reverse=True)
+    seen, other = dict.fromkeys(names, 0), {}
+    for kernel, c in kernels.items():
+        name = next((nm for nm in names if nm in kernel), None)
+        if name is None:
+            other[kernel] = c
+        else:
+            seen[name] += c
+    return seen, other
 
 
-def census_profile(fn, want, what, reps=5, tries=5):
-    """kernel_profile of fn() whose hand-written kernels are exactly `want`
-    per call, and the number of profiles it took. The profiler now and then
-    drops kernel records (on an H100 80GB HBM3 at 700 W, one profile of a
-    replay read 3 of the 4 ntt_fwd nodes its capture launched, while the
-    replay's words showed all four ran), so a reading that differs is taken
-    again, up to `tries` times; a graph that really lacks or adds a kernel
-    reads so every time, and fails."""
-    readings = []
-    for attempt in range(1, tries + 1):
-        prof = kernel_profile(fn, reps)
-        check(prof is not None,
-              f"{what}: the profiler saw no device activity, three times")
-        readings.append(in_profile(prof))
-        if readings[-1] == want:
-            return prof, attempt
-    raise AssertionError(f"{what} runs the hand-written kernels "
-                         f"{readings} in {tries} profiles, not {want}")
+# one node of cudaGraphDebugDotPrint's text: its type, then (a kernel node)
+# "{ID | <id> (topoId: <t>) | <mangled symbol>\<\<\<grid,block,smem\>\>\>}"
+_DOT_NODE = re.compile(
+    r'^"graph_\d+_node_\d+"\[[^\n]*?label="\{(\w+)(.*?)\}"\];$', re.M | re.S)
+_DOT_KERNEL = re.compile(r"\{ID \|[^|]*\| ([^\s|}\\]+)")
+
+
+def dot_nodes(text):
+    """({kernel name: nodes}, {other node type: nodes}) of a graph's
+    cudaGraphDebugDotPrint text: a kernel node by its mangled symbol, any
+    other node (MEMSET, MEMCPY, ...) by its type."""
+    kernels, others = {}, {}
+    for kind, body in _DOT_NODE.findall(text):
+        if kind == "KERNEL":
+            name = _DOT_KERNEL.search(body)
+            check(name is not None, f"a kernel node without a name: {body!r}")
+            kernels[name.group(1)] = kernels.get(name.group(1), 0) + 1
+        else:
+            others[kind] = others.get(kind, 0) + 1
+    return kernels, others
+
+
+def graph_nodes(g):
+    """dot_nodes of a captured CUDA graph, read from its own node list
+    (CUDAGraph.debug_dump, cudaGraphDebugDotPrint; the port's graphs keep
+    their cudaGraph_t): what every replay launches. torch.profiler is no
+    census of a replay: it drops kernel records, and on an H100 80GB HBM3
+    at 700 W three profiles in a row of one replay held none."""
+    import warnings
+    from abc_tpu_torch.ops import _build
+    path = os.path.join(_build.BUILD_DIR, "graph_nodes.dot")
+    if os.path.exists(path):
+        os.remove(path)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="DEBUG: calling")
+        g.debug_dump(path)
+    check(os.path.exists(path), "a graph's node list was not written "
+          "(captured without keep_graph=True?)")
+    with open(path) as f:
+        text = f.read()
+    os.remove(path)
+    kernels, others = dot_nodes(text)
+    check(kernels, f"a graph's node list holds no kernel: {text[:300]!r}")
+    return kernels, others
+
+
+def graph_census(g, want, what):
+    """The kernel nodes of graph g, whose hand-written kernels must be
+    exactly `want`: (kernel nodes, {other kernel: nodes}, {other node type:
+    nodes})."""
+    kernels, others = graph_nodes(g)
+    seen, other = hand_written(kernels)
+    check(seen == want, f"{what} holds the hand-written kernels {seen}, "
+          f"not {want}")
+    return sum(kernels.values()), other, others
+
+
+def busy_share(prof, ms):
+    """A kernel_profile's device ms over a call's `ms`, or "not
+    measured"."""
+    return "not measured" if prof is None else f"{prof[0] / ms:.3f}"
 
 
 def op_graph(ctx, op, x0, want):
     """op(x0) captured as a CUDA graph with ctx's caches emptied around the
-    capture, its replay profiled (it must run the hand-written kernels
-    `want`) and timed: (kernels per replay, profiles it took, ms per replay
-    between CUDA events (median of 10), device ms per replay)."""
+    capture; its nodes must be the hand-written kernels `want` and no other
+    kernel (graph_census), and its replay is timed: (kernel nodes, other
+    nodes by type, ms per replay between CUDA events (median of 10),
+    kernel_profile of a replay (None where the profiler saw nothing))."""
     from abc_tpu_torch.utils.timing import graph_of
     with ctx.fresh_caches():
         g = graph_of(op, x0)
-    prof, tries = census_profile(g.replay, want, "a replay of the op")
-    return prof[1], tries, cuda_ms(g.replay), prof[0]
+    kernels, other, others = graph_census(g, want, "a replay of the op")
+    check(not other, f"a replay of the op runs kernels that are not "
+          f"hand-written: {other}")
+    return kernels, others, cuda_ms(g.replay), kernel_profile(g.replay)
 
 
 def digest(t):
@@ -1444,6 +1578,174 @@ def phase_rlwe(dev):
     return stats
 
 
+# phase 2e times the K9 kernels at these of phase 2c's shapes: one
+# ciphertext and B=64 at k=1, k=2, and CKKS at full level; the kernels line
+# reads the first
+K9_TIMED = [KS_SHAPES[0], KS_SHAPES[1], KS_SHAPES[2], KS_SHAPES[5]]
+
+
+def k9_calls(scheme, n, L, k, batch, level, edge, dev):
+    """{label: (kernel, kernel call, plain call, bytes, integer
+    multiply-adds, output rows, library call or None)} of the K9 kernels at
+    one of phase 2c's shapes (`batch` ciphertexts at `level` of an (n, L
+    data primes, k special primes) context): ks_mod_down with the
+    relinearization's tail (both halves of a key switch and a size-3
+    product), with the rotation's at Galois elements 3 and 2n-1 (both
+    signs occur in each), and each elementwise op on [batch, 2, level, n]
+    ciphertexts: add and sub of two, the plaintext product (mul by
+    [level, n]), neg, the CKKS integer multiply (mul by a column), and the
+    component-0 forms of add_plain and sub_from_plain (a plaintext's
+    coefficients times a column); with 0 and q-1 among random residues,
+    all 0 (`edge` "zero") or all q-1 ("max"). The bound counts each operand
+    and result once and the tables once, and the multiply-adds of
+    ks_imads for the division and of a 32x32 product reduced by reduce64
+    for each product mod q. No single PyTorch call computes a modular add,
+    a product mod q or the fused tail."""
+    from abc_tpu_torch.crypto.ckks import CkksParams
+    from abc_tpu_torch.crypto.params import BfvParams
+    from abc_tpu_torch.crypto.rlwe import galois_gather
+    from abc_tpu_torch.ops import elementwise_kernels as ew
+    from abc_tpu_torch.ops import keyswitch_kernels as kk
+    from abc_tpu_torch.ops.modarith import as_residues, ratio_table
+    p = BfvParams.create(n, seed=11, ks_digits=k) if scheme == "bfv" else \
+        CkksParams.create(n, levels=L, seed=3, ks_digits=k)
+    check(p.L == L, f"{scheme} n={n}: L={p.L}")
+    qs = p.data_primes[:level]
+    cols = qs + p.special_primes
+    R = len(cols)
+    div = kk.Division(cols, k, dev)
+    q = as_residues(np.asarray(qs, np.uint32).reshape(-1, 1), dev)
+    ratio = ratio_table(qs, dev)
+    lead = () if batch == 1 else (batch,)
+
+    def operand(moduli, shape, seed):
+        qcol = torch.tensor(moduli, dtype=torch.int64).reshape(-1, 1)
+        if edge in ("zero", "max"):
+            x = torch.zeros(shape + (len(moduli), n), dtype=torch.int64)
+            return (x + (qcol - 1 if edge == "max" else 0)).to(
+                torch.int32).to(dev)
+        x = rand_residues(moduli, shape + (len(moduli), n), seed, dev)
+        x[..., 0] = 0
+        x[..., 1::257] = (qcol - 1).to(torch.int32).to(dev)
+        return x
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    x = operand(cols, lead + (2,), 7)
+    prod = operand(qs, lead + (3,), 8)
+    a, b = operand(qs, lead + (2,), 9), operand(qs, lead + (2,), 10)
+    plane = operand(qs, (), 11)
+    pt = (operand(qs[:1], (), 12)[0] % 65537).expand(level, -1)
+    w = operand(qs, (), 13)[:, :1].contiguous()
+    col = operand(qs, (), 14)[:, :1].contiguous()
+    words = 2 * batch * level * n        # one [batch, 2, level, n] operand
+    lines = 2 * batch * level
+    red = BEHZ_IMAD["wide"] + BEHZ_IMAD["reduce64"]
+    md_imads = 2 * batch * n * ks_imads("ks_mod_down", R, k=k, Lo=level)
+    md_bytes = 4 * 2 * batch * R * n + nbytes(div.words)
+    relin = kk.Tail("relin", prod)
+    calls = {"ks_mod_down_relin": (
+        "ks_mod_down_relin", lambda: kk.mod_down(x, div, relin),
+        lambda: kk.mod_down_plain(x, div, relin),
+        md_bytes + 4 * 2 * words, md_imads, lines, None)}
+    for g, label in ((3, "ks_mod_down_rotate"),
+                     (2 * n - 1, "ks_mod_down_rotate g=2n-1")):
+        tail = kk.Tail("rotate", prod[..., 0, :, :],
+                       *galois_gather(n, g, dev))
+        calls[label] = (
+            "ks_mod_down_rotate",
+            lambda tail=tail: kk.mod_down(x, div, tail),
+            lambda tail=tail: kk.mod_down_plain(x, div, tail),
+            md_bytes + 4 * (words // 2 + words)
+            + nbytes(tail.gather, tail.sign_pos), md_imads, lines, None)
+    calls.update({
+        "rns_ew_add": ("rns_ew_add", lambda: ew.add(a, b, q, ratio),
+                       lambda: ew.ew_plain("add", a, b, q),
+                       4 * 3 * words + nbytes(q), 0, lines, None),
+        "rns_ew_sub": ("rns_ew_sub", lambda: ew.sub(a, b, q, ratio),
+                       lambda: ew.ew_plain("sub", a, b, q),
+                       4 * 3 * words + nbytes(q), 0, lines, None),
+        "rns_ew_mul": ("rns_ew_mul", lambda: ew.mul(a, plane, q, ratio),
+                       lambda: ew.ew_plain("mul", a, plane, q),
+                       4 * (2 * words + level * n) + nbytes(q, ratio),
+                       words * red, lines, None),
+        "rns_ew_neg": ("rns_ew_neg", lambda: ew.neg(a, q),
+                       lambda: ew.ew_plain("neg", a, None, q),
+                       4 * 2 * words + nbytes(q), 0, lines, None),
+        "rns_ew_mul column": (
+            "rns_ew_mul", lambda: ew.mul(a, col, q, ratio),
+            lambda: ew.ew_plain("mul", a, col, q),
+            4 * 2 * words + nbytes(q, ratio, col), words * red, lines, None),
+        "rns_ew_add c0": (
+            "rns_ew_add", lambda: ew.add(a, pt, q, ratio, w=w, first=True),
+            lambda: ew.ew_plain("add", a, pt, q, w, True),
+            4 * (2 * words + n) + nbytes(q, ratio, w), words // 2 * red,
+            lines, None),
+        "rns_ew_neg c0": (
+            "rns_ew_neg", lambda: ew.neg(a, q, ratio, b=pt, w=w),
+            lambda: ew.ew_plain("neg", a, pt, q, w, True),
+            4 * (2 * words + n) + nbytes(q, ratio, w), words // 2 * red,
+            lines, None)})
+    return calls
+
+
+def phase_elementwise(dev):
+    """Phase 2e: the K9 kernels (ks_mod_down with the relinearization's and
+    the rotation's tails, the RNS elementwise ops) against their plain
+    versions at phase 2c's shapes and on edge inputs; times, launches and
+    compiler census at K9_TIMED. Returns the kernels line's stats (the main
+    path's shape)."""
+    from abc_tpu_torch.ops import _build
+    from abc_tpu_torch.ops import elementwise_kernels as ew
+    from abc_tpu_torch.ops import kernel_census as kc
+    from abc_tpu_torch.ops import keyswitch_kernels as kk
+
+    table = kc.kernel_table(_build.build_log, _build.sass(),
+                            prefix=K9A + ("rns_ew_",))
+    check(len(table) >= 8, f"no ptxas / SASS record of the K9 kernels: "
+          f"{sorted(table)}")
+    stats = {name: {"max_abs_err": 0} for name in K9A + K9B}
+    cases = [(shape, None) for shape in KS_SHAPES] + \
+        [(shape, edge) for shape in KS_EDGE_SHAPES
+         for edge in ("zero", "max")]
+    for shape, edge in cases:
+        scheme, n, L, k, batch, level = shape
+        at = f"{scheme} n={n} L={L} k={k} ciphertexts={batch} level={level}" \
+            + (f" edge {edge}" if edge else "")
+        line = []
+        for label, (name, kern, plain, n_bytes, imads, lines, library) in \
+                k9_calls(*shape, edge, dev).items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            check(torch.equal(got, want), f"{label} != plain at {at}")
+            if edge is not None or shape not in K9_TIMED:
+                continue
+            if name in K9A:
+                info = kk.launch_info(name, lines, n, k)
+                key = kc.ks_launch_key(name, info)
+            else:
+                info = ew.launch_info(name[len("rns_ew_"):], lines, n)
+                key = f"{name}_kernel"
+            row = table.get(key, {})
+            check(row, f"no ptxas / SASS record of {key}")
+            st = {}
+            line.append(
+                f"{label} " + _timed(st, kern, plain, list(shape),
+                                     bound(n_bytes, imads), library)
+                + f" [{key}: {info['threads']} threads x {info['blocks']} "
+                f"blocks, {info['blocks_per_sm']} blocks "
+                f"({info['warps_per_sm']} warps) an SM; "
+                f"{kc.fmt_kernel(row)}]")
+            if shape == KS_SHAPES[0] and label == name:
+                stats[name].update(st, launch={"kernel": key, **info, **row})
+        print(f"  {at}: every K9 kernel = plain"
+              + ("" if not line else "; " + "; ".join(line)), flush=True)
+    return stats
+
+
 def phase_mult_relin(dev, k, gold):
     from abc_tpu_torch.crypto.bfv import BfvCiphertext, BfvContext
     from abc_tpu_torch.crypto.params import BfvParams
@@ -1485,15 +1787,17 @@ def phase_mult_relin(dev, k, gold):
     prof = kernel_profile(lambda: ctx.multiply(BfvCiphertext(a.data.clone()),
                                                BfvCiphertext(b.data.clone())))
     print(f"  k={k} device kernels per op: {fmt(prof)}", flush=True)
-    kernels, tries, replay, replay_dev = op_graph(
+    kernels, others, replay, replay_prof = op_graph(
         ctx, lambda x: ctx.multiply(BfvCiphertext(x), b).data,
         a.data.clone(), MULT_RELIN_CENSUS)
-    print(f"  k={k} as a CUDA graph: {kernels:.0f} kernels per replay, the "
-          f"hand-written ones {MULT_RELIN_CENSUS} (profile {tries}); "
-          f"{replay:.4f} ms per replay (CUDA events, median of 10), device "
-          f"{replay_dev:.4f} ms", flush=True)
+    print(f"  k={k} as a CUDA graph: {kernels} kernel nodes, exactly the "
+          f"hand-written ones {MULT_RELIN_CENSUS} and no other kernel "
+          f"(the graph's node list; other nodes {others}); {replay:.4f} ms "
+          f"per replay (CUDA events, median of 10), device "
+          f"{fmt(replay_prof)} (profiler, records seen)", flush=True)
     chains = chain_profile(lambda: ctx.multiply(
         BfvCiphertext(a.data.clone()), BfvCiphertext(b.data.clone())))
+    check_in_ranges(chains, f"k={k}")
     print(f"  k={k} device time per chain (eager profile with host ranges): "
           + fmt_chains(chains, f"{kernels:.0f}"), flush=True)
     if k == 1:
@@ -1502,6 +1806,7 @@ def phase_mult_relin(dev, k, gold):
         xs, ys = (torch.stack([t.data] * PHASE3_BATCH) for t in (a, b))
         chains = chain_profile(lambda: ctx.multiply(
             BfvCiphertext(xs.clone()), BfvCiphertext(ys.clone())))
+        check_in_ranges(chains, f"k=1, B={PHASE3_BATCH}")
         print(f"  k=1, B={PHASE3_BATCH} device time per chain (eager profile "
               f"with host ranges): " + fmt_chains(chains, f"{kernels:.0f}"),
               flush=True)
@@ -1552,6 +1857,36 @@ def readme_hamming(factory, gold):
     return outputs[0][1]
 
 
+# the main path's second request: ciphertext and plaintext arithmetic that
+# the hamming program does not run (a plaintext minus a ciphertext, a
+# plaintext product, a ciphertext add, plaintext subtract and add, a
+# negation), on the hamming program's inputs
+PLAIN_ARITH = ("secret int r = 7 - x; r = r * 3 + y - 2; r = r + 5; "
+               "r = 0 - r; return r;")
+
+
+def plain_arith_oracle(inputs_src):
+    import re
+    x, y = ([int(v) for v in re.search(name + r" = \{([^}]*)\}",
+                                        inputs_src).group(1).split(",")]
+            for name in ("x", "y"))
+    return [-((7 - a) * 3 + b - 2 + 5) for a, b in zip(x, y)]
+
+
+def plain_arith(factory, gold):
+    """PLAIN_ARITH on the hamming program's inputs through run_compiled
+    with `factory`; returns the output ciphertext."""
+    from abc_tpu_torch import (CompileOptions, Parser, compile_program,
+                               input_types_from_ast, run_compiled)
+
+    inputs = Parser.parse(gold["inputs"])
+    compiled = compile_program(PLAIN_ARITH, input_types_from_ast(inputs),
+                               CompileOptions())
+    _, outputs = run_compiled(compiled, inputs, Parser.parse("out = r;"),
+                              factory)
+    return outputs[0][1]
+
+
 def phase_hamming(dev, gold):
     from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
 
@@ -1563,23 +1898,34 @@ def phase_hamming(dev, gold):
     torch.cuda.synchronize()
     t_run = (time.perf_counter() - t0) * 1e3
     hd = factory.decrypt(ct)[0]
+    arith = plain_arith(factory, gold)
+    want = plain_arith_oracle(gold["inputs"])
+    got = factory.decrypt(arith)[:len(want)]
     launches = launch_counts()
     cpu_factory = BfvCiphertextFactory(slots=gold["n"], seed=gold["seed"],
                                        device="cpu")
     cpu_ct = readme_hamming(cpu_factory, gold)
-    check_launched(launches, "main path")
+    cpu_arith = plain_arith(cpu_factory, gold)
+    # the BFV path finishes every key switch in a tail (BFV_ABSENT)
+    check_launched(launches, "main path", absent=BFV_ABSENT)
     check(torch.equal(ct.ct.data.cpu(), cpu_ct.ct.data),
           "hamming output on the card != the port's CPU run")
     check(digest(ct.ct.data) == gold["result"],
           "hamming output != golden digest (abc_tpu np64 factory)")
+    check(torch.equal(arith.ct.data.cpu(), cpu_arith.ct.data),
+          "the arithmetic request's output on the card != the CPU run")
     check(factory.context.counters == cpu_factory.context.counters,
           "hamming op counters differ between card and CPU")
     check(hd == 2, f"hamming decrypts to {hd}")
+    check(got == want, f"the arithmetic request decrypts to {got}, not "
+          f"{want}")
     print(f"  hamming n={gold['n']}: decrypts to {hd}, word-identical to "
-          f"the CPU run and the golden digest; launches {launches}; "
-          f"counters {factory.context.counters}; run_compiled {t_run:.1f} ms "
-          f"(host clock: encryption, switching-key builds and evaluation)",
-          flush=True)
+          f"the CPU run and the golden digest; {PLAIN_ARITH!r} decrypts to "
+          f"{got} (the plain oracle), word-identical to the CPU run; "
+          f"launches of both {launches}; counters "
+          f"{factory.context.counters}; hamming's run_compiled {t_run:.1f} "
+          f"ms (host clock: encryption, switching-key builds and "
+          f"evaluation)", flush=True)
     return launches, ct.ct.data
 
 
@@ -1631,13 +1977,17 @@ def phase_laplace(dev):
     c = dict(factory.context.counters)
     check(c["decomp_hit"] > c["decomp"], f"no hoisting: {c}")
     launched = since(before)
-    # rotations and plaintext products only: no BEHZ kernel, every
-    # key-switch kernel; keygen, the key build, the encryption and the
+    # rotations, ciphertext adds and plaintext products only: no BEHZ
+    # kernel and no relinearization, every key-switch kernel of a rotation;
+    # keygen, the key build, the encryption and the
     # decryption launch every key kernel (rns_uniform: a fresh context
     # draws inside ksk_compose)
     check(launched["ntt_fwd"] > 0 and launched["ntt_inv"] > 0
-          and all(launched[name] for name in KS)
-          and not any(launched[name] for name in BEHZ),
+          and all(launched[name] for name in ("ks_decompose", "ks_contract",
+                                              "ks_mod_down_rotate",
+                                              "rns_ew_add", "rns_ew_mul"))
+          and not any(launched[name] for name in BEHZ + BFV_ABSENT
+                      + ("ks_mod_down_relin",)),
           f"laplace: {launched}")
     check_launched({k: launched[k] for k in RLWE}, "laplace")
     _, steady = run_dsl(factory, inputs_src, LAPLACE, "out = img2;")
@@ -1895,17 +2245,13 @@ def walk_launches(jp):
 
 
 def replay_profile(jp, tensors, per_walk, reps=5):
-    """kernel_profile of a replay, which must hold exactly the NTT and
-    BEHZ kernels that one walk of the program launches: the hand-written
-    kernels are inside the graph, and nothing else took their place."""
-    prof, tries = census_profile(
-        lambda: jp.run_raw(tensors), per_walk,
-        "a replay whose walk launches the hand-written kernels "
-        f"{per_walk}", reps)
-    if tries > 1:
-        print(f"  (the replay's profile matched one walk's kernels at "
-              f"profile {tries})", flush=True)
-    return prof
+    """kernel_profile of a replay (None where the profiler saw nothing) of
+    a program whose graph must hold exactly the hand-written kernels that
+    one walk of the program launches (graph_census): they are inside the
+    graph, and nothing else took their place."""
+    graph_census(jp._graph, per_walk, "a program's graph, whose walk "
+                 f"launches the hand-written kernels {per_walk},")
+    return kernel_profile(lambda: jp.run_raw(tensors), reps)
 
 
 def phase_whole_program(dev, gold, hamming_words, laplace_words,
@@ -1925,8 +2271,10 @@ def phase_whole_program(dev, gold, hamming_words, laplace_words,
     torch.cuda.synchronize()
     launches = launch_counts()
     out_name = next(iter(raw))
+    # hamming: no plaintext product and no negation
     check_launched({k: v for k, v in launches.items()
-                    if k != "bfv_dec_round"}, "the whole-program path")
+                    if k != "bfv_dec_round"}, "the whole-program path",
+                   absent=BFV_ABSENT + ("rns_ew_mul", "rns_ew_neg"))
     per_walk = walk_launches(jp)
     check(torch.equal(raw[out_name], hamming_words),
           "hamming as a graph != phase 4's eager words")
@@ -1939,8 +2287,8 @@ def phase_whole_program(dev, gold, hamming_words, laplace_words,
     print(f"  hamming n={g['n']}: run() decrypts to {hd}; raw words equal to "
           f"phase 4's eager run and the golden digest; launches on this "
           f"path {launches} (encryption, key builds, warm-up and capture; "
-          f"one walk of the program {per_walk}, and a profiled replay holds "
-          f"exactly those); phase_ms "
+          f"one walk of the program {per_walk}, and the graph's node list "
+          f"holds exactly those); phase_ms "
           f"{ {k: round(v, 1) for k, v in jp.phase_ms.items()} }; "
           f"device bytes {jp.device_bytes}; replay {ms:.3f} ms (CUDA events, "
           f"median of 20, {spread}); device: {fmt(prof)}",
@@ -2047,7 +2395,7 @@ def phase_whole_program(dev, gold, hamming_words, laplace_words,
           f"device-kernel total "
           f"{'not measured' if eager_dev is None else f'{eager_dev:.4f} ms'}"
           f"; replay device: {fmt_ntt(prof)}"
-          + f", busy share {prof[0] / ms:.3f}"
+          + f", busy share {busy_share(prof, ms)}"
           + f"; phase_ms { {k: round(v, 1) for k, v in jp.phase_ms.items()} }"
           f"; device bytes {jp.device_bytes}", flush=True)
 
@@ -2290,17 +2638,19 @@ def phase_ckks(dev, gold):
                  f"{name[:60]} {v:.4f} ms" for name, v in sorted(
                      prof[2].items(), key=lambda kv: -kv[1])[:6])),
           flush=True)
-    kernels, tries, replay, replay_dev = op_graph(
+    kernels, others, replay, replay_prof = op_graph(
         ctx, lambda x: ctx.multiply(*[CkksCiphertext(x, a.level, a.scale)] * 2,
                                     rescale=False).data, a.data.clone(),
         CKKS_OP_CENSUS)
-    print(f"  config-5 op as a CUDA graph: {kernels:.0f} kernels per replay, "
-          f"the hand-written ones {CKKS_OP_CENSUS} (profile {tries}); "
-          f"{replay:.4f} ms per replay (CUDA events, median of 10), device "
-          f"{replay_dev:.4f} ms", flush=True)
+    print(f"  config-5 op as a CUDA graph: {kernels} kernel nodes, exactly "
+          f"the hand-written ones {CKKS_OP_CENSUS} and no other kernel (the "
+          f"graph's node list; other nodes {others}); {replay:.4f} ms per "
+          f"replay (CUDA events, median of 10), device "
+          f"{fmt(replay_prof)} (profiler, records seen)", flush=True)
+    chains = chain_profile(one_op)
+    check_in_ranges(chains, "config-5 op")
     print("  config-5 op, device time per chain (eager profile with host "
-          "ranges): " + fmt_chains(chain_profile(one_op), f"{kernels:.0f}"),
-          flush=True)
+          "ranges): " + fmt_chains(chains, f"{kernels:.0f}"), flush=True)
     del ctx, cpu, a, ca, got, want, relin, cpu_relin
 
     # --- a leveled run, at a prime-sized scale so that a rescaled product
@@ -2376,7 +2726,7 @@ def phase_ckks(dev, gold):
           f"{ms:.3f} ms per replay (CUDA events, median of 20, fresh "
           f"operand, {spread}; one copy in, one clone out) beside the eager "
           f"{op_ms:.3f} ms/op; replay device: {fmt_ntt(prof)}, busy share "
-          f"{prof[0] / ms:.3f}; phase_ms "
+          f"{busy_share(prof, ms)}; phase_ms "
           f"{ {k_: round(v, 1) for k_, v in jp.phase_ms.items()} }; device "
           f"bytes {jp.device_bytes}", flush=True)
 
@@ -2417,7 +2767,7 @@ def phase_ckks(dev, gold):
           f"inputs decrypt within 1e-2 of numpy; no launch or op counter "
           f"moved across the replay; one walk launches {per_walk}; "
           f"{ms:.3f} ms per replay (CUDA events, median of 20, {spread}); "
-          f"device: {fmt_ntt(prof)}, busy share {prof[0] / ms:.3f}; "
+          f"device: {fmt_ntt(prof)}, busy share {busy_share(prof, ms)}; "
           f"phase_ms { {k_: round(v, 1) for k_, v in jp.phase_ms.items()} }"
           f"; device bytes {jp.device_bytes}", flush=True)
     del jp, jp_cpu, factory, fctx
@@ -2473,8 +2823,11 @@ def phase_ckks(dev, gold):
           f"({baby} baby steps on one decomposition, {giant} giant steps); "
           f"{t_mv:.1f} s on the host clock", flush=True)
     launches = launch_counts()
+    # multiplies, rescales, rotations, adds and the matvec's plaintext
+    # products
     check(all(launches[name] > 0 for name in ("ntt_fwd", "ntt_inv",
-                                               "behz_tensor") + KS),
+                                               "behz_tensor") + KS + K9A
+              + ("rns_ew_add", "rns_ew_mul")),
           f"the CKKS path launched a kernel no time: {launches}")
     return stats, launches
 
@@ -2508,9 +2861,7 @@ def phase_bench(dev, gold):
     ops = {"multiply": lambda x, y: ctx.multiply(BfvCiphertext(x),
                                                  BfvCiphertext(y)),
            "rotate_rows": lambda x, y: ctx.rotate_rows(BfvCiphertext(x), 3)}
-    census = {"multiply": MULT_RELIN_CENSUS,
-              "rotate_rows": {name: int(name.startswith(("ntt_", "ks_")))
-                              for name in MULT_RELIN_CENSUS}}
+    census = {"multiply": MULT_RELIN_CENSUS, "rotate_rows": ROTATE_CENSUS}
     for name, op in ops.items():
         before = launch_counts()
         with ctx.fresh_caches():
@@ -2569,7 +2920,8 @@ def phase_bench(dev, gold):
           and all(row["ntt_launches_per_step"] == [5, 3]
                   for row in full["mult_relin"]["batch_curve"].values()),
           "mult+relin curve: batches or the per-step census")
-    check_launched(launches[0], "the bench")
+    # no program of the six configs negates a ciphertext
+    check_launched(launches[0], "the bench", absent=("rns_ew_neg",))
     sol = full["mult_relin"]["speed_of_light"]
     print(f"  bench --quick: {seconds:.1f} s, exit 0, six configs without "
           f"error, config 3 correct, config 4 decrypt_equal, config 6 equal "
@@ -2861,8 +3213,9 @@ def phase_checkpoint(dev, gold):
     launches = {}
     for scheme, rec in report.items():
         # hamming multiplies ciphertexts (every BEHZ kernel), the CKKS op
-        # takes the tensor product alone; both key-switch
-        need = ("ntt_fwd", "ntt_inv") + KS + (
+        # takes the tensor product alone; both relinearize
+        need = ("ntt_fwd", "ntt_inv", "ks_decompose", "ks_contract",
+                "ks_mod_down_relin") + (
             BEHZ if scheme == "bfv" else ("behz_tensor",)) + (
             # the server's fresh context (keygen) and the uniform halves
             # its file left out, regenerated on the card
@@ -3161,7 +3514,8 @@ def phase_reference_scale(dev):
               f"{secs[1]:.1f}, replays and profile {secs[2]:.1f}",
               flush=True)
     launches = launch_counts()
-    check_launched(launches, "phase 12")
+    # BFV workloads, none of which negates a ciphertext
+    check_launched(launches, "phase 12", absent=BFV_ABSENT + ("rns_ew_neg",))
     return launches
 
 
@@ -3378,7 +3732,8 @@ def phase_mesh(dev):
               f"{report[part]['collectives_per_step']}", flush=True)
     print(f"  (e) {secs()}", flush=True)
     launches = launch_counts()
-    check_launched(launches, "phase 13")
+    # no path of the meshes multiplies by a plaintext or negates
+    check_launched(launches, "phase 13", absent=("rns_ew_mul", "rns_ew_neg"))
 
     # --- DistComm over NCCL: (a) and (b) on spawned ranks
     local_words = {"keyswitch.k0": to_host(k0), "keyswitch.k1": to_host(k1),
@@ -3395,6 +3750,10 @@ def main() -> int:
         return 2
     from abc_tpu_torch.ops import _build
 
+    # CUPTI stays set up between profiles, as torch.profiler sets it for
+    # CUDA graphs under CUDA < 12.6 (its note: graphs do not work well with
+    # CUPTI's teardown); profiles only time, a census reads a graph's nodes
+    os.environ["TEARDOWN_CUPTI"] = "0"
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3428,6 +3787,9 @@ def main() -> int:
     announce("phase 2d: the key generation, encryption and decryption "
              "kernels vs plain")
     stats.update(phase_rlwe(dev))
+    announce("phase 2e: the K9 kernels (ks_mod_down's relinearization and "
+             "rotation tails, the RNS elementwise ops) vs plain")
+    stats.update(phase_elementwise(dev))
     announce("phase 3: mult+relin n=8192")
     mult_eager = {k: phase_mult_relin(dev, k, gold[f"mult_relin_n8192_k{k}"])
                   for k in (1, 2)}
@@ -3471,17 +3833,22 @@ def main() -> int:
 
     # no single PyTorch call computes a negacyclic NTT mod q, these ALU
     # chains, a modular RNS base conversion, a mod-q tensor product, a
-    # mod-q contraction, an exact division by a prime, Threefry words, a
-    # switching key, the encryption's lift with its adds or the BFV
-    # scale-and-round, so these kernels have no library yardstick;
+    # mod-q contraction, an exact division by a prime (with or without a
+    # relinearization's or a rotation's tail), Threefry words, a switching
+    # key, the encryption's lift with its adds, the BFV scale-and-round or
+    # a modular add, subtract, negation or product, so these kernels have
+    # no library yardstick;
     # ks_decompose's k = 1 lift, its shape here, is one torch.remainder
     # (phase 2c)
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name],
                 # the key generation, encryption and decryption kernels'
                 # own path is phase 6's (keys, an encryption, a decryption,
-                # a uniform regeneration), every other kernel's phase 4's
+                # a uniform regeneration), ks_mod_down's the CKKS path's
+                # (the rescale: a BFV key switch ends in a tail), every
+                # other kernel's phase 4's
                 "launches": (keys_launches if name in RLWE else
+                             ckks_launches if name in BFV_ABSENT else
                              launches)[name],
                 "launches_keys": keys_launches.get(name, 0),
                 # the whole-program path counts while it sets up, warms up
@@ -3521,7 +3888,7 @@ def main() -> int:
                 # the compiler made of it (phases 2b, 2c)
                 "launch": stats[name].get("launch")}
                for name in ("ntt_fwd", "ntt_inv", "ablate_ntt",
-                            "alu_chain") + BEHZ + KS + RLWE]
+                            "alu_chain") + BEHZ + KS + RLWE + K9A + K9B]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi[0]}")
     print(json.dumps({"ok": True, "device": {

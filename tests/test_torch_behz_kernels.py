@@ -811,8 +811,8 @@ def test_mult_relin_launch_census_on_cuda(cuda):
     """One n=8192 mult+relin of fresh operands: 2 / 1 / 1 / 1 BEHZ kernel
     launches (to_bsk, tensor over both bases, fast_floor, from_bsk) and, for
     the relinearization's key switch, one launch of each K4 kernel (digit
-    lift, contraction, mod switch down), at k = 1 and 2; 5 forward and 3
-    inverse NTTs."""
+    lift, contraction, and the mod switch down with the relinearization's
+    tail), at k = 1 and 2; 5 forward and 3 inverse NTTs."""
     from abc_tpu_torch.crypto.bfv import BfvContext
     from abc_tpu_torch.ops import keyswitch_kernels as kk
     from abc_tpu_torch.ops import ntt_kernels as nk
@@ -829,5 +829,6 @@ def test_mult_relin_launch_census_on_cuda(cuda):
         assert made == {
             "behz_to_bsk": 2, "behz_tensor": 1, "behz_fast_floor": 1,
             "behz_from_bsk": 1, "ks_decompose": 1, "ks_contract": 1,
-            "ks_mod_down": 1, "ntt_fwd": 5, "ntt_inv": 3}, k
+            "ks_mod_down": 0, "ks_mod_down_relin": 1,
+            "ks_mod_down_rotate": 0, "ntt_fwd": 5, "ntt_inv": 3}, k
         assert ctx.decode(ctx.decrypt(got))[:1] == [15]

@@ -1,11 +1,11 @@
-"""chip_smoke.py's census of a profiled replay, on the CPU with the
-profiler replaced by a stub: a reading that drops kernel records is taken
-again, a reading that is short every time fails, and the first reading
-that holds exactly the census is the one returned."""
+"""chip_smoke.py on the CPU: the census of a captured CUDA graph read from
+its node list (cudaGraphDebugDotPrint's text, here written by a stub graph)
+and the timing helpers with the profiler replaced by a stub."""
 
 import pytest
 
 import chip_smoke
+from abc_tpu_torch.ops import _build
 
 
 def reading(counts, ms=1.0):
@@ -21,47 +21,108 @@ def census(**per_kernel):
     return want
 
 
-WALK = census(ntt_fwd=4, ntt_inv=3, behz_tensor=1)
-FULL = {"ntt_fwd_kernel<0>": 2.0, "ntt_fwd_kernel<1>": 2.0,
-        "ntt_inv_kernel<0>": 3.0, "behz_tensor_kernel": 1.0,
-        "elementwise_kernel": 40.0}
-SHORT = dict(FULL, **{"ntt_fwd_kernel<1>": 1.0})
+# kernel symbols as an H100's cudaGraphDebugDotPrint names them
+FWD = "_ZN38_GLOBAL__N__6ef05030_6_ntt_cu_74daac2414ntt_fwd_kernelILi3EEEvPKjPjS2_S2_S2_ii"
+INV = "_ZN38_GLOBAL__N__6ef05030_6_ntt_cu_74daac2414ntt_inv_kernelEPKjPjS1_S1_S1_S1_S1_iii"
+TENSOR = ("_ZN39_GLOBAL__N__5e5558ba_7_behz_cu_012d4fe618behz_tensor_kernelENS"
+          "_10TensorBaseES0_xi")
+RELIN = ("_ZN45_GLOBAL__N__7cec5a32_12_keyswitch_cu_93d77fa924ks_mod_down_relin"
+         "_kernelILi1EEEvPKjPjS2_xxiiiNS_8TailArgsE")
+PLAIN_DOWN = ("_ZN45_GLOBAL__N__7cec5a32_12_keyswitch_cu_93d77fa918ks_mod_down"
+              "_kernelEPKjPjS1_xxiii")
+TORCH = ("_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctor"
+         "IiEESt5arrayIPcLm1EEEEvT_T0_T1_")
+WALK = census(ntt_fwd=2, ntt_inv=1, behz_tensor=1, ks_mod_down_relin=1)
+NODES = [FWD, FWD, INV, TENSOR, RELIN]
 
 
-def stub_profiles(monkeypatch, readings):
-    calls = []
-
-    def kernel_profile(fn, reps=5):
-        calls.append(reps)
-        return readings[min(len(calls), len(readings)) - 1]
-
-    monkeypatch.setattr(chip_smoke, "kernel_profile", kernel_profile)
-    return calls
-
-
-@pytest.mark.parametrize("lost", [0, 1, 4])
-def test_a_reading_that_dropped_records_is_taken_again(monkeypatch, lost):
-    calls = stub_profiles(monkeypatch,
-                          [reading(SHORT)] * lost + [reading(FULL)])
-    prof, tries = chip_smoke.census_profile(lambda: None, WALK, "a replay",
-                                            reps=3)
-    assert tries == lost + 1 and calls == [3] * (lost + 1)
-    assert chip_smoke.in_profile(prof) == WALK and prof[1] == 48.0
-
-
-@pytest.mark.parametrize("counts", [SHORT, dict(FULL, behz_to_bsk_k=2.0)],
-                         ids=["short", "extra"])
-def test_a_graph_that_differs_every_time_fails(monkeypatch, counts):
-    calls = stub_profiles(monkeypatch, [reading(counts)])
-    with pytest.raises(AssertionError, match="in 5 profiles, not"):
-        chip_smoke.census_profile(lambda: None, WALK, "a replay")
-    assert len(calls) == 5
+def dot(nodes, memsets=0):
+    """A graph's node list in cudaGraphDebugDotPrint's verbose form: the
+    kernel nodes `nodes` (symbols), `memsets` MEMSET nodes, a chain of
+    edges."""
+    out = ["digraph dot {", "subgraph cluster_1 {",
+           'label="graph_1" graph[style="dashed"];']
+    for i, sym in enumerate(nodes):
+        out.append(
+            f'"graph_1_node_{i}"[style="bold" shape="record" label="{{KERNEL\n'
+            f"| {{ID | {i} (topoId: {len(nodes) - i}) | {sym}"
+            "\\<\\<\\<96,128,4608\\>\\>\\>}\n"
+            "| {{node handle | func handle} | {0x000000000C939FF0 | "
+            "0x0000000008B96990}}\n| {cooperative | 0}\n| {priority | 0}\n"
+            '}"];\n')
+    for j in range(memsets):
+        out.append(
+            f'"graph_1_node_{len(nodes) + j}"[style="solid" shape="record" '
+            'label="{MEMSET\n| {{ID | node handle} | {7 (topoId: 0) | '
+            '0x000000000C93A758}}\n| {dptr | 0x7f0000000000}\n}"];\n')
+    total = len(nodes) + memsets
+    out += [f'"graph_1_node_{i}" -> "graph_1_node_{i + 1}" [headlabel=0];'
+            for i in range(total - 1)]
+    return "\n".join(out + ["}", "}", ""])
 
 
-def test_an_empty_trace_fails(monkeypatch):
-    stub_profiles(monkeypatch, [None])
-    with pytest.raises(AssertionError, match="no device activity"):
-        chip_smoke.census_profile(lambda: None, WALK, "a replay")
+class StubGraph:
+    """A captured graph whose debug_dump writes `text` (None: writes
+    nothing, as a graph captured without keep_graph)."""
+
+    def __init__(self, text):
+        self.text = text
+
+    def debug_dump(self, path):
+        if self.text is not None:
+            with open(path, "w") as f:
+                f.write(self.text)
+
+
+@pytest.fixture
+def build_dir(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    return tmp_path
+
+
+def test_a_graph_node_list_reads_back():
+    """Kernel nodes count by their symbols, other nodes by their type; the
+    edges are no nodes."""
+    kernels, others = chip_smoke.dot_nodes(dot(NODES + [TORCH], memsets=2))
+    assert kernels == {FWD: 2, INV: 1, TENSOR: 1, RELIN: 1, TORCH: 1}
+    assert others == {"MEMSET": 2}
+
+
+@pytest.mark.parametrize("memsets", [0, 1])
+def test_a_graph_holding_exactly_the_census_passes(build_dir, memsets):
+    """A relinearization's tail counts for ks_mod_down_relin and not for
+    ks_mod_down; MEMSET nodes are reported, not counted as kernels; the
+    dump is removed after it is read."""
+    kernels, other, others = chip_smoke.graph_census(
+        StubGraph(dot(NODES, memsets)), WALK, "a replay")
+    assert (kernels, other) == (5, {})
+    assert others == ({"MEMSET": memsets} if memsets else {})
+    assert list(build_dir.iterdir()) == []
+
+
+@pytest.mark.parametrize("nodes", [NODES[1:], NODES + [INV],
+                                   NODES[:-1] + [PLAIN_DOWN]],
+                         ids=["short", "extra", "plain_tail"])
+def test_a_graph_that_lacks_or_adds_a_kernel_fails(build_dir, nodes):
+    with pytest.raises(AssertionError, match="holds the hand-written "
+                                             "kernels"):
+        chip_smoke.graph_census(StubGraph(dot(nodes)), WALK, "a replay")
+
+
+def test_a_kernel_that_is_not_hand_written_is_named(build_dir):
+    """graph_census returns a library or torch kernel node beside the
+    census; op_graph fails on it."""
+    _, other, _ = chip_smoke.graph_census(StubGraph(dot(NODES + [TORCH])),
+                                          WALK, "a replay")
+    assert other == {TORCH: 1}
+
+
+@pytest.mark.parametrize("text,match", [(None, "was not written"),
+                                        (dot([], memsets=1), "no kernel")],
+                         ids=["no_dump", "no_kernel"])
+def test_an_empty_node_list_fails(build_dir, text, match):
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.graph_census(StubGraph(text), WALK, "a replay")
 
 
 @pytest.mark.parametrize("bound_ms,under", [(0.003, "warm"),

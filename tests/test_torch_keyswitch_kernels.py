@@ -28,6 +28,7 @@ from abc_tpu_torch.crypto.bfv import BfvContext
 from abc_tpu_torch.crypto.ckks import CkksCiphertext, CkksContext, CkksParams
 from abc_tpu_torch.crypto.numthy import gen_ntt_primes
 from abc_tpu_torch.crypto.params import BfvParams
+from abc_tpu_torch.crypto.rlwe import galois_gather
 from abc_tpu_torch.ops import _build
 from abc_tpu_torch.ops import keyswitch_kernels as kk
 from abc_tpu_torch.ops.modarith import as_residues, ratio_table, to_host
@@ -219,13 +220,15 @@ def test_ckks_rescale_matches_np64(ckks_pair, level, size):
 # --------------------------------------------------------------- the routing
 
 def test_cpu_route_launches_nothing(bfv_pair):
-    """A key switch and a rotation on CPU tensors run the plain versions."""
+    """A key switch and a rotation on CPU tensors run the plain versions
+    (with the relinearization's and the rotation's tails)."""
     port, _ = bfv_pair
     before = dict(kk.launches)
     ct = port.encrypt(port.encode([1, 2, 3]))
     port.rotate_rows(port.multiply(ct, ct), 1)
     assert kk.launches == before
-    assert set(before) == {"ks_decompose", "ks_contract", "ks_mod_down"}
+    assert set(before) == {"ks_decompose", "ks_contract", "ks_mod_down",
+                           "ks_mod_down_relin", "ks_mod_down_rotate"}
 
 
 def test_a_tensor_off_the_cpu_is_never_taken_by_the_plain_path():
@@ -398,6 +401,81 @@ def test_mod_down_source_on_the_host(host_lib, n, L, k, lead, cut):
                                       div), want)
 
 
+def _host_tail(lib, x, div, tail):
+    """ks_mod_down with a tail (K9a) on the host, with the arguments the
+    wrapper passes."""
+    n = x.shape[-1]
+    rows = x.numel() // (x.shape[-2] * n)
+    c_stride, c_comp = kk._tail_operand(x, tail, div.Lo, n)
+    out = torch.full(tuple(x.shape[:-2]) + (div.Lo, n), -1,
+                     dtype=torch.int32)
+    assert lib.abc_ks_mod_down_tail(
+        x.data_ptr(), out.data_ptr(), div.words.data_ptr(), rows, _stride(x),
+        div.Lo, div.k, n.bit_length() - 1, kk._TAILS[tail.kind],
+        tail.c.data_ptr(), c_stride, c_comp, _ptr(tail.gather),
+        _ptr(tail.sign_pos), None) == 0
+    return out
+
+
+def _edge_rand(moduli, lead, n, seed, edge):
+    """_rand's residues, or all 0 (`edge` "zero"), or all q-1 ("max")."""
+    x = _rand(moduli, lead, n, seed)
+    if edge == "zero":
+        x[...] = 0
+    elif edge == "max":
+        x[...] = np.asarray(moduli, np.uint32).reshape(-1, 1) - 1
+    return as_residues(x, "cpu")
+
+
+@pytest.mark.parametrize("edge", [None, "zero", "max"])
+@pytest.mark.parametrize("n,L,k,lead", [
+    (4, 3, 1, ()), (64, 5, 1, (3,)), (64, 5, 2, (2,)), (128, 4, 2, ()),
+    (32, 3, 3, (2, 2))])
+def test_tails_source_on_the_host(host_lib, n, L, k, lead, edge):
+    """ks_mod_down with the relinearization's tail, and with the rotation's
+    at Galois elements 3, 3^5 and 2n-1 (both signs occur), equals the plain
+    chains (mod_down_plain, then the adds / the signed gather and the
+    stack) at k = 1, 2 and 3, on residues with 0 and q-1 among them and on
+    all-0 and all-(q-1) inputs; the ciphertexts are read in place, a
+    batch's components at one stride."""
+    _, cols, _, _ = _base(n, L, k)
+    div = kk.Division(cols, k, "cpu")
+    x = _edge_rand(cols, lead + (2,), n, n + k, edge)
+    prod = _edge_rand(cols[:L], lead + (3,), n, n + k + 1, edge)
+    tail = kk.Tail("relin", prod)
+    assert torch.equal(_host_tail(host_lib, x, div, tail),
+                       kk.mod_down_plain(x, div, tail))
+    for g in (3, pow(3, 5, 2 * n), 2 * n - 1):
+        gather, sign = galois_gather(n, g, "cpu")
+        assert sign.any() and not sign.all()
+        tail = kk.Tail("rotate", prod[..., 2, :, :], gather, sign)
+        assert torch.equal(_host_tail(host_lib, x, div, tail),
+                           kk.mod_down_plain(x, div, tail)), g
+
+
+def test_host_tail_launch_info_and_refusals(host_lib):
+    """The tails launch as ks_mod_down does, instantiated by k; a tail
+    without its ciphertext, or over an odd number of rows, is refused, and
+    so is a ciphertext the wrapper cannot hand to the kernel."""
+    info = (ctypes.c_longlong * 6)()
+    for kernel in (3, 4):
+        assert host_lib.abc_ks_launch_info(kernel, 12, 2, 13, info) == 0
+        assert tuple(info[:4]) == (2, 0, 128, 12 * 8192 // 4 // 128)
+    assert host_lib.abc_ks_launch_info(5, 12, 2, 13, info) != 0
+    assert host_lib.abc_ks_mod_down_tail(None, None, None, 2, 7 << 6, 6, 1,
+                                         6, 1, None, 0, 0, None, None,
+                                         None) != 0
+    assert host_lib.abc_ks_mod_down_tail(None, None, None, 3, 7 << 6, 6, 1,
+                                         6, 1, 16, 0, 0, None, None,
+                                         None) != 0
+    _, cols, _, _ = _base(64, 3, 1)
+    x = as_residues(_rand(cols, (2,), 64, 1), "cpu")
+    with pytest.raises(ValueError, match="relin tail"):
+        kk._tail_operand(x, kk.Tail("relin", x[:1, :3]), 3, 64)
+    with pytest.raises(ValueError, match="gather"):
+        kk._tail_operand(x, kk.Tail("rotate", x[0, :3], None, None), 3, 64)
+
+
 @pytest.mark.parametrize("level,size", [(6, 2), (2, 3)])
 def test_rescale_source_on_the_host(host_lib, level, size):
     """A rescale is ks_mod_down's division of a level by its last prime."""
@@ -469,7 +547,8 @@ def _card_inputs(n, cols, lead, k, dev):
 
 def _card_cases(scheme, n, L, k, lead, level, dev):
     """(kernel name, kernel call, plain call) of the three kernels of one
-    context's key switch (and a CKKS rescale) at one shape."""
+    context's key switch (the mod switch down also with the relinearization's
+    and a rotation's tail, and a CKKS rescale) at one shape."""
     if scheme == "bfv":
         params = BfvParams.create(n, seed=11, ks_digits=k)
         assert params.L == L
@@ -477,7 +556,7 @@ def _card_cases(scheme, n, L, k, lead, level, dev):
         cols, alpha = params.coeff_modulus, params.num_ks_digits
         lift, ks, msd = (lambda c, d: c._decompose_ntt(d)), \
             (lambda c, *a, perm=None: c._ks_partials(*a, perm=perm)), \
-            (lambda c, x: c._mod_switch_down(x))
+            (lambda c, x, tail=None: c._mod_switch_down(x, tail))
         qs, perm_g = params.data_primes, pow(3, 7, 2 * n)
     else:
         params = CkksParams.create(n, levels=L, seed=3, ks_digits=k)
@@ -488,15 +567,22 @@ def _card_cases(scheme, n, L, k, lead, level, dev):
         ks = (lambda c, D, b, a, perm=None: kk.contract(
             D, b, a, c._ntt_cols[level].q_col, c._ntt_cols[level].ratio,
             perm))
-        msd = (lambda c, x: c._mod_switch_down(x, level))
+        msd = (lambda c, x, tail=None: c._mod_switch_down(x, level, tail))
         qs, perm_g = params.data_primes[:level], pow(3, 7, 2 * n)
     d, dc = _card_inputs(n, qs, lead, 0, dev)
     D, Dc = _card_inputs(n, cols, lead + (alpha,), k, dev)
     (kb, kbc), (ka, kac) = (_card_inputs(n, cols, (alpha,), k, dev)
                             for _ in range(2))
     x, xc = _card_inputs(n, cols, lead + (2,), k, dev)
+    prod, prodc = _card_inputs(n, qs, lead + (3,), 0, dev)
     perm = ctx._galois_perm_eval(perm_g)
     cases = [
+        ("ks_mod_down_relin", lambda: msd(ctx, x, kk.Tail("relin", prod)),
+         lambda: msd(cpu, xc, kk.Tail("relin", prodc))),
+        ("ks_mod_down_rotate", lambda: msd(ctx, x, kk.Tail("rotate", 
+            prod[..., 1, :, :], *ctx._galois_perm(perm_g))),
+         lambda: msd(cpu, xc, kk.Tail("rotate", prodc[..., 1, :, :],
+                                             *cpu._galois_perm(perm_g)))),
         ("ks_decompose", lambda: lift(ctx, d), lambda: lift(cpu, dc)),
         ("ks_contract", lambda: ks(ctx, D, kb, ka),
          lambda: ks(cpu, Dc, kbc, kac)),
