@@ -178,8 +178,10 @@ def bind_keyswitch(lib: ctypes.CDLL) -> None:
     lib.abc_ks_mod_down_tail.argtypes = [vp] * 3 + [i64, i64] + [i32] * 4 + \
         [vp, i64, i64] + [vp] * 3
     lib.abc_ks_launch_info.argtypes = [i32, i64, i32, i32, vp]
+    lib.abc_ks_plan.argtypes = [i32, i64] + [i32] * 5 + [vp]
     for fn in (lib.abc_ks_decompose, lib.abc_ks_contract, lib.abc_ks_mod_down,
-               lib.abc_ks_mod_down_tail, lib.abc_ks_launch_info):
+               lib.abc_ks_mod_down_tail, lib.abc_ks_launch_info,
+               lib.abc_ks_plan):
         fn.restype = i32
 
 

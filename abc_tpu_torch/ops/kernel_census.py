@@ -150,12 +150,16 @@ def launch_key(name: str, info: dict) -> str:
 
 
 def ks_launch_key(name: str, info: dict) -> str:
-    """The kernel key of a `keyswitch_kernels.launch_info`: ks_mod_down, and
-    its forms with a tail, are instantiated by their largest number of
-    special primes."""
-    if name.startswith("ks_mod_down"):
-        return f"{name}_kernel<{info['arg0']}>"
-    return f"{name}_kernel"
+    """The kernel key of a `keyswitch_kernels.launch_info` or `.plan`:
+    ks_mod_down, and its forms with a tail, are instantiated by their
+    largest number of special primes, ks_decompose by the sources it holds
+    in registers, ks_contract by its lanes a quad and its halves (one lane
+    a quad: the streaming kernel, not a template)."""
+    if name == "ks_contract" and info["arg0"] == 1:
+        return f"{name}_stream_kernel"
+    if name == "ks_contract":
+        return f"{name}_kernel<{info['arg0']},{info['arg1']}>"
+    return f"{name}_kernel<{info['arg0']}>"
 
 
 def fmt_kernel(row: dict) -> str:

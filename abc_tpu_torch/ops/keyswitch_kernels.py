@@ -402,24 +402,63 @@ def _tail_operand(x, tail: Tail, Lo, n):
 
 
 # abc_ks_launch_info's kernel numbers
-_INFO_KERNEL = {"ks_decompose": 0, "ks_contract": 1, "ks_mod_down": 2,
-                "ks_mod_down_relin": 3, "ks_mod_down_rotate": 4}
+_INFO_KERNEL = {"ks_mod_down": 2, "ks_mod_down_relin": 3,
+                "ks_mod_down_rotate": 4}
+
+
+def _lib():
+    from abc_tpu_torch.ops import _build
+    return _build.load()
+
+
+def _info_error(lib, what, err):
+    if err != 0:
+        raise RuntimeError(f"{what}: "
+                           f"{lib.abc_cuda_error_string(err).decode()}")
 
 
 def launch_info(name: str, lines: int, n: int, k: int = 1) -> dict:
-    """The launch a kernel makes for `lines` output rows of n (every output
-    axis but the last, multiplied) and k special primes (ks_mod_down), with
-    its theoretical occupancy on the current card: the instantiation's
-    special primes (ks_mod_down), threads a block, blocks, blocks and warps
-    an SM."""
+    """The launch ks_mod_down (or a form with a tail) makes for `lines`
+    output rows of n (every output axis but the last, multiplied) and k
+    special primes, with its theoretical occupancy on the current card: the
+    instantiation's special primes, threads a block, blocks, blocks and
+    warps an SM. ks_decompose and ks_contract launch by their whole shape
+    (`plan`)."""
     import ctypes
-    from abc_tpu_torch.ops import _build
-    lib = _build.load()
+    if name not in _INFO_KERNEL:
+        raise ValueError(f"launch_info takes {sorted(_INFO_KERNEL)}; "
+                         f"{name} launches by its shape: plan()")
+    lib = _lib()
     info = (ctypes.c_longlong * 6)()
-    err = lib.abc_ks_launch_info(_INFO_KERNEL[name], lines, k,
-                                 n.bit_length() - 1, info)
-    if err != 0:
-        raise RuntimeError(f"abc_ks_launch_info({name}): "
-                           f"{lib.abc_cuda_error_string(err).decode()}")
+    _info_error(lib, f"abc_ks_launch_info({name})", lib.abc_ks_launch_info(
+        _INFO_KERNEL[name], lines, k, n.bit_length() - 1, info))
     return dict(zip(("arg0", "arg1", "threads", "blocks", "blocks_per_sm",
                      "warps_per_sm"), info))
+
+
+# abc_ks_plan's kernel numbers and the names of its instantiation and split
+_PLAN = {"ks_decompose": (0, ("sources", None, "cols", "groups")),
+         "ks_contract": (1, ("lanes", "halves", None, None))}
+
+
+def plan(name: str, n: int, rows: int, A: int, R: int, K: int = 1,
+         halves: int = 2) -> dict:
+    """The launch ks_decompose (`rows` of d, A digits of K sources, R
+    columns) or ks_contract (`rows` of D, A digits, R columns, `halves`)
+    makes on the current card (abc_ks_plan): the instantiation (arg0,
+    arg1: the sources held in registers; or the lanes a quad, 1 for the
+    streaming kernel, and the halves), the lift's split (arg2, arg3: the
+    columns a thread and the column groups), threads a block, blocks,
+    blocks and warps an SM, threads and the card's SMs; the same numbers
+    under their names."""
+    import ctypes
+    kernel, names = _PLAN[name]
+    lib = _lib()
+    info = (ctypes.c_longlong * 10)()
+    _info_error(lib, f"abc_ks_plan({name})", lib.abc_ks_plan(
+        kernel, rows, A, R, K, halves, n.bit_length() - 1, info))
+    out = dict(zip(("arg0", "arg1", "arg2", "arg3", "threads", "blocks",
+                    "blocks_per_sm", "warps_per_sm", "total_threads", "sms"),
+                   info))
+    out.update((k, v) for k, v in zip(names, info[:4]) if k)
+    return out

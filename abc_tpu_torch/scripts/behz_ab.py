@@ -47,6 +47,7 @@ from abc_tpu_torch.ops import _build
 from abc_tpu_torch.ops import behz_kernels as bk
 from abc_tpu_torch.ops import kernel_census as kc
 from abc_tpu_torch.ops.modarith import as_residues
+from abc_tpu_torch.utils.timing import l2_flush
 
 # (n, L, ciphertexts, t bits): t None takes BfvParams.create(n)'s chain,
 # else L data primes of 30 bits and t of that many bits. B = 11 and 12 lie
@@ -138,21 +139,25 @@ def calls(lib, bz, T, ops, stream):
     }
 
 
-def device_us(launch, reps=REPS):
-    """(device µs of one launch() call, all its kernels, and the first
-    kernel's name) over `reps` calls under torch.profiler: the mean kernel
-    times the kernels a call launches, so that a dropped record (PERF.md)
-    does not count as a faster call."""
+def device_us(launch, reps=REPS, match="behz_", cold=False):
+    """(device µs of one launch() call, all its kernels whose names hold
+    `match`, and the first such kernel's name) over `reps` calls under
+    torch.profiler: the mean kernel times the kernels a call launches, so
+    that a dropped record (PERF.md) does not count as a faster call. Cold:
+    the L2 flushed before each call (utils/timing.l2_flush, whose kernel
+    `match` leaves out)."""
     from torch.profiler import ProfilerActivity, profile
     launch()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if cold:
+                l2_flush()
             launch()
         torch.cuda.synchronize()
     evs = [ev for ev in prof.events()
            if ev.device_type == torch.autograd.DeviceType.CUDA
-           and "behz_" in ev.name]
+           and match in ev.name]
     if not evs:
         return None, None
     per_call = max(1, round(len(evs) / reps))
@@ -172,16 +177,19 @@ def baseline_packer(directory: str):
     return module
 
 
-def build_baseline(directory: str) -> tuple:
-    """DIR/behz.cu built as this package builds csrc/ (nvcc, sm_90a, ptxas
-    -v): (library, ptxas output, SASS)."""
+def build_baseline(directory: str, source: str = "behz.cu",
+                   bind=_build.bind_behz) -> tuple:
+    """DIR/<source> built as this package builds csrc/ (nvcc, sm_90a, ptxas
+    -v) and bound by `bind`: (library, ptxas output, SASS)."""
     out_dir = os.path.join(_build.BUILD_DIR, "baseline")
     os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "libbehz_baseline.so")
+    # one file a directory: ctypes loads a path once a process
+    so = os.path.join(out_dir, f"lib{source.split('.')[0]}_"
+                      f"{os.path.basename(os.path.normpath(directory))}.so")
     nvcc = _build._nvcc()
     run = subprocess.run([nvcc] + _build.NVCC_FLAGS + [
         "-shared", f"-I{directory}", "-o", so,
-        os.path.join(directory, "behz.cu")], capture_output=True, text=True)
+        os.path.join(directory, source)], capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"baseline build failed:\n{run.stdout}"
                            f"{run.stderr}")
@@ -189,8 +197,15 @@ def build_baseline(directory: str) -> tuple:
                            "-sass", so], capture_output=True, text=True,
                           check=True).stdout
     lib = ctypes.CDLL(so)
-    _build.bind_behz(lib)
+    bind(lib)
     return lib, run.stdout + run.stderr, sass
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
 
 
 def words(out):
@@ -211,9 +226,7 @@ def run(args) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("behz_ab needs a CUDA device")
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card()
     out = open(args.out, "w") if args.out else None
     emit({"card": smi}, out)
     _build.build()
@@ -286,7 +299,7 @@ def run(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m abc_tpu_torch.scripts."
                                       "behz_ab", description=__doc__.split(
                                           "\n")[0])
@@ -296,7 +309,11 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write every JSON line there")
-    return run(ap.parse_args(argv))
+    return ap
+
+
+def main(argv=None) -> int:
+    return run(parser().parse_args(argv))
 
 
 if __name__ == "__main__":

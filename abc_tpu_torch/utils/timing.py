@@ -207,3 +207,16 @@ def repeated(fn: Callable, repeats: int, device) -> Tuple[float, float,
             fn()
             times.append(time.perf_counter() - t0)
     return statistics.median(times), min(times), max(times)
+
+
+# a read of five times the H100's 50 MB L2 before a timed call leaves none
+# of that call's operands in it: a "cold" reading, against the DRAM bound
+L2_FLUSH_BYTES = 256 << 20
+_l2 = {}
+
+
+def l2_flush() -> None:
+    """Read L2_FLUSH_BYTES on the current CUDA device (one float sum)."""
+    if "buf" not in _l2:
+        _l2["buf"] = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    _l2["buf"].sum()

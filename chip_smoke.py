@@ -42,8 +42,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    with its theoretical occupancy (abc_behz_launch_info).
 2c. The key-switch kernels (K4, abc_tpu_torch/csrc/keyswitch.cu):
    ks_decompose (the digit lift), ks_contract (the contraction with both
-   key halves, with and without a Galois permutation read in its loads)
-   and ks_mod_down (the mod switch down of both accumulators, and the CKKS
+   key halves, with and without a Galois permutation read in its loads,
+   and with one half: a decryption's dot product of a ciphertext's two
+   components with [1, s]) and ks_mod_down (the mod switch down of both accumulators, and the CKKS
    rescale) torch.equal to their plain torch versions on the card at BFV
    n=8192, L=6, k=1 and 2 (one ciphertext and a batch of 64), n=16384,
    L=13, and CKKS n=32768, 8 + 2 primes at level 8 and level 3, inputs
@@ -53,7 +54,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    call ("cold"), the bound (ks_imads), the plain version's time and, for
    the k=1 lift, that of one torch.remainder giving the same words, beside
    the compiler's census of the instantiation launched and its launch
-   with its theoretical occupancy (abc_ks_launch_info). Every kernel
+   with its theoretical occupancy (abc_ks_launch_info; for ks_decompose
+   and ks_contract abc_ks_plan, with the columns a thread, or the lanes a
+   quad). Every kernel
    timed against its bound (phases 2, 2b, 7, 9, 13) gets the cold
    readings too, and a device time under its bound is marked as an L2
    reading.
@@ -377,7 +380,7 @@ KS_SHAPES = [("bfv", 8192, 6, 1, 1, 6), ("bfv", 8192, 6, 1, 64, 6),
              ("bfv", 16384, 13, 1, 1, 13), ("ckks", 32768, 8, 2, 1, 8),
              ("ckks", 32768, 8, 2, 1, 3)]
 KS_EDGE_SHAPES = [KS_SHAPES[0], KS_SHAPES[1], KS_SHAPES[3], KS_SHAPES[5]]
-KS_TIMED = KS_SHAPES[:3] + KS_SHAPES[4:6]
+KS_TIMED = KS_SHAPES[:6]
 # the key generation, encryption and decryption kernels (K5, csrc/rlwe.cu)
 # and their cases in phase 2d, (what, scheme, n, L data primes, k special
 # primes, keys, ciphertexts): the public key at the main path's n=8192 and
@@ -488,18 +491,12 @@ ALU_SHAPE, ALU_ITERS = (14, 128, 128), 512
 ABLATION_TIMED = {"ablate_ntt": "full", "alu_chain": "shoup"}
 
 
-# a read of five times the H100's 50 MB L2 before a timed call leaves none
-# of that call's operands in it: a "cold" reading, against the DRAM bound
-L2_FLUSH_BYTES = 256 << 20
-_l2 = {}
-
-
 def l2_flush():
-    """Read L2_FLUSH_BYTES on the card (a float sum, whose kernels
-    kernels_of(l2_flush) names)."""
-    if "buf" not in _l2:
-        _l2["buf"] = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
-    _l2["buf"].sum()
+    """Leave none of the next call's operands in the card's L2
+    (utils/timing.l2_flush: a float sum, whose kernels kernels_of(l2_flush)
+    names): a "cold" reading, against the DRAM bound."""
+    from abc_tpu_torch.utils.timing import l2_flush as flush
+    flush()
 
 
 def trace_marker():
@@ -1138,11 +1135,12 @@ def phase_behz(dev):
     return stats
 
 
-def ks_imads(name, R, A=0, K=1, k=1, Lo=0):
+def ks_imads(name, R, A=0, K=1, k=1, Lo=0, halves=2):
     """Integer multiply-adds per coefficient of one row of a key-switch
     kernel's function, counted from csrc/keyswitch.cu's arithmetic
-    (BEHZ_IMAD's costs): R columns, A digits of K sources (the lift), k
-    primes divided out of Lo + k rows (the mod switch down)."""
+    (BEHZ_IMAD's costs): R columns, A digits of K sources (the lift), key
+    halves (the contraction), k primes divided out of Lo + k rows (the mod
+    switch down)."""
     w, sh, red = (BEHZ_IMAD[x] for x in ("wide", "shoup", "reduce64"))
     if name == "ks_decompose":
         # k = 1: conditional subtracts only; else per digit K products
@@ -1150,8 +1148,8 @@ def ks_imads(name, R, A=0, K=1, k=1, Lo=0):
         return 0 if K == 1 else A * (K * sh + R * (K * w + -(-K // 16) *
                                                    red))
     if name == "ks_contract":
-        # per column both halves' sums of A products, reduced
-        return R * 2 * (A * w + -(-A // 16) * red)
+        # per column each half's sum of A products, reduced
+        return R * halves * (A * w + -(-A // 16) * red)
     # ks_mod_down: every kept row divided k times, the specials below each
     # special once per step above them
     return (Lo * k + k * (k - 1) // 2) * sh
@@ -1159,12 +1157,14 @@ def ks_imads(name, R, A=0, K=1, k=1, Lo=0):
 
 def ks_calls(scheme, n, L, k, batch, level, edge, dev):
     """{label: (kernel, kernel call, plain call, bytes, integer
-    multiply-adds, output rows, library call or None)} of the key-switch
-    kernels at one shape:
+    multiply-adds, launch shape, library call or None)} of the key-switch
+    kernels at one shape (the launch shape: keyswitch_kernels.plan's
+    keywords for ks_decompose and ks_contract, else the output rows):
     the operands of one key switch of `batch` ciphertexts (one: no batch
     axis) at `level` of an (n, L data primes, k special primes) context,
     the digit lift, the contraction without and with a Galois permutation,
-    the mod switch down of both accumulators, and (CKKS below full level or
+    a decryption's one-half contraction of the ciphertext's two components
+    with [1, s] over the data primes at `level`, the mod switch down of both accumulators, and (CKKS below full level or
     at it) the rescale of a ciphertext; with 0 and q-1 among random
     residues, all 0 (`edge` "zero"), all q-1 ("max"), or the divided rows
     at p>>1 and (p>>1)+1 ("half"). The bound counts each operand and
@@ -1218,6 +1218,9 @@ def ks_calls(scheme, n, L, k, batch, level, edge, dev):
     D = operand(cols, lead + (A,), 2)
     kb, ka = operand(cols, (A,), 3), operand(cols, (A,), 4)
     x = operand(cols, lead + (2,), 5, k)
+    ct, sk = operand(qs, lead + (2,), 7), operand(qs, (2,), 8)
+    qd = as_residues(np.asarray(qs, np.uint32).reshape(-1, 1), dev)
+    rd = ratio_table(qs, dev)
     rows = batch
     tabs = (q, ratio) + (() if digits is None else (digits.words,))
     calls = {
@@ -1226,7 +1229,8 @@ def ks_calls(scheme, n, L, k, batch, level, edge, dev):
             lambda: kk.lift_plain(d, q) if digits is None else
             kk.decompose_plain(d, q, digits),
             4 * rows * n * (level + A * R) + nbytes(*tabs),
-            rows * n * ks_imads("ks_decompose", R, A, k), rows * A * R,
+            rows * n * ks_imads("ks_decompose", R, A, k),
+            dict(rows=rows, A=A, R=R, K=k),
             (lambda: torch.remainder(d.unsqueeze(-2), q)) if digits is None
             else None),
         "ks_contract": (
@@ -1234,13 +1238,21 @@ def ks_calls(scheme, n, L, k, batch, level, edge, dev):
             lambda: kk.contract_plain(D, kb, ka, q),
             4 * n * (rows * A * R + 2 * A * R + 2 * rows * R) + nbytes(q,
                                                                        ratio),
-            rows * n * ks_imads("ks_contract", R, A), rows * R, None),
+            rows * n * ks_imads("ks_contract", R, A),
+            dict(rows=rows, A=A, R=R), None),
         "ks_contract+perm": (
             "ks_contract", lambda: kk.contract(D, kb, ka, q, ratio, perm),
             lambda: kk.contract_plain(D, kb, ka, q, perm),
             4 * n * (rows * A * R + 2 * A * R + 2 * rows * R)
             + nbytes(q, ratio, perm),
-            rows * n * ks_imads("ks_contract", R, A), rows * R, None),
+            rows * n * ks_imads("ks_contract", R, A),
+            dict(rows=rows, A=A, R=R), None),
+        "ks_contract/1": (
+            "ks_contract", lambda: kk.contract(ct, sk, None, qd, rd),
+            lambda: kk.contract_plain(ct, sk, None, qd),
+            4 * n * level * (rows * 2 + 2 + rows) + nbytes(qd, rd),
+            rows * n * ks_imads("ks_contract", level, 2, halves=1),
+            dict(rows=rows, A=2, R=level, halves=1), None),
         "ks_mod_down": (
             "ks_mod_down", lambda: kk.mod_down(x, div),
             lambda: kk.mod_down_plain(x, div),
@@ -1256,6 +1268,19 @@ def ks_calls(scheme, n, L, k, batch, level, edge, dev):
             2 * n * ks_imads("ks_mod_down", level, k=1, Lo=level - 1),
             2 * (level - 1), None)
     return calls
+
+
+def ks_split(name, info):
+    """How a ks_decompose or ks_contract launch splits its work
+    (keyswitch_kernels.plan), for phase 2c's line; "" for ks_mod_down."""
+    if name == "ks_decompose":
+        return (f", {info['cols']} columns a thread ({info['groups']} "
+                f"groups), {info['sources']} sources held")
+    if name == "ks_contract":
+        return (f", {info['lanes']} lanes a quad"
+                + (" (streaming)" if info["lanes"] == 1 else "")
+                + f", {info['halves']} halves")
+    return ""
 
 
 def phase_keyswitch(dev):
@@ -1290,8 +1315,9 @@ def phase_keyswitch(dev):
             if edge is not None or (scheme, n, L, k, batch, level) not in \
                     KS_TIMED:
                 continue
-            info = kk.launch_info(name, lines, n, k if label != "rescale"
-                                  else 1)
+            info = kk.plan(name, n, **lines) if isinstance(lines, dict) \
+                else kk.launch_info(name, lines, n,
+                                    k if label != "rescale" else 1)
             key = kc.ks_launch_key(name, info)
             row = table.get(key, {})
             check(row, f"no ptxas / SASS record of {key}")
@@ -1300,8 +1326,8 @@ def phase_keyswitch(dev):
                 f"{label} " + _timed(st, kern, plain, [n, L, k, batch, level],
                                      bound(n_bytes, imads), library)
                 + f" [{key}: {info['threads']} threads x {info['blocks']} "
-                f"blocks, {info['blocks_per_sm']} blocks "
-                f"({info['warps_per_sm']} warps) an SM; "
+                f"blocks{ks_split(name, info)}, {info['blocks_per_sm']} "
+                f"blocks ({info['warps_per_sm']} warps) an SM; "
                 f"{kc.fmt_kernel(row)}]")
             if (scheme, n, L, k, batch, level) == KS_SHAPES[0] and \
                     label in KS:

@@ -61,6 +61,16 @@ inline T __shfl_xor_sync(unsigned, T value, int lane_mask) {
   return got;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// the device an H100 SXM is: 132 SMs
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 132;
+  return cudaSuccess;
+}
 inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes,
                                    cudaStream_t) {
   std::memset(p, value, bytes);

@@ -306,8 +306,8 @@ def _host_decompose(lib, d, q, ratio, digits):
     rows, Lin, n = d.numel() // (d.shape[-2] * d.shape[-1]), d.shape[-2], \
         d.shape[-1]
     A, K = (Lin, 1) if digits is None else (digits.alpha, digits.k)
-    out = torch.empty(tuple(d.shape[:-2]) + (A, q.shape[0], n),
-                      dtype=torch.int32)
+    out = torch.full(tuple(d.shape[:-2]) + (A, q.shape[0], n), -1,
+                     dtype=torch.int32)
     assert lib.abc_ks_decompose(
         d.data_ptr(), out.data_ptr(), q.data_ptr(), ratio.data_ptr(),
         _ptr(None if digits is None else digits.words), rows, _stride(d),
@@ -316,12 +316,14 @@ def _host_decompose(lib, d, q, ratio, digits):
 
 
 def _host_contract(lib, D, kb, ka, q, ratio, perm):
+    """ks_contract on the host (ka None: the one-half form)."""
     A, R, n = D.shape[-3:]
     rows = D.numel() // (A * R * n)
     krows = kb.numel() // (A * R * n)
-    out = torch.empty(tuple(D.shape[:-3]) + (2, R, n), dtype=torch.int32)
+    out = torch.full(tuple(D.shape[:-3]) + (1 if ka is None else 2, R, n),
+                     -1, dtype=torch.int32)
     assert lib.abc_ks_contract(
-        D.data_ptr(), kb.data_ptr(), ka.data_ptr(), out.data_ptr(),
+        D.data_ptr(), kb.data_ptr(), _ptr(ka), out.data_ptr(),
         _ptr(perm), q.data_ptr(), ratio.data_ptr(), rows, krows, A, R,
         n.bit_length() - 1, None) == 0
     return out
@@ -375,6 +377,71 @@ def test_contract_source_on_the_host(host_lib, perm, n, A, lead, klead):
     kb, ka = (as_residues(_rand(cols, klead + (A,), n, A + s), "cpu")
               for s in (1, 2))
     p = torch.from_numpy(np.random.default_rng(n).permutation(n)) \
+        if perm else None
+    got = _host_contract(host_lib, D, kb, ka, q, ratio, p)
+    assert torch.equal(got, kk.contract_plain(D, kb, ka, q, p))
+
+
+@pytest.mark.parametrize("n,L,k,lead", [
+    (16, 13, 1, (2,)), (8, 27, 1, ()), (8, 27, 1, (3,)), (32, 13, 1, ()),
+    (16, 5, 2, (2,)), (8, 7, 3, (2,)), (8, 7, 3, ()), (8, 20, 17, ()),
+    (4, 20, 17, (2,)), (4, 45, 3, ()), (4, 6, 2, (5,)), (2048, 6, 2, (30,)),
+    (4096, 6, 2, (44,)), (2048, 7, 3, (20,)), (2048, 20, 17, (4,))])
+def test_decompose_column_groups_on_the_host(host_lib, n, L, k, lead):
+    """ks_decompose with a thread a digit quad over the plan's group of its
+    R columns (on the stub's card of 132 SMs): the k = 1 lift at R = 14 and
+    28 (two columns a thread, a ragged last group at R = 7 and 13), and the
+    base conversion at k = 2, 3 and 17 with a short last digit (17 sources:
+    two chunks, the second added to the first's stored residue), a table
+    too large to stage in shared memory (45 + 3 primes); a thread a column
+    on small launches, and on larger ones 3 of 8 columns (30 rows at n =
+    2048), all 8 (44 rows at n = 4096), 2 of 10 and 2 of 37 (k = 17); in
+    place as component 1 of a batch (the strided d) and contiguous."""
+    qs, cols_q, q, ratio = _base(n, L, k)
+    digits = None if k == 1 else kk.Digits(
+        qs, [list(range(j, min(j + k, L))) for j in range(0, L, k)], cols_q,
+        k, "cpu")
+    d = as_residues(_rand(qs, lead, n, n + L + k), "cpu")
+    want = kk.lift_plain(d, q) if digits is None else \
+        kk.decompose_plain(d, q, digits)
+    wide = torch.zeros(lead + (3,) + tuple(d.shape[-2:]), dtype=torch.int32)
+    wide[..., 1, :, :] = d
+    for src in (d, wide[..., 1, :, :]):
+        assert torch.equal(_host_decompose(host_lib, src, q, ratio, digits),
+                           want)
+
+
+@pytest.mark.parametrize("n,A,lead,klead,perm,halves", [
+    (16, 1, (3,), (), False, 2), (16, 2, (3,), (), True, 2),
+    (8, 5, (), (), True, 2), (8, 8, (5,), (), False, 2),
+    (8, 9, (3,), (), True, 2), (8, 16, (2,), (), False, 2),
+    (8, 17, (3,), (), False, 2), (4, 33, (3,), (), True, 2),
+    (4, 6, (7,), (), False, 2), (4, 6, (7,), (), True, 2),
+    (4, 3, (6, 2), (2,), True, 2), (8, 6, (5, 4), (4,), False, 2),
+    (8, 1, (3,), (), False, 1), (8, 3, (), (), True, 1),
+    (4, 6, (5,), (), False, 1), (8, 9, (2,), (), False, 1),
+    (64, 2, (1,), (), False, 1), (64, 3, (1,), (), False, 1),
+    (2048, 6, (10,), (), False, 2), (2048, 6, (10,), (), True, 2),
+    (2048, 9, (10,), (), True, 2), (2048, 17, (5, 2), (2,), False, 2),
+    (2048, 3, (10,), (), False, 1)])
+def test_contract_lanes_on_the_host(host_lib, n, A, lead, klead, perm,
+                                    halves):
+    """ks_contract with G lanes a quad (α = 1, 2, 5, 8, 9, 16, 17, 33: G =
+    1, 2, 2, 2, 4, 4, 8, 8; 17 and 33 past 16 digits, each lane's sum
+    reduced before the group's; 33 past the 32 loaded together), batches of
+    3, 5 and 7 rows, n = 4 (a row of one quad), a Galois permutation read
+    in the loads, a key with D's last leading axis (krows 2 and 4), and the
+    one-half form (`ka` None: with G = 2 each lane stores two words as
+    scalars, with G = 8 two lanes hold the same words), among them a
+    decryption's, a ciphertext's 2 or 3 components against [1, s, s^2];
+    past 256 quads an SM (n = 2048, 10 rows) the streaming kernel, a thread
+    a quad walking the digits (17: past one 64-bit sum of 16 products)."""
+    _, cols, q, ratio = _base(n, 6, 1)
+    D = as_residues(_rand(cols, lead + (A,), n, A + n), "cpu")
+    kb, ka = (as_residues(_rand(cols, klead + (A,), n, A + s), "cpu")
+              for s in (1, 2))
+    ka = ka if halves == 2 else None
+    p = torch.from_numpy(np.random.default_rng(n + A).permutation(n)) \
         if perm else None
     got = _host_contract(host_lib, D, kb, ka, q, ratio, p)
     assert torch.equal(got, kk.contract_plain(D, kb, ka, q, p))
@@ -487,12 +554,54 @@ def test_rescale_source_on_the_host(host_lib, level, size):
                        kk.mod_down_plain(x, div))
 
 
+def _host_plan(lib, kernel, rows, A, R, K, halves, logn):
+    info = (ctypes.c_longlong * 10)()
+    assert lib.abc_ks_plan(kernel, rows, A, R, K, halves, logn, info) == 0
+    return dict(zip(("arg0", "arg1", "arg2", "arg3", "threads", "blocks",
+                     "blocks_per_sm", "warps_per_sm", "total_threads",
+                     "sms"), info))
+
+
 def test_host_launch_info_and_refusals(host_lib):
-    """abc_ks_launch_info: a quad a thread, 128 a block, ks_mod_down's
-    instantiation by k; shapes the kernels do not take are refused."""
-    info = (ctypes.c_longlong * 6)()
-    assert host_lib.abc_ks_launch_info(1, 2 * 7, 1, 13, info) == 0
-    assert tuple(info[:4]) == (0, 0, 128, 2 * 7 * 8192 // 4 // 128)
+    """abc_ks_plan at the main path's (8192, 6, k=1) on the stub's card
+    (132 SMs of 16 blocks): ks_decompose's k = 1 lift 2 columns a thread;
+    at k = 2 a thread a column at one ciphertext (a digit quad a thread
+    would not make half a wave) and all 8 columns a thread at B=64;
+    ks_contract 2 lanes a quad (3 digits each), both halves, at one
+    ciphertext (under 256 quads an SM), and a decryption's one half, and
+    the streaming kernel, a thread a quad, at B=64 and (16384, 13).
+    abc_ks_launch_info: 128 a block, ks_mod_down's instantiation by k;
+    shapes the kernels do not take are refused."""
+    one = _host_plan(host_lib, 0, 1, 6, 7, 1, 2, 13)
+    assert one == {**one, "arg0": 1, "arg2": 2, "arg3": 4,
+                   "total_threads": 6 * 4 * 2048, "threads": 128,
+                   "blocks": 6 * 4 * 2048 // 128, "blocks_per_sm": 16,
+                   "sms": 132}
+    b64 = _host_plan(host_lib, 0, 64, 6, 7, 1, 2, 13)
+    assert (b64["arg2"], b64["arg3"]) == (2, 4)
+    k2 = _host_plan(host_lib, 0, 1, 3, 8, 2, 2, 13)
+    assert (k2["arg0"], k2["arg2"], k2["arg3"]) == (2, 1, 8)
+    k2 = _host_plan(host_lib, 0, 64, 3, 8, 2, 2, 13)
+    assert (k2["arg2"], k2["arg3"], k2["total_threads"]) == \
+        (8, 1, 64 * 3 * 2048)
+    assert _host_plan(host_lib, 0, 1, 2, 37, 17, 2, 5)["arg0"] == 16
+    one = _host_plan(host_lib, 1, 1, 6, 7, 1, 2, 13)
+    assert (one["arg0"], one["arg1"], one["arg2"], one["arg3"],
+            one["total_threads"], one["blocks"], one["sms"]) == \
+        (2, 2, 0, 0, 7 * 2048 * 2, 7 * 2048 * 2 // 128, 132)
+    dec = _host_plan(host_lib, 1, 1, 2, 6, 1, 1, 13)
+    assert (dec["arg0"], dec["arg1"], dec["total_threads"]) == \
+        (2, 1, 6 * 2048 * 2)
+    b64 = _host_plan(host_lib, 1, 64, 6, 7, 1, 2, 13)
+    assert (b64["arg0"], b64["total_threads"]) == (1, 64 * 7 * 2048)
+    assert _host_plan(host_lib, 1, 1, 13, 14, 1, 2, 14)["arg0"] == 1
+    for A, lanes in ((1, 1), (2, 2), (3, 2), (8, 2), (9, 4), (16, 4),
+                     (17, 8), (33, 8)):
+        assert _host_plan(host_lib, 1, 2, A, 7, 1, 1, 13)["arg0"] == lanes
+    info = (ctypes.c_longlong * 10)()
+    assert host_lib.abc_ks_launch_info(1, 2 * 7, 1, 13, info) != 0
+    assert host_lib.abc_ks_plan(2, 1, 6, 7, 1, 2, 13, info) != 0
+    assert host_lib.abc_ks_plan(1, 1, 6, 7, 1, 3, 13, info) != 0
     for k, arg in ((1, 1), (2, 2), (3, 4), (5, 16), (16, 16)):
         assert host_lib.abc_ks_launch_info(2, 12, k, 13, info) == 0
         assert info[0] == arg
@@ -503,8 +612,13 @@ def test_host_launch_info_and_refusals(host_lib):
                                     None) != 0          # rows overlap
     assert host_lib.abc_ks_contract(None, None, None, None, None, None, None,
                                     3, 2, 6, 7, 13, None) != 0
+    assert host_lib.abc_ks_contract(None, None, None, None, None, None, None,
+                                    2, 1, 0, 7, 13, None) != 0
     assert host_lib.abc_ks_decompose(None, None, None, None, None, 1,
                                      6 << 13, 6, 5, 7, 1, 13, None) != 0
+    assert host_lib.abc_ks_decompose(None, None, None, None, None, 1,
+                                     (6 << 13) + 2, 6, 6, 7, 1, 13,
+                                     None) != 0
 
 
 def test_row_strides_the_kernels_take():
@@ -548,7 +662,8 @@ def _card_inputs(n, cols, lead, k, dev):
 def _card_cases(scheme, n, L, k, lead, level, dev):
     """(kernel name, kernel call, plain call) of the three kernels of one
     context's key switch (the mod switch down also with the relinearization's
-    and a rotation's tail, and a CKKS rescale) at one shape."""
+    and a rotation's tail, and a CKKS rescale; the contraction also with one
+    half, a decryption's) at one shape."""
     if scheme == "bfv":
         params = BfvParams.create(n, seed=11, ks_digits=k)
         assert params.L == L
@@ -589,6 +704,15 @@ def _card_cases(scheme, n, L, k, lead, level, dev):
         ("ks_contract", lambda: ks(ctx, D, kb, ka, perm=perm),
          lambda: ks(cpu, Dc, kbc, kac, perm=perm.cpu())),
         ("ks_mod_down", lambda: msd(ctx, x), lambda: msd(cpu, xc))]
+    # a decryption's dot product: the ciphertexts' two components with
+    # [1, s] over the data primes (ks_contract, one half)
+    ntt, cntt = (ctx.ntt_q, cpu.ntt_q) if scheme == "bfv" else \
+        (ctx._ntt_at(level), cpu._ntt_at(level))
+    ct, ctc = _card_inputs(n, qs, lead + (2,), 0, dev)
+    sk, skc = _card_inputs(n, qs, (2,), 0, dev)
+    cases.append(("ks_contract",
+                  lambda: kk.contract(ct, sk, None, ntt.q_col, ntt.ratio),
+                  lambda: kk.contract_plain(ctc, skc, None, cntt.q_col)))
     if scheme == "ckks" and level > 1:
         r, rc = _card_inputs(n, qs, (2,), 1, dev)
         cases.append(("ks_mod_down",
@@ -608,7 +732,8 @@ def test_kernels_equal_plain_on_cuda(cuda, scheme, n, L, k, lead, level):
     """Each kernel on the card against its plain version at the main paths'
     shapes: BFV n=8192 L=6 k=1 and 2 at one ciphertext and at B=64, n=16384
     L=13 (LaplaceSharpening), CKKS n=32768 at full level, one below and
-    level 3 (a partial digit), with and without a Galois permutation."""
+    level 3 (a partial digit), with and without a Galois permutation, and
+    the decryption's one-half contraction."""
     for name, kern, plain in _card_cases(scheme, n, L, k, lead, level,
                                          cuda):
         before = kk.launches[name]

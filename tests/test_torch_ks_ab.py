@@ -1,0 +1,113 @@
+"""abc_tpu_torch.scripts.ks_ab and scripts.behz_ab (the A/B of a kernel
+source against another build of it) on the CPU: their arguments, their
+refusal without a card, ks_ab's shapes (chip_smoke.py phase 2c's timed
+ones), and ks_ab's calls of csrc/keyswitch.cu's entry points, run on a host
+build of the source (g++ against tests/host_cuda's stub runtime) and held
+word-equal to the plain versions. Residues are integers, so the tolerance
+is exact equality."""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+import chip_smoke
+from abc_tpu_torch.ops import _build
+from abc_tpu_torch.ops import keyswitch_kernels as kk
+from abc_tpu_torch.scripts import behz_ab, ks_ab
+
+HOST_STUB = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "host_cuda")
+
+
+def test_ks_ab_arguments():
+    args = ks_ab.parser().parse_args([])
+    assert (args.baseline, args.rounds, args.out) == ([], 3, None)
+    args = ks_ab.parser().parse_args(
+        ["--baseline", "build/parent", "build/v1", "--rounds", "2", "--out",
+         "x.jsonl"])
+    assert (args.baseline, args.rounds, args.out) == \
+        (["build/parent", "build/v1"], 2, "x.jsonl")
+    for bad in (["--rounds", "two"], ["--cols", "2"]):
+        with pytest.raises(SystemExit):
+            ks_ab.parser().parse_args(bad)
+
+
+def test_behz_ab_arguments():
+    args = behz_ab.parser().parse_args(["--baseline", "d", "--rounds", "0"])
+    assert (args.baseline, args.rounds, args.out) == ("d", 0, None)
+
+
+@pytest.mark.parametrize("script", [ks_ab, behz_ab])
+def test_refused_without_a_card(script, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        script.main(["--rounds", "1"])
+
+
+def test_ks_ab_times_phase_2c_shapes():
+    assert ks_ab.SHAPES == chip_smoke.KS_TIMED
+
+
+def test_old_entry_points_bind_without_the_split():
+    """A baseline build from before abc_ks_plan binds the two entry points
+    with this tree's argument types."""
+    class Fn:
+        pass
+
+    class Lib:
+        abc_ks_decompose, abc_ks_contract = Fn(), Fn()
+
+    class Tree(Lib):
+        abc_ks_mod_down = abc_ks_mod_down_tail = abc_ks_launch_info = \
+            abc_ks_plan = Fn()
+
+    ks_ab.bind_two(Lib)
+    _build.bind_keyswitch(Tree)
+    assert len(Lib.abc_ks_decompose.argtypes) == 13
+    assert len(Lib.abc_ks_contract.argtypes) == 13
+    assert Lib.abc_ks_decompose.argtypes == Tree.abc_ks_decompose.argtypes
+    assert Lib.abc_ks_contract.argtypes == Tree.abc_ks_contract.argtypes
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel source for the host")
+    lib_path = tmp_path_factory.mktemp("ks_ab_host") / "libks_host.so"
+    src = [s for s in _build.SOURCES if s.endswith("keyswitch.cu")][0]
+    subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
+                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}", src,
+                    "-o", str(lib_path)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    ks_ab.bind_two(lib)
+    return lib
+
+
+@pytest.mark.parametrize("k,batch", [(1, 1), (2, 2)])
+def test_ks_ab_calls_on_the_host(host_lib, k, batch):
+    """ks_ab's calls, made to a host build of csrc/keyswitch.cu on CPU
+    tensors at n=1024 (5 data primes), equal the plain versions: the k = 1
+    lift or the k = 2 base conversion, the contraction, the contraction
+    with the Galois permutation and the decryption's one-half
+    contraction."""
+    ops = ks_ab.operands("bfv", 1024, 5, k, batch, 5, "cpu")
+    calls = ks_ab.calls(host_lib, ops, None)
+    for name, (launch, out) in calls.items():
+        assert launch() == 0, name
+    d, D, q = ops["d"], ops["D"], ops["q"]
+    want = kk.lift_plain(d, q) if k == 1 else \
+        kk.decompose_plain(d, q, ops["digits"])
+    assert torch.equal(calls["ks_decompose"][1], want)
+    assert torch.equal(calls["ks_contract"][1],
+                       kk.contract_plain(D, ops["kb"], ops["ka"], q))
+    assert torch.equal(calls["ks_contract+perm"][1],
+                       kk.contract_plain(D, ops["kb"], ops["ka"], q,
+                                         ops["perm"]))
+    assert torch.equal(calls["ks_contract/1"][1],
+                       kk.contract_plain(ops["ct"], ops["sk"], None,
+                                         ops["qd"]))
