@@ -502,9 +502,17 @@ class BfvContext(RlweKeys):
             ksk_a = mesh.scatter(ksk_a, axis, dim=-3)
         acc = self._ks_partials(D, ksk_b, ksk_a, perm)
         if axis is not None:
+            # each half's psum writes its rows of the summed [..., 2, L+k,
+            # n] (a LocalComm acc holds the shard axis in front of the
+            # halves)
             q_full = self._tab["q_full"]
-            acc = torch.stack([mesh.psum_mod(acc[..., h, :, :], q_full, axis)
-                               for h in (0, 1)], dim=-3)
+            summed = torch.empty(
+                acc.shape[:-4] + acc.shape[-3:] if mesh.is_local else
+                acc.shape, dtype=torch.int32, device=acc.device)
+            for h in (0, 1):
+                mesh.psum_mod(acc[..., h, :, :], q_full, axis,
+                              out=summed[..., h, :, :])
+            acc = summed
         out = self._mod_switch_down(self.ntt_qp.inv(acc), tail)
         return out if tail is not None else (out[..., 0, :, :],
                                              out[..., 1, :, :])

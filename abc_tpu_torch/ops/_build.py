@@ -21,7 +21,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = [os.path.join(_CSRC, f) for f in ("ntt.cu", "ntt_ablation.cu",
                                              "behz.cu", "keyswitch.cu",
-                                             "rlwe.cu", "elementwise.cu")]
+                                             "rlwe.cu", "elementwise.cu",
+                                             "mesh.cu")]
 HEADERS = [os.path.join(_CSRC, f) for f in ("ntt_common.cuh",
                                              "ntt_passes.cuh",
                                              "rns_common.cuh")]
@@ -118,6 +119,7 @@ def load() -> ctypes.CDLL:
     bind_keyswitch(lib)
     bind_rlwe(lib)
     bind_elementwise(lib)
+    bind_mesh(lib)
     lib.abc_behz_launch_info.argtypes = [i32, i32, i32, i64, i32, vp]
     lib.abc_behz_launch_info.restype = i32
     lib.abc_cuda_error_string.argtypes = [i32]
@@ -194,6 +196,19 @@ def bind_elementwise(lib: ctypes.CDLL) -> None:
         [i64] + [i32] * 4 + [vp]
     lib.abc_ew_launch_info.argtypes = [i32, i64, i32, vp]
     for fn in (lib.abc_rns_ew, lib.abc_ew_launch_info):
+        fn.restype = i32
+
+
+def bind_mesh(lib: ctypes.CDLL) -> None:
+    """The argument and return types of the mesh kernels' C entry points
+    (csrc/mesh.cu) on a library that holds them."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    view = [vp] + [i64] * 3
+    lib.abc_dist_ntt_combine.argtypes = [i32] + view * 2 + [i32] + view + \
+        [vp, vp, i64] + [vp] * 3 + [i64] + [i32] * 5 + [vp]
+    lib.abc_rns_psum_mod.argtypes = [i32] + view + [vp, i64, i64, vp, i64] + \
+        [i32] * 3 + [vp]
+    for fn in (lib.abc_dist_ntt_combine, lib.abc_rns_psum_mod):
         fn.restype = i32
 
 

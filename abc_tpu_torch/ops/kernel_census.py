@@ -8,7 +8,8 @@ and `kernel_key` (one name for a kernel, mangled or demangled);
 `kernel_table` (both tables merged, for the kernels of one source: the BEHZ
 kernels of csrc/behz.cu, the key-switch kernels of csrc/keyswitch.cu, the
 key generation, encryption and decryption kernels of csrc/rlwe.cu by the
-prefix RLWE, the elementwise kernels of csrc/elementwise.cu by "rns_ew_")
+prefix RLWE, the elementwise kernels of csrc/elementwise.cu by "rns_ew_",
+the mesh kernels of csrc/mesh.cu by MESH)
 and `fmt_kernel`. For the BEHZ kernels: `launch_of` and `launch_key` (which
 instantiation a launch of one mult+relin runs, as
 `behz_kernels.launch_info` reports it) and `shape_params`, the parameters
@@ -118,6 +119,9 @@ def sass_table(text: str) -> dict:
 # the key generation, encryption and decryption kernels of csrc/rlwe.cu, a
 # prefix of kernel_table
 RLWE = ("rns_uniform", "ksk_compose", "rlwe_lift", "bfv_dec_round")
+# the mesh kernels of csrc/mesh.cu (each a template over its direction or
+# its source words), a prefix of kernel_table
+MESH = ("dist_ntt_combine", "rns_psum_mod")
 
 
 def kernel_table(build_log: str, sass_text: str,

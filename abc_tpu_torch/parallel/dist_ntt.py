@@ -28,13 +28,26 @@ transform):
 
 The inverse mirrors this (Gentleman-Sande): the local stages first (ntt_inv
 at n = S with the shard's inverse tables and a unit scale), then the log2 D
-exchange stages, then the n⁻¹ scale, which is elementwise.
+exchange stages, the last of which also scales by n⁻¹ (its u side times
+n⁻¹, its v side's twiddle w·n⁻¹ mod q, made in __init__: the words of a
+scale after it, residues being canonical). With D = 1 there is no exchange
+stage and ntt_inv scales by n⁻¹ itself.
+
+An exchange stage's combine is one launch of the mesh kernel
+(ops/mesh_kernels.py: dist_ntt_combine; its plain version on the CPU).
+Under LocalComm the kernel reads each shard's partner in place at shard
+d XOR t_sh: the exchange is its addressing, and one launch takes every
+shard. Under DistComm the partner is the block a batch_isend_irecv
+received.
 
 Exchange pipelining: an exchange stage's butterfly is elementwise over the
 local [L, S] block, so the block splits into `pipeline_chunks` independent
 (exchange → combine) chains per stage; every chunk's exchange is started
 before any combine, so that under DistComm the combine of one chunk can
-overlap the transfer of the next. nc=1 is the sequential schedule. The
+overlap the transfer of the next (each chunk's combine writes its columns
+of the stage's output in place). Under LocalComm one launch covers every
+chunk, and the mesh's census counts the chunks' exchanges as the
+reference's schedule makes them. nc=1 is the sequential schedule. The
 words do not depend on it.
 """
 
@@ -46,7 +59,9 @@ import numpy as np
 import torch
 
 from abc_tpu_torch.crypto.ntt import NttContext
-from abc_tpu_torch.ops.modarith import as_residues, shoup, t64, to_host
+from abc_tpu_torch.ops import elementwise_kernels as ew
+from abc_tpu_torch.ops import mesh_kernels as mk
+from abc_tpu_torch.ops.modarith import as_residues, shoup, to_host
 from abc_tpu_torch.ops.ntt_kernels import ntt_fwd, ntt_inv
 from abc_tpu_torch.parallel.mesh import Mesh
 
@@ -102,13 +117,24 @@ class DistNttContext:
             as_residues(t, dev) for t in loc)            # [D, L, S]
         self.q = ctx.q                                   # [L]
         self.q_col = ctx.q_col                           # [L, 1]
-        self.n_inv = ctx.n_inv.reshape(L, 1)
-        # the local inverse stages run unscaled: a unit n⁻¹ and its
-        # companion floor(2^32 / q)
+        # the last inverse stage's twiddles with n⁻¹ folded in: w·n⁻¹ mod q
+        # and its companion, [D, 1, L] (stage 0 of the cross layout)
+        n_inv = to_host(ctx.n_inv).astype(np.uint64)
+        qs = np.asarray(ctx.moduli, dtype=np.uint64)
+        w_n = cross[2][:, :1].astype(np.uint64) * n_inv % qs
+        self.cross_in = as_residues(w_n, dev)
+        self.cross_ins = as_residues(
+            [[[shoup(int(v), int(m)) for v, m in zip(row, qs)]
+              for row in d] for d in w_n], dev)
+        # the local inverse stages run unscaled where an exchange stage
+        # scales after them (a unit n⁻¹ and its companion floor(2^32 / q));
+        # with D = 1, ntt_inv scales by n⁻¹ itself
         self.unit = as_residues(np.ones(L, dtype=np.uint32), dev)
         self.unit_sh = as_residues(
             np.asarray([shoup(1, q) for q in ctx.moduli], dtype=np.uint64),
             dev)
+        self.scale = (self.unit, self.unit_sh) if self.logD else \
+            (ctx.n_inv, ctx.n_inv_sh)
         self._bound: Dict[int, dict] = {}
 
     # ---------------------------------------------------------------- helpers
@@ -118,10 +144,14 @@ class DistNttContext:
 
     def bind(self, mesh: Mesh, axis: str = "coeff") -> dict:
         """The tables as this process's shards use them (cached per mesh):
-        per cross stage the [.., L, 1] twiddle columns, and the local-stage
-        operands of the kernels (q, tables, unit scale; under LocalComm
-        flattened to D·L rows). Made before any capture: a CUDA graph may
-        not copy from the host."""
+        per cross stage the twiddle columns and their companions ([D, L, 1]
+        or a rank's [L, 1]; the inverse's stage 0 with n⁻¹ folded in) and
+        n⁻¹ for that stage's u side; the shard's position on the axis (0:
+        under LocalComm the kernels read every shard); and the operands of
+        the local stages' kernels (q, tables, the inverse's scale; under
+        LocalComm flattened to D·L rows), with q as a column and its ratio
+        words for the elementwise kernels over the same rows. Made before
+        any capture: a CUDA graph may not copy from the host."""
         hit = self._bound.get(id(mesh))     # the entry holds its mesh
         if hit is not None:
             return hit
@@ -133,27 +163,28 @@ class DistNttContext:
         def cross(t, s):                       # [D, L, 1] or [L, 1]
             return mesh.shard_table(t[:, s, :, None].contiguous(), axis)
 
-        d = mesh.axis_index(axis)
+        inv = [(cross(self.cross_i, s), cross(self.cross_is, s))
+               for s in range(self.logD)]
+        if self.logD:
+            inv[0] = (cross(self.cross_in, 0), cross(self.cross_ins, 0))
         b = {"mesh": mesh, "axis": axis,
-             "cf": [cross(self.cross_f, s) for s in range(self.logD)],
-             "ci": [cross(self.cross_i, s) for s in range(self.logD)],
-             # stage s: is this shard the u side (lower half) of its pair
-             "is_u": [(d % (2 * t_sh)) < t_sh for t_sh in
-                      (D >> (s + 1) for s in range(self.logD))]}
-        if mesh.is_local:
-            b["q"] = self.q.repeat(D)
-            for name in ("loc_f", "loc_fs", "loc_i", "loc_is"):
-                b[name] = getattr(self, name).reshape(D * L, S)
-            b["unit"], b["unit_sh"] = self.unit.repeat(D), \
-                self.unit_sh.repeat(D)
-        else:
-            b["q"] = self.q
-            for name in ("loc_f", "loc_fs", "loc_i", "loc_is"):
-                b[name] = mesh.shard_table(getattr(self, name),
-                                           axis).contiguous()
-            b["unit"], b["unit_sh"] = self.unit, self.unit_sh
-        for s in range(self.logD):
-            mesh.prepare_permute(axis, self._pairs(D >> (s + 1)))
+             "fwd": [(cross(self.cross_f, s), cross(self.cross_fs, s))
+                     for s in range(self.logD)],
+             "inv": inv,
+             "n_inv": (self.ctx.n_inv.reshape(L, 1).contiguous(),
+                       self.ctx.n_inv_sh.reshape(L, 1).contiguous()),
+             "d0": 0 if mesh.is_local else mesh.axis_index(axis)}
+        tile = D if mesh.is_local else 1
+        b["q"] = self.q.repeat(tile)
+        b["q_col"] = b["q"].reshape(-1, 1)
+        b["ratio"] = self.ctx.ratio.repeat(tile)
+        b["unit"], b["unit_sh"] = self.unit.repeat(tile), \
+            self.unit_sh.repeat(tile)
+        b["scale"] = tuple(t.repeat(tile) for t in self.scale)
+        for name in ("loc_f", "loc_fs", "loc_i", "loc_is"):
+            t = getattr(self, name)
+            b[name] = t.reshape(D * L, S) if mesh.is_local else \
+                mesh.shard_table(t, axis).contiguous()
         self._bound[id(mesh)] = b
         return b
 
@@ -162,39 +193,35 @@ class DistNttContext:
         every shard); a rank's [..., L, S] as it is."""
         return x.flatten(-3, -2) if b["mesh"].is_local else x
 
-    def _exchange_stages(self, x, b, forward: bool):
+    def _exchange_stages(self, x, b, forward: bool, out=None):
+        """The log2 D exchange stages, each one combine launch (a rank: one
+        a chunk, every chunk's exchange started first); the last stage
+        writes into `out` where given."""
         mesh, axis = b["mesh"], b["axis"]
-        q = self.q_col
         nc = self.pipeline_chunks
-        stages = range(self.logD) if forward else \
-            range(self.logD - 1, -1, -1)
-        for s in stages:
+        stages = list(range(self.logD)) if forward else \
+            list(range(self.logD - 1, -1, -1))
+        for i, s in enumerate(stages):
             t_sh = self.D >> (s + 1)
-            w = (b["cf"] if forward else b["ci"])[s]
-            is_u = b["is_u"][s]
-
-            def combine(xc, pc):
-                # u side: x + w·partner (fwd) / x + partner (inv); v side:
-                # partner − w·x (fwd) / (partner − x)·w (inv)
-                if isinstance(is_u, bool):        # one shard on this rank
-                    if forward:
-                        return (t64.add(xc, t64.mul(pc, w, q), q) if is_u
-                                else t64.sub(pc, t64.mul(xc, w, q), q))
-                    return (t64.add(xc, pc, q) if is_u
-                            else t64.mul(t64.sub(pc, xc, q), w, q))
-                if forward:
-                    wv = t64.mul(torch.where(is_u, pc, xc), w, q)
-                    return torch.where(is_u, t64.add(xc, wv, q),
-                                       t64.sub(pc, wv, q))
-                return torch.where(is_u, t64.add(xc, pc, q),
-                                   t64.mul(t64.sub(pc, xc, q), w, q))
-
+            tw = (b["fwd"] if forward else b["inv"])[s]
+            u = None if forward or s else b["n_inv"]
+            dst = out if i == len(stages) - 1 else None
+            if mesh.is_local:
+                mesh.count_permutes(x, axis, nc)
+                x = mk.dist_ntt_combine(x, tw, self.q_col, t_sh, forward,
+                                        u=u, out=dst)
+                continue
+            res = torch.empty(x.shape, dtype=torch.int32, device=x.device) \
+                if dst is None else dst
             chunks = x.chunk(nc, dim=-1) if nc > 1 else (x,)
+            outs = res.chunk(nc, dim=-1) if nc > 1 else (res,)
             # start every chunk's exchange before any combine
             waits = [mesh.ppermute_start(c, axis, self._pairs(t_sh))
                      for c in chunks]
-            parts = [combine(c, wait()) for c, wait in zip(chunks, waits)]
-            x = torch.cat(parts, dim=-1) if nc > 1 else parts[0]
+            for c, o, wait in zip(chunks, outs, waits):
+                mk.dist_ntt_combine(c, tw, self.q_col, t_sh, forward,
+                                    partner=wait(), d0=b["d0"], u=u, out=o)
+            x = res
         return x
 
     # --------------------------------------------------------------- transforms
@@ -209,14 +236,17 @@ class DistNttContext:
                     b["loc_fs"])
         return y.reshape(x.shape)
 
-    def inv_local(self, x: torch.Tensor, mesh: Mesh, axis: str = "coeff"
-                  ) -> torch.Tensor:
-        """Per-shard inverse NTT (exact inverse of fwd_local)."""
+    def inv_local(self, x: torch.Tensor, mesh: Mesh, axis: str = "coeff",
+                  out=None) -> torch.Tensor:
+        """Per-shard inverse NTT (exact inverse of fwd_local); into `out`
+        where given (a tensor of x's shape, written at its strides: a layout
+        the caller reads next)."""
         b = self.bind(mesh, axis)
         y = ntt_inv(self._flat(x, b).contiguous(), b["q"], b["loc_i"],
-                    b["loc_is"], b["unit"], b["unit_sh"])
-        x = self._exchange_stages(y.reshape(x.shape), b, forward=False)
-        return t64.mul(x, self.n_inv, self.q_col)
+                    b["loc_is"], *b["scale"]).reshape(x.shape)
+        if not self.logD:
+            return y if out is None else out.copy_(y)
+        return self._exchange_stages(y, b, forward=False, out=out)
 
     # ------------------------------------------------------------ mesh wrappers
     def make_fwd(self, mesh: Mesh, axis: str = "coeff"):
@@ -243,7 +273,7 @@ class DistNttContext:
         def mul(a, b):
             fa = self.fwd_local(mesh.scatter(a, axis, dim=-1), mesh, axis)
             fb = self.fwd_local(mesh.scatter(b, axis, dim=-1), mesh, axis)
-            prod = t64.mul(fa, fb, self.q_col)
+            prod = ew.mul(fa, fb, self.q_col, self.ctx.ratio)
             return mesh.gather(self.inv_local(prod, mesh, axis), axis, dim=-1)
         return mul
 

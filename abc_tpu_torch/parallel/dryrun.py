@@ -20,7 +20,7 @@ import torch
 from abc_tpu_torch.crypto.bfv import BfvCiphertext, BfvContext
 from abc_tpu_torch.crypto.numthy import gen_ntt_primes
 from abc_tpu_torch.crypto.params import BfvParams
-from abc_tpu_torch.ops.modarith import t64
+from abc_tpu_torch.ops import elementwise_kernels as ew
 from abc_tpu_torch.parallel.mesh import Mesh, coeff_mesh
 from abc_tpu_torch.parallel.report import collective_report
 from abc_tpu_torch.parallel.sharding import make_mesh
@@ -64,7 +64,7 @@ def make_multichip_step(ctx: BfvContext, mesh: Mesh, steps: int = 1
 
     def step(a, b, kb, ka):
         rows = mesh.local_slice("dp", a.shape[0])
-        s = t64.add(a[rows], b[rows], ctx.q_q)
+        s = ew.add(a[rows], b[rows], ctx.q_q, ctx.ntt_q.ratio)
         with ctx.limb_sharded(mesh):
             return ctx._rotate_with(BfvCiphertext(s),
                                     ctx._decompose_ntt(s[:, 1]), g,

@@ -8,10 +8,11 @@ live:
 
 * LocalComm: every shard lives in this process, on one device. A sharded
   tensor carries its shards as a tensor axis, so a collective is tensor
-  arithmetic on that axis: psum a modular sum over it, ppermute an index
-  permutation of it, axis_index an arange. This is what the reference's
-  virtual devices were, and the only form one card can hold; a program on
-  it can be captured as one CUDA graph.
+  arithmetic on that axis: psum a modular sum over it, axis_index an
+  arange; an exchange moves no words (the distributed NTT's combine reads
+  each partner shard in place; Mesh.count_permutes counts it). This is
+  what the reference's virtual devices were, and the only form one card
+  can hold; a program on it can be captured as one CUDA graph.
 * DistComm: one shard per rank of torch.distributed, each on its own device
   (under NCCL the card of its index on its machine, the CPU under gloo).
   Every mesh axis is a process subgroup; psum is an int64 all_reduce,
@@ -24,11 +25,13 @@ under LocalComm and [..., R/D, C] on a rank; along its columns (dim=-1) it is
 dim=-3 follows the row rule ([..., D, K/D, R, C]). The shard axis is
 therefore a batch axis in front of the [R, C] block, and elementwise code
 with [R, 1] columns of moduli is the same code on both communicators.
-Collectives find the shard axis at dim=-3 (psum, ppermute, axis_index).
+Collectives find the shard axis at dim=-3 (psum, axis_index).
 
-Residues are int32 below 2^30: an int64 sum of them over any mesh fits, so
-psum reduces the int64 sum mod q once (the reference splits uint32 words
-into 16-bit halves instead; both give the canonical words).
+Residues are int32 below 2^30. psum is the mesh kernel rns_psum_mod
+(ops/mesh_kernels.py): under LocalComm it adds the shards' residues mod q
+along the shard axis; on a rank an int64 all_reduce sums them (any mesh
+fits) and the kernel reduces each sum mod q once (the reference splits
+uint32 words into 16-bit halves instead; all give the canonical words).
 
 Each mesh keeps a census of the collectives it ran, by the reference's kind
 names (parallel/report.py reads it): ops and the bytes one shard puts on
@@ -42,7 +45,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from abc_tpu_torch.ops.modarith import t64
+from abc_tpu_torch.ops import mesh_kernels as mk
 
 
 class LocalComm:
@@ -76,23 +79,8 @@ class LocalComm:
     def local_slice(self, mesh, axis, size) -> slice:
         return slice(0, size)
 
-    def psum_mod(self, mesh, x, q, axis):
-        return t64.sum_mod(x, q, dim=-3)
-
-    def prepare_permute(self, mesh, axis, pairs):
-        key = (axis, tuple(pairs))
-        idx = mesh.perm_index.get(key)
-        if idx is None:
-            src_of = list(range(mesh.shape[axis]))
-            for src, dst in pairs:
-                src_of[dst] = src
-            idx = mesh.perm_index[key] = torch.tensor(
-                src_of, dtype=torch.int64, device=self.device)
-        return idx
-
-    def ppermute_start(self, mesh, x, axis, pairs):
-        out = x.index_select(-3, self.prepare_permute(mesh, axis, pairs))
-        return lambda: out
+    def psum_mod(self, mesh, x, q, axis, out):
+        return mk.rns_psum_mod(x, q, out)
 
     def world_count(self, mesh) -> int:
         ones = torch.ones(mesh.size, dtype=torch.int64, device=self.device)
@@ -165,14 +153,11 @@ class DistComm:
         c = mesh.coord[axis]
         return slice(c * chunk, (c + 1) * chunk)
 
-    def psum_mod(self, mesh, x, q, axis):
+    def psum_mod(self, mesh, x, q, axis, out):
         import torch.distributed as dist
         wide = x.to(torch.int64)
         dist.all_reduce(wide, group=mesh.groups[axis])
-        return torch.remainder(wide, q.to(torch.int64)).to(torch.int32)
-
-    def prepare_permute(self, mesh, axis, pairs):
-        return None
+        return mk.rns_psum_mod(wide, q, out)
 
     def ppermute_start(self, mesh, x, axis, pairs):
         import torch.distributed as dist
@@ -220,7 +205,6 @@ class Mesh:
         self.comm = comm
         self.device = comm.device
         self.census: Dict[str, Dict[str, int]] = {}
-        self.perm_index: Dict[Tuple, torch.Tensor] = {}
         comm.bind(self)
 
     @property
@@ -267,28 +251,37 @@ class Mesh:
         return self.coord[axis]
 
     # --- collectives -------------------------------------------------------
-    def psum_mod(self, x: torch.Tensor, q: torch.Tensor, axis: str
-                 ) -> torch.Tensor:
-        """Σ over the shards of `axis` of residues x < q, reduced mod q (q a
-        column broadcasting against x's last two dims)."""
+    def psum_mod(self, x: torch.Tensor, q: torch.Tensor, axis: str,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Σ over the shards of `axis` of residues x < q, reduced mod q (q
+        an [L, 1] column of x's last two dims): one launch of the mesh
+        kernel (ops/mesh_kernels.py: rns_psum_mod) over the shard axis, or
+        on a rank over the words an int64 all_reduce summed. Into `out`
+        where given (a view of the result's shape)."""
         per_shard = x.numel() // (self.shape[axis] if self.is_local else 1)
         self.count("all-reduce", per_shard * 8)
-        return self.comm.psum_mod(self, x, q, axis)
+        return self.comm.psum_mod(self, x, q, axis, out)
 
     def ppermute_start(self, x: torch.Tensor, axis: str,
                        pairs: Sequence[Tuple[int, int]]):
-        """Start sending each shard's block to its partner: pairs (src, dst)
-        of positions along `axis`. Returns a function that waits and gives
-        the received blocks; several exchanges may be in flight at once."""
-        per_shard = x.numel() // (self.shape[axis] if self.is_local else 1)
-        self.count("collective-permute", per_shard * x.element_size())
+        """Start sending this rank's block to its partner (DistComm): pairs
+        (src, dst) of positions along `axis`. Returns a function that waits
+        and gives the received block; several exchanges may be in flight at
+        once."""
+        self.count("collective-permute", x.numel() * x.element_size())
         return self.comm.ppermute_start(self, x, axis, pairs)
 
-    def prepare_permute(self, axis: str, pairs: Sequence[Tuple[int, int]]
-                        ) -> None:
-        """Make what a ppermute with these pairs needs from the host (the
-        index of a LocalComm permutation) before a CUDA graph is captured."""
-        self.comm.prepare_permute(self, axis, pairs)
+    def count_permutes(self, x: torch.Tensor, axis: str, chunks: int
+                       ) -> None:
+        """Count, as ppermute_start does on a rank, `chunks` exchanges that
+        together move x's blocks over `axis`: under LocalComm the
+        distributed NTT's combine reads each shard's partner where it lies,
+        and the exchange still counts as the reference's schedule makes
+        it."""
+        per_shard = x.numel() // (self.shape[axis] if self.is_local else 1)
+        for _ in range(chunks):
+            self.count("collective-permute",
+                       per_shard // chunks * x.element_size())
 
     def world_count(self) -> int:
         """Every shard contributes one to a sum: the number that answered."""

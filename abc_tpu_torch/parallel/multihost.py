@@ -23,8 +23,10 @@ that many consecutive ranks: rank = host · local_devices + chip.
     N --local-devices C`) that spawns N·C worker processes on this machine,
     collects their JSON reports and prints a summary; `launch(...)` is the
     same from Python, with a choice of tasks: the reference's three, the
-    limb-sharded key switch and the distributed NTT alone, and
+    limb-sharded key switch and the distributed NTT alone, `mesh_kernels`
+    (the rank forms of the mesh kernels against their plain versions) and
     `capture_probe` (can an NCCL all_reduce be held by a CUDA graph?).
+    Each rank reports the mesh kernels it launched (`launches`).
 
 Every worker decrypts the output rows it holds, and a gather over the
 process group cross-checks what all ranks saw. With `words_dir` each rank
@@ -290,6 +292,60 @@ def run_multihost_ntt(n: int = 256, limbs: int = 3, seed: int = 0,
     return report, {"fwd": f, "inv": inv(x), "mul": mul}
 
 
+def run_mesh_kernels(n: int = 256, limbs: int = 3, D: int = 8,
+                     seed: int = 0):
+    """The DistComm forms of the mesh kernels on this rank's device, held
+    against their plain versions at the shapes of a D-shard axis: the
+    combine of one shard at each position d0 with a partner block (as a
+    rank receives it), every stage of both directions (the inverse's last
+    with n⁻¹), in 2 chunks; the psum's reduction of int64 sums of D
+    shards' residues. Any world size: the partner comes from this rank's
+    own seeded blocks. Returns (report, {})."""
+    from abc_tpu_torch.crypto.ntt import NttContext
+    from abc_tpu_torch.crypto.numthy import gen_ntt_primes
+    from abc_tpu_torch.ops import mesh_kernels as mk
+    from abc_tpu_torch.parallel.dist_ntt import DistNttContext
+    from abc_tpu_torch.parallel.mesh import coeff_mesh, rank_device
+
+    dev = rank_device()
+    moduli = gen_ntt_primes(30, limbs, n)
+    dist = DistNttContext(NttContext(n, moduli, dev), D)
+    b = dist.bind(coeff_mesh(D, device=dev))
+    x, _ = ntt_inputs(moduli, n, seed, dev)
+    blocks = x.reshape(limbs, D, n // D).movedim(1, 0)      # [D, L, S]
+    q, qh = dist.q_col, dist.q_col.cpu()
+    checked = 0
+    for forward in (True, False):
+        for s in range(dist.logD):
+            t_sh = D >> (s + 1)
+            tw = (b["fwd"] if forward else b["inv"])[s]
+            u = None if forward or s else b["n_inv"]
+            for d0 in range(D):
+                xs, ps = blocks[d0], blocks[d0 ^ t_sh].contiguous()
+                rt = tuple(t[d0] for t in tw)
+                got = torch.empty(xs.shape, dtype=torch.int32, device=dev)
+                for c, pc, o in zip(xs.chunk(2, -1), ps.chunk(2, -1),
+                                    got.chunk(2, -1)):
+                    mk.dist_ntt_combine(c, rt, q, t_sh, forward,
+                                        partner=pc.contiguous(), d0=d0, u=u,
+                                        out=o)
+                want = mk.combine_plain(
+                    xs.cpu(), rt[0].cpu(), qh, t_sh, forward,
+                    partner=ps.cpu(), d0=d0,
+                    u=None if u is None else u[0].cpu())
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"dist_ntt_combine (rank form) != "
+                                         f"plain at stage {s}, shard {d0}, "
+                                         f"forward={forward}")
+                checked += 1
+    wide = blocks.to(torch.int64).sum(dim=0)
+    if not torch.equal(mk.rns_psum_mod(wide, q).cpu(),
+                       mk.psum_plain(blocks.cpu(), qh)):
+        raise AssertionError("rns_psum_mod (rank form) != plain")
+    return {"n": n, "L": limbs, "D": D, "combines_checked": checked,
+            "psum_checked": 1}, {}
+
+
 def capture_probe() -> Dict:
     """Whether this rank's collectives can be held by a CUDA graph: an int64
     all_reduce over the world captured with torch.cuda.graph, then replayed
@@ -383,6 +439,13 @@ def _worker_main(args) -> None:
         if "ntt" in tasks:
             keep("ntt", run_multihost_ntt(n=args.n_ntt or args.n,
                                           limbs=args.ntt_limbs))
+        if "mesh_kernels" in tasks:
+            keep("mesh_kernels", run_mesh_kernels(
+                n=args.n_ntt or args.n, limbs=args.ntt_limbs))
+        # the mesh kernels this rank launched (its counts stay in its own
+        # process)
+        from abc_tpu_torch.ops import mesh_kernels as mk
+        out["launches"] = dict(mk.launches)
         if args.words_dir:
             np.savez(os.path.join(args.words_dir, f"rank{args.rank}.npz"),
                      **words)

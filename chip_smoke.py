@@ -241,22 +241,35 @@ Phases, each of which raises on failure (the script then exits nonzero):
    First the shard-table launches: ntt_fwd / ntt_inv with the 8 shards'
    local-stage tables of the distributed NTT stacked into one launch (64
    rows at n = S = 4096) torch.equal to their plain versions, timed beside
-   the bound. Then, launches counted over this path alone: (a)
+   the bound; the mesh kernels (K8, csrc/mesh.cu) at the paths' shapes
+   (k8_calls: the combine of (b)'s transform, of (c)'s digits and of its
+   accumulators' last inverse stage with n^-1 folded, the psum of (a), over
+   8 shards, and its rank form beside torch.remainder), each torch.equal
+   to its plain version on random and all-(q-1) inputs, warm and cold
+   device time against the bound. Then, launches counted over this path
+   alone: (a)
    sharded_key_switch and sharded_rotate_rows at BFV n=8192 with 8 + 1
    primes on dp=2 x limb=4, equal to the single-device _key_switch /
    rotate_rows; (b) DistNttContext at n=32768, L=8, D=8: fwd (one launch
    for all shards), inv and negacyclic_mul equal to NttContext; (c)
    DistCkksMultiplier at n=32768, levels=8, k=1, D=8 equal to
-   CkksContext.multiply(rescale=False); (d) the hamming program through
-   jit_compile_program(mesh=dp 2 x limb 4, batch_values=...) at n=8192,
-   batch 4, as one graph: decrypts equal to single-device runs of each row
-   and the oracle, ms and kernels per replay, no count moving at a replay;
+   CkksContext.multiply(rescale=False), its launches the single-device
+   op's and 15 combines (MESH_CKKS_CENSUS), eager ms, and as a graph: at
+   most 100 kernel nodes, the hand-written ones and copies only; (d) the
+   hamming program through jit_compile_program(mesh=dp 2 x limb 4,
+   batch_values=...) at n=8192, batch 4, as one graph: decrypts equal to
+   single-device runs of each row and the oracle, ms and kernels per
+   replay, no count moving at a replay, its graph's census (graph_census:
+   the hand-written kernels one walk launches, and every other kernel a
+   copy, printed by name and count);
    (e) entry.dryrun_multichip(8): the small-shape dryrun and
    run_production_dryrun with step ms and the collective census. Then
    DistComm over NCCL: world = the visible cards, one spawned rank each,
    running (a) and (b) with the words of the LocalComm runs (with one card
-   the world is 1: NCCL init and all_reduce, no exchange), and a probe of
-   whether an NCCL all_reduce can be captured in a CUDA graph.
+   the world is 1: NCCL init and all_reduce, no exchange), the rank forms
+   of the mesh kernels against their plain versions, each rank's mesh
+   kernel launches, and a probe of whether an NCCL all_reduce can be
+   captured in a CUDA graph.
 
 Needs one CUDA device; exits nonzero at once without one. Imports nothing of
 JAX or of abc_tpu. Prints the card's name and power limit, a
@@ -350,6 +363,10 @@ NO_RLWE = {"rns_uniform": 0, "ksk_compose": 0, "rlwe_lift": 0,
 K9A = ("ks_mod_down_relin", "ks_mod_down_rotate")
 K9B = ("rns_ew_add", "rns_ew_sub", "rns_ew_mul", "rns_ew_neg")
 NO_K9B = {name: 0 for name in K9B}
+# the mesh kernels (K8, csrc/mesh.cu): only the mesh paths (phase 13) run
+# them
+MESH_K = ("dist_ntt_combine", "rns_psum_mod")
+NO_MESH = {name: 0 for name in MESH_K}
 # every launch of a replay is one of these: a relinearization finishes in
 # ks_mod_down_relin, and the BFV multiply and the CKKS op run no
 # elementwise op
@@ -357,12 +374,13 @@ MULT_RELIN_CENSUS = {"ntt_fwd": 5, "ntt_inv": 3, "behz_to_bsk": 2,
                      "behz_tensor": 1, "behz_fast_floor": 1,
                      "behz_from_bsk": 1, "ks_decompose": 1, "ks_contract": 1,
                      "ks_mod_down": 0, "ks_mod_down_relin": 1,
-                     "ks_mod_down_rotate": 0, **NO_RLWE, **NO_K9B}
+                     "ks_mod_down_rotate": 0, **NO_RLWE, **NO_K9B,
+                     **NO_MESH}
 CKKS_OP_CENSUS = {"ntt_fwd": 3, "ntt_inv": 2, "behz_to_bsk": 0,
                   "behz_tensor": 1, "behz_fast_floor": 0, "behz_from_bsk": 0,
                   "ks_decompose": 1, "ks_contract": 1, "ks_mod_down": 0,
                   "ks_mod_down_relin": 1, "ks_mod_down_rotate": 0,
-                  **NO_RLWE, **NO_K9B}
+                  **NO_RLWE, **NO_K9B, **NO_MESH}
 # one BFV rotation: the decomposition's forward transform, the inverse of
 # the accumulators and the key switch ending in its tail
 ROTATE_CENSUS = {name: int(name in ("ntt_fwd", "ntt_inv", "ks_decompose",
@@ -454,6 +472,11 @@ REPLACES = {
                   "abc_tpu/crypto/ckks.py:718, :761",
     "rns_ew_neg": "abc_tpu/ops/modarith.py:127 (jx32.neg) at "
                   "abc_tpu/crypto/bfv.py:809, :825",
+    # the mesh paths' chains, jx32 under shard_map and jax.jit
+    "dist_ntt_combine": "abc_tpu/parallel/dist_ntt.py:171 (fwd_local's "
+                        "combine :189-192), :208 (inv_local's combine "
+                        ":223-226, with its n^-1 scale :237)",
+    "rns_psum_mod": "abc_tpu/parallel/sharding.py:85 (_psum_mod)",
 }
 SOURCE = {"ntt_fwd": "abc_tpu_torch/csrc/ntt.cu",
           "ntt_inv": "abc_tpu_torch/csrc/ntt.cu",
@@ -462,7 +485,8 @@ SOURCE = {"ntt_fwd": "abc_tpu_torch/csrc/ntt.cu",
           **{name: "abc_tpu_torch/csrc/behz.cu" for name in BEHZ},
           **{name: "abc_tpu_torch/csrc/keyswitch.cu" for name in KS + K9A},
           **{name: "abc_tpu_torch/csrc/rlwe.cu" for name in RLWE},
-          **{name: "abc_tpu_torch/csrc/elementwise.cu" for name in K9B}}
+          **{name: "abc_tpu_torch/csrc/elementwise.cu" for name in K9B},
+          **{name: "abc_tpu_torch/csrc/mesh.cu" for name in MESH_K}}
 # CKKS at the reference's own size (abc_tpu/benchsuite.py config 5): the
 # launches of one multiply(a, a, rescale=False) as (kernel, level, with the
 # special primes, batch): forward 2 x 8 = 16 rows (each operand) and 4 x 10 =
@@ -716,17 +740,19 @@ def _counters():
     from abc_tpu_torch.ops import behz_kernels as bk
     from abc_tpu_torch.ops import elementwise_kernels as ew
     from abc_tpu_torch.ops import keyswitch_kernels as kk
+    from abc_tpu_torch.ops import mesh_kernels as mk
     from abc_tpu_torch.ops import ntt_kernels as nk
     from abc_tpu_torch.ops import rlwe_kernels as rk
-    return nk.launches, bk.launches, kk.launches, rk.launches, ew.launches
+    return (nk.launches, bk.launches, kk.launches, rk.launches, ew.launches,
+            mk.launches)
 
 
 def launch_counts():
     """Launches of every hand-written kernel of the main paths, by kernel:
-    the NTT, BEHZ, key-switch, key generation / encryption / decryption and
-    elementwise kernels' counts (ops/ntt_kernels.py, ops/behz_kernels.py,
-    ops/keyswitch_kernels.py, ops/rlwe_kernels.py,
-    ops/elementwise_kernels.py)."""
+    the NTT, BEHZ, key-switch, key generation / encryption / decryption,
+    elementwise and mesh kernels' counts (ops/ntt_kernels.py,
+    ops/behz_kernels.py, ops/keyswitch_kernels.py, ops/rlwe_kernels.py,
+    ops/elementwise_kernels.py, ops/mesh_kernels.py)."""
     return {k: v for counts in _counters() for k, v in counts.items()}
 
 
@@ -1933,7 +1959,7 @@ def phase_hamming(dev, gold):
     cpu_ct = readme_hamming(cpu_factory, gold)
     cpu_arith = plain_arith(cpu_factory, gold)
     # the BFV path finishes every key switch in a tail (BFV_ABSENT)
-    check_launched(launches, "main path", absent=BFV_ABSENT)
+    check_launched(launches, "main path", absent=BFV_ABSENT + MESH_K)
     check(torch.equal(ct.ct.data.cpu(), cpu_ct.ct.data),
           "hamming output on the card != the port's CPU run")
     check(digest(ct.ct.data) == gold["result"],
@@ -2300,7 +2326,8 @@ def phase_whole_program(dev, gold, hamming_words, laplace_words,
     # hamming: no plaintext product and no negation
     check_launched({k: v for k, v in launches.items()
                     if k != "bfv_dec_round"}, "the whole-program path",
-                   absent=BFV_ABSENT + ("rns_ew_mul", "rns_ew_neg"))
+                   absent=BFV_ABSENT + ("rns_ew_mul", "rns_ew_neg")
+                   + MESH_K)
     per_walk = walk_launches(jp)
     check(torch.equal(raw[out_name], hamming_words),
           "hamming as a graph != phase 4's eager words")
@@ -2946,8 +2973,11 @@ def phase_bench(dev, gold):
           and all(row["ntt_launches_per_step"] == [5, 3]
                   for row in full["mult_relin"]["batch_curve"].values()),
           "mult+relin curve: batches or the per-step census")
-    # no program of the six configs negates a ciphertext
-    check_launched(launches[0], "the bench", absent=("rns_ew_neg",))
+    # no program of the six configs negates a ciphertext or rescales, and
+    # its one mesh op (config 5's sharded word check) runs no psum and ends
+    # its key switch in the relinearization's tail
+    check_launched(launches[0], "the bench",
+                   absent=("rns_ew_neg", "ks_mod_down", "rns_psum_mod"))
     sol = full["mult_relin"]["speed_of_light"]
     print(f"  bench --quick: {seconds:.1f} s, exit 0, six configs without "
           f"error, config 3 correct, config 4 decrypt_equal, config 6 equal "
@@ -3541,7 +3571,8 @@ def phase_reference_scale(dev):
               flush=True)
     launches = launch_counts()
     # BFV workloads, none of which negates a ciphertext
-    check_launched(launches, "phase 12", absent=BFV_ABSENT + ("rns_ew_neg",))
+    check_launched(launches, "phase 12",
+                   absent=BFV_ABSENT + ("rns_ew_neg",) + MESH_K)
     return launches
 
 
@@ -3555,13 +3586,187 @@ MESH_BFV = {"n": 8192, "limbs": 8, "seed": 17}
 MESH_NTT = {"n": 32768, "L": 8, "D": 8}
 MESH_CKKS = {"n": 32768, "levels": 8, "seed": 23, "D": 8}
 MESH_BATCH = 4
+# the sharded CKKS op's graph (c): the single-device op's kernels and one
+# combine a stage of its five distributed transforms
+MESH_CKKS_CENSUS = {**CKKS_OP_CENSUS, "dist_ntt_combine":
+                    5 * (MESH_CKKS["D"].bit_length() - 1)}
+# the shapes of the kernels line's K8 entries (k8_calls's labels)
+K8_JSON = {"dist_ntt_combine": "combine fwd (c) digits",
+           "rns_psum_mod": "psum rank form (a)"}
+
+
+def is_copy(kernel):
+    """Whether a kernel that is not hand-written only moves words: torch's
+    copy kernels (a .contiguous(), a clone, a cat or stack, a gather's
+    layout) name themselves so."""
+    return "copy" in kernel.lower()
+
+
+def k8_calls(dev, edge=None):
+    """{label: (kernel, kernel call, plain call, bytes, integer
+    multiply-adds, library call or None, shape)} of the mesh kernels (K8)
+    at the mesh paths' shapes, their operands where the paths read them:
+    the combine of the distributed NTT (b) (MESH_NTT: [D, L, S] a view of
+    one polynomial), of the CKKS op's digits (c) ([L digits, D, L+1, S]:
+    the lift's output with the digit axis moved in front, the largest
+    transform of the op) and its accumulators' last inverse stage with n^-1
+    folded, written as [D, 2, L+1, S]; the psum of the limb-sharded key
+    switch (a) (MESH_BFV: one half of [limb, 2, L+1, n]) into its half of
+    the summed pair, over D = 8 shards of MESH_NTT's blocks, and the rank
+    form on the int64 sums an all_reduce of (a)'s four shards makes. With
+    0 and q-1 among random residues, or every word q-1 (`edge` "max"). The
+    bound counts each input once (a combine reads each word twice, as x
+    and as a partner), each output once, the tables, and a Shoup product
+    (3 multiply-adds) a coefficient where one is made. The rank form's
+    library call is torch.remainder, which computes its int64 residues in
+    one call; nothing else has one."""
+    from abc_tpu_torch.crypto.ckks import CkksParams
+    from abc_tpu_torch.crypto.ntt import NttContext
+    from abc_tpu_torch.crypto.numthy import gen_ntt_primes
+    from abc_tpu_torch.ops import mesh_kernels as mk
+    from abc_tpu_torch.parallel.dist_ntt import DistNttContext
+    from abc_tpu_torch.parallel.mesh import coeff_mesh
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def residues(moduli, lead, n, seed):
+        """[*lead, len(moduli), n] residues."""
+        qcol = torch.tensor(moduli, dtype=torch.int64).reshape(-1, 1)
+        shape = lead + (len(moduli), n)
+        if edge == "max":
+            x = torch.zeros(shape, dtype=torch.int64) + qcol - 1
+            return x.to(torch.int32).to(dev)
+        x = rand_residues(moduli, shape, seed, dev)
+        x[..., 0] = 0
+        x[..., 1::257] = (qcol - 1).to(torch.int32).to(dev)
+        return x
+
+    calls = {}
+
+    def combine(label, dist, b, x, forward, out=None):
+        t_sh = dist.D // 2                       # stage 0
+        tw = (b["fwd"] if forward else b["inv"])[0]
+        u = None if forward else b["n_inv"]
+        words = x.numel()
+        calls[label] = (
+            "dist_ntt_combine",
+            lambda: mk.dist_ntt_combine(x, tw, dist.q_col, t_sh, forward,
+                                        u=u, out=out),
+            lambda: mk.combine_plain(x, tw[0], dist.q_col, t_sh, forward,
+                                     u=None if u is None else u[0]),
+            4 * 2 * words + nbytes(*tw, dist.q_col, *(u or ())),
+            3 * words, None, ["forward" if forward else "inverse"]
+            + list(x.shape))
+
+    # (b) the distributed NTT's forward, one [L, n] polynomial over D
+    n, D, L = MESH_NTT["n"], MESH_NTT["D"], MESH_NTT["L"]
+    moduli = gen_ntt_primes(30, L, n)
+    dist = DistNttContext(NttContext(n, moduli, dev), D)
+    mesh = coeff_mesh(D, device=dev)
+    b = dist.bind(mesh)
+    combine("combine fwd (b)", dist, b,
+            mesh.scatter(residues(moduli, (), n, 1), "coeff", dim=-1), True)
+    # (c) the CKKS op's digit transform and its accumulators' last stage
+    p = CkksParams.create(MESH_CKKS["n"], levels=MESH_CKKS["levels"],
+                          seed=MESH_CKKS["seed"])
+    cols = p.data_primes + p.special_primes
+    S = MESH_CKKS["n"] // MESH_CKKS["D"]
+    dqp = DistNttContext(NttContext(MESH_CKKS["n"], cols, dev),
+                         MESH_CKKS["D"])
+    bqp = dqp.bind(coeff_mesh(MESH_CKKS["D"], device=dev))
+    lifted = residues(cols, (MESH_CKKS["D"], p.L), S, 2)
+    combine("combine fwd (c) digits", dqp, bqp, lifted.movedim(-4, -3),
+            True)
+    acc = residues(cols, (2, MESH_CKKS["D"]), S, 3)
+    halves = torch.empty((MESH_CKKS["D"], 2, len(cols), S),
+                         dtype=torch.int32, device=dev)
+    combine("combine inv (c) accumulators, n^-1 folded", dqp, bqp, acc,
+            False, out=halves.movedim(0, 1))
+
+    # (a) the limb psum: one half of [limb, 2, L+1, n] into its half
+    n_b = MESH_BFV["n"]
+    t = gen_ntt_primes(20, 1, n_b)[0]
+    primes = gen_ntt_primes(30, MESH_BFV["limbs"] + 1, n_b, exclude=[t])
+    q = torch.tensor(primes, dtype=torch.int32, device=dev).reshape(-1, 1)
+    q64 = q.to(torch.int64)
+    part = residues(primes, (MESH_LIMB, 2), n_b, 4)
+    summed = torch.empty((2, len(primes), n_b), dtype=torch.int32,
+                         device=dev)
+    words = summed.numel() // 2
+    calls["psum (a)"] = (
+        "rns_psum_mod",
+        lambda: mk.rns_psum_mod(part[:, 0], q, out=summed[0]),
+        lambda: mk.psum_plain(part[:, 0], q),
+        4 * (MESH_LIMB + 1) * words + nbytes(q), 0, None,
+        ["local", MESH_LIMB, len(primes), n_b])
+    wide = part[:, 0].to(torch.int64).sum(dim=0)
+    calls["psum rank form (a)"] = (
+        "rns_psum_mod", lambda: mk.rns_psum_mod(wide, q),
+        lambda: mk.psum_plain(wide, q), (8 + 4) * words + nbytes(q), 0,
+        lambda: torch.remainder(wide, q64), ["rank", len(primes), n_b])
+    # over D = 8 shards of MESH_NTT's blocks
+    blocks = residues(moduli, (D,), n // D, 5)
+    calls["psum D=8"] = (
+        "rns_psum_mod", lambda: mk.rns_psum_mod(blocks, dist.q_col),
+        lambda: mk.psum_plain(blocks, dist.q_col),
+        4 * (D + 1) * blocks.numel() // D + nbytes(dist.q_col), 0, None,
+        ["local", D, L, n // D])
+    return calls
+
+
+def k8_calls_kernel(label):
+    """The kernel a k8_calls label times."""
+    return "dist_ntt_combine" if label.startswith("combine") else \
+        "rns_psum_mod"
+
+
+def phase_k8(dev):
+    """The mesh kernels' compiler census; the kernels against their plain
+    versions at the mesh paths' shapes (k8_calls), on random and
+    all-(q-1) inputs; times and bounds.
+    Returns ({kernel: the kernels line's stats}, {label: stats of the other
+    shapes})."""
+    from abc_tpu_torch.ops import _build
+    from abc_tpu_torch.ops import kernel_census as kc
+
+    table = kc.kernel_table(_build.build_log, _build.sass(), prefix=kc.MESH)
+    check(len(table) >= 4, f"no ptxas / SASS record of the mesh kernels: "
+          f"{sorted(table)}")
+    for key, row in table.items():
+        print(f"  {key}: {kc.fmt_kernel(row)}", flush=True)
+    k8 = {name: {"max_abs_err": 0} for name in MESH_K}
+    extra = {}
+    for edge in (None, "max"):
+        for label, (name, kern, plain, n_bytes, imads, library, at) in \
+                k8_calls(dev, edge).items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            k8[name]["max_abs_err"] = max(k8[name]["max_abs_err"], err)
+            check(torch.equal(got, want), f"{label} != plain"
+                  + (" on all-(q-1) inputs" if edge else ""))
+            if edge is not None:
+                continue
+            st = {}
+            line = _timed(st, kern, plain, at, bound(n_bytes, imads), library)
+            print(f"  {label} {at} = plain; {line}", flush=True)
+            if K8_JSON[name] == label:
+                k8[name].update(st)
+            else:
+                extra[label] = st
+    print("  every K8 form = plain on all-(q-1) inputs too", flush=True)
+    return k8, extra
 
 
 def mesh_nccl_leg(dev, local_words):
     """(a) and (b) on DistComm over NCCL: world = the visible cards, one rank
     each, spawned; each rank's words against the LocalComm words of this
-    process. Last in the same ranks, whether an NCCL all_reduce can be
-    captured in a graph (a probe, reported whatever it finds)."""
+    process; the rank forms of the mesh kernels against their plain
+    versions on every rank (multihost.run_mesh_kernels; a world of 1 runs
+    no exchange), with the mesh kernels each rank launched. Last in the
+    same ranks, whether an NCCL all_reduce can be captured in a graph (a
+    probe, reported whatever it finds)."""
     import tempfile
 
     from abc_tpu_torch.parallel import multihost
@@ -3570,7 +3775,7 @@ def mesh_nccl_leg(dev, local_words):
     with tempfile.TemporaryDirectory() as words_dir:
         results = multihost.launch(
             nproc=1, local_devices=world,
-            tasks=("keyswitch", "ntt", "capture_probe"),
+            tasks=("keyswitch", "ntt", "mesh_kernels", "capture_probe"),
             device="cuda", n_bfv=MESH_BFV["n"], bfv_limbs=MESH_BFV["limbs"],
             n_ntt=MESH_NTT["n"], ntt_limbs=MESH_NTT["L"], timeout_s=180,
             words_dir=words_dir)
@@ -3591,6 +3796,17 @@ def mesh_nccl_leg(dev, local_words):
           f"on every rank; collectives {ks}, {exchanges} exchanges"
           + (" (a world of 1 covers NCCL init and all_reduce, and no "
              "exchange)" if world == 1 else ""), flush=True)
+    for r in results:
+        mkr, got = r["mesh_kernels"], r["launches"]
+        check(mkr["combines_checked"] > 0 and mkr["psum_checked"] and
+              all(got[k] > 0 for k in MESH_K),
+              f"NCCL rank {r['process_id']}: mesh kernels {mkr}, launched "
+              f"{got}")
+    print(f"  NCCL leg: the rank forms of the mesh kernels = plain on every "
+          f"rank at n={MESH_NTT['n']}, L={MESH_NTT['L']}, D={MESH_NTT['D']} "
+          f"({results[0]['mesh_kernels']['combines_checked']} combines "
+          f"with a partner block, the psum of int64 sums); launches per rank "
+          f"{[r['launches'] for r in results]}", flush=True)
     print(f"  NCCL all_reduce under torch.cuda.graph: "
           f"{[r['nccl_capture'] for r in results]}", flush=True)
 
@@ -3648,6 +3864,11 @@ def phase_mesh(dev):
               f"n={S} ({nk.cluster_size(rows, S)} CTAs per row) = plain; "
               f"{line}", flush=True)
 
+    # --- the mesh kernels (K8) at the paths' shapes (not counted)
+    k8, k8_extra = phase_k8(dev)
+    for label, st in k8_extra.items():
+        stats.setdefault(k8_calls_kernel(label), {})[label] = st
+
     last = [time.perf_counter()]
 
     def secs():
@@ -3700,16 +3921,36 @@ def phase_mesh(dev):
     dmul = DistCkksMultiplier(cctx, coeff_mesh(MESH_CKKS["D"], device=dev))
     vals = np.linspace(0.1, 0.9, 64)
     ca, cb = cctx.encrypt(cctx.encode(vals)), cctx.encrypt(cctx.encode(vals))
+    before = launch_counts()
     prod = dmul(ca.data, cb.data)
+    check(since(before) == MESH_CKKS_CENSUS,
+          f"the sharded CKKS op launched {since(before)}, not "
+          f"{MESH_CKKS_CENSUS}")
     check(torch.equal(prod, cctx.multiply(ca, cb, rescale=False).data),
           "DistCkksMultiplier != CkksContext.multiply(rescale=False)")
     ckks_ms = cuda_ms(lambda: dmul(ca.data, cb.data))
     ckks_prof = kernel_profile(lambda: dmul(ca.data, cb.data), reps=3)
+    # its census from the node list of the op captured as a graph
+    from abc_tpu_torch.utils.timing import graph_of
+    g = graph_of(lambda x: dmul(x, cb.data), ca.data)
+    g.replay()
+    check(torch.equal(g.output, prod), "the sharded CKKS op's replay != "
+          "its eager words")
+    c_kernels, c_other, c_nodes = graph_census(
+        g, MESH_CKKS_CENSUS, "the sharded CKKS op's graph")
+    check(c_kernels <= 100 and all(is_copy(k) for k in c_other),
+          f"the sharded CKKS op's graph: {c_kernels} kernels (at most 100), "
+          f"not hand-written {c_other}")
+    c_replay = cuda_ms(g.replay)
     print(f"  (c) CKKS n={MESH_CKKS['n']}, levels={MESH_CKKS['levels']}, "
           f"k=1, D={MESH_CKKS['D']}: DistCkksMultiplier equals "
           f"CkksContext.multiply(rescale=False); {ckks_ms:.3f} ms per eager "
           f"call (CUDA events, median of 10); device: {fmt_ntt(ckks_prof)}; "
-          f"{secs()}", flush=True)
+          f"as a graph {c_kernels} kernel nodes: the hand-written "
+          f"{ {k: v for k, v in MESH_CKKS_CENSUS.items() if v} } and the "
+          f"copies {c_other}, other nodes {c_nodes}; {c_replay:.3f} ms per "
+          f"replay; {secs()}", flush=True)
+    del g
 
     # --- (d) the hamming program on the dp x limb mesh as one graph
     rng = np.random.default_rng(3)
@@ -3738,6 +3979,14 @@ def phase_mesh(dev):
               for xv, yv in zip(xs, ys)]
     check(got == singles == oracle,
           f"mesh hamming {got}, single-device {singles}, oracle {oracle}")
+    per_walk = walk_launches(jp)
+    check(per_walk["rns_psum_mod"] > 0, f"the mesh program's walk ran no "
+          f"psum: {per_walk}")
+    d_kernels, d_other, d_nodes = graph_census(
+        jp._graph, per_walk, "the mesh program's graph, whose walk launches "
+        f"the hand-written kernels {per_walk},")
+    check(all(is_copy(k) for k in d_other), f"the mesh program's graph runs "
+          f"kernels that are neither hand-written nor copies: {d_other}")
     counts = launch_counts()
     replay = replay_ms(jp, jp.secret_inputs, 10)
     check(launch_counts() == counts, "a mesh replay moved a launch count")
@@ -3746,7 +3995,9 @@ def phase_mesh(dev):
           f"{MESH_BFV['n']}, batch {MESH_BATCH}: one graph, decrypts "
           f"{got} = the single-device runs = oracle; {replay[0]:.3f} ms per "
           f"replay (CUDA events, median of 10, {replay[1]}); device: "
-          f"{fmt_ntt(prof)}; phase_ms "
+          f"{fmt_ntt(prof)}; graph {d_kernels} kernel nodes: the "
+          f"hand-written { {k: v for k, v in per_walk.items() if v} }, the "
+          f"copies {d_other}, other nodes {d_nodes}; phase_ms "
           f"{ {k: round(v, 1) for k, v in jp.phase_ms.items()} }; "
           f"{secs()}", flush=True)
 
@@ -3758,8 +4009,9 @@ def phase_mesh(dev):
               f"{report[part]['collectives_per_step']}", flush=True)
     print(f"  (e) {secs()}", flush=True)
     launches = launch_counts()
-    # no path of the meshes multiplies by a plaintext or negates
-    check_launched(launches, "phase 13", absent=("rns_ew_mul", "rns_ew_neg"))
+    # no path of the meshes negates (the distributed negacyclic_mul's
+    # pointwise product is rns_ew_mul)
+    check_launched(launches, "phase 13", absent=("rns_ew_neg",))
 
     # --- DistComm over NCCL: (a) and (b) on spawned ranks
     local_words = {"keyswitch.k0": to_host(k0), "keyswitch.k1": to_host(k1),
@@ -3767,7 +4019,7 @@ def phase_mesh(dev):
                    "ntt.inv": to_host(inv_x), "ntt.mul": to_host(mul)}
     mesh_nccl_leg(dev, local_words)
     print(f"  NCCL leg {secs()}", flush=True)
-    return stats, launches
+    return stats, launches, k8
 
 
 def main() -> int:
@@ -3851,7 +4103,8 @@ def main() -> int:
     reference_scale_launches = phase_reference_scale(dev)
     announce("phase 13: the meshes (LocalComm on the card at production "
              "shapes; DistComm over NCCL)")
-    mesh_stats, mesh_launches = phase_mesh(dev)
+    mesh_stats, mesh_launches, k8_stats = phase_mesh(dev)
+    stats.update(k8_stats)
     announce("phases done")
     loaded = sorted(m for m, v in sys.modules.items() if v is not None
                     and m.split(".")[0] in ("jax", "jaxlib", "abc_tpu"))
@@ -3862,19 +4115,22 @@ def main() -> int:
     # mod-q contraction, an exact division by a prime (with or without a
     # relinearization's or a rotation's tail), Threefry words, a switching
     # key, the encryption's lift with its adds, the BFV scale-and-round or
-    # a modular add, subtract, negation or product, so these kernels have
-    # no library yardstick;
+    # a modular add, subtract, negation or product, or the distributed
+    # NTT's combine, so these kernels have no library yardstick;
     # ks_decompose's k = 1 lift, its shape here, is one torch.remainder
-    # (phase 2c)
+    # (phase 2c), and so is rns_psum_mod's rank form, its shape here
+    # (phase 13)
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name],
                 # the key generation, encryption and decryption kernels'
                 # own path is phase 6's (keys, an encryption, a decryption,
                 # a uniform regeneration), ks_mod_down's the CKKS path's
-                # (the rescale: a BFV key switch ends in a tail), every
-                # other kernel's phase 4's
+                # (the rescale: a BFV key switch ends in a tail), the mesh
+                # kernels' the mesh paths' (phase 13), every other
+                # kernel's phase 4's
                 "launches": (keys_launches if name in RLWE else
                              ckks_launches if name in BFV_ABSENT else
+                             mesh_launches if name in MESH_K else
                              launches)[name],
                 "launches_keys": keys_launches.get(name, 0),
                 # the whole-program path counts while it sets up, warms up
@@ -3914,7 +4170,8 @@ def main() -> int:
                 # the compiler made of it (phases 2b, 2c)
                 "launch": stats[name].get("launch")}
                for name in ("ntt_fwd", "ntt_inv", "ablate_ntt",
-                            "alu_chain") + BEHZ + KS + RLWE + K9A + K9B]
+                            "alu_chain") + BEHZ + KS + RLWE + K9A + K9B
+               + MESH_K]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi[0]}")
     print(json.dumps({"ok": True, "device": {
