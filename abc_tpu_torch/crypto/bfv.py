@@ -545,7 +545,7 @@ class BfvContext(RlweKeys):
         in the NTT domain, key-switch (with the context's key for g, or
         `ksk`), and add the signed coefficient gather of c0 to k0 in the
         mod switch down's launch (rotate tail)."""
-        tail = kk.Tail("rotate", ct.data[..., 0, :, :], *self._galois_perm(g))
+        tail = kk.Tail("rotate", ct.data[..., 0, :, :], self._galois_inv(g))
         return BfvCiphertext(self._ks_inner(
             D, *(ksk or self.get_galois_key(g)),
             perm=self._galois_perm_eval(g), tail=tail))

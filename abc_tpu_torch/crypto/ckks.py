@@ -651,7 +651,7 @@ class CkksContext(RlweKeys):
         of c0 to k0 in the mod switch down's launch (rotate tail)."""
         level = ct.level
         ksk_b, ksk_a = self._ksk_device(f"galois_{g}", level)
-        tail = kk.Tail("rotate", ct.data[0], *self._galois_perm(g))
+        tail = kk.Tail("rotate", ct.data[0], self._galois_inv(g))
         return CkksCiphertext(
             self._ks_inner(D, ksk_b, ksk_a, level,
                            perm=self._galois_perm_eval(g), tail=tail),

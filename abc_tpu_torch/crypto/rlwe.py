@@ -339,12 +339,13 @@ class RlweKeys:
                            self.pk_a_ntt)
 
     # ------------------------------------------------------- Galois tables
-    def _galois_perm(self, g: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Coefficient-domain gather indices + keep-sign mask for x → x^g
-        (galois_gather), on the device, cached per g."""
-        if g not in self._perm_dev:
-            self._perm_dev[g] = galois_gather(self.params.n, g, self.device)
-        return self._perm_dev[g]
+    def _galois_inv(self, g: int) -> int:
+        """g^-1 mod 2n, cached per g: what a rotation's mod-down tail takes
+        (keyswitch_kernels.Tail) to read c0^g with no gather table."""
+        key = ("inv", g)
+        if key not in self._perm_dev:
+            self._perm_dev[key] = pow(g, -1, 2 * self.params.n)
+        return self._perm_dev[key]
 
     def _galois_perm_eval(self, g: int) -> torch.Tensor:
         """Evaluation-domain gather indices for x → x^g, on the device,

@@ -32,7 +32,9 @@
 // ciphertext is read where it lies, with no copy. A thread (in a small
 // contraction, a few lanes) takes a quad of 4 coefficients, so that loads
 // and stores are 16-byte accesses coalesced along n; how a launch splits
-// its work follows from its shape (abc_ks_plan). Tables come
+// its work follows from its shape (abc_ks_plan, abc_ks_mod_down_plan).
+// The mod switch down's indices are 32-bit, split by a multiply and a
+// shift where they are not powers of two (rns_common.cuh: Div). Tables come
 // by device pointer (a context's or a level's), never from __constant__
 // memory, so that graphs of two contexts can replay in turns.
 //
@@ -434,24 +436,22 @@ ks_contract_stream_kernel(const uint32_t* __restrict__ D,
 // running residue is v: (x - centred([v]_p) mod q_t) * p^-1 mod q_t, with the
 // reference's steps word for word: v reduced mod q_t by one conditional
 // subtraction (p < 2 q_t), and the centring test on the unreduced v against
-// half = p >> 1. rec: (q_t, p mod q_t, p^-1 mod q_t, its companion).
+// half = p >> 1. r: the row's record (q_t, p mod q_t, p^-1 mod q_t, its
+// companion).
 __device__ __forceinline__ uint32_t divide_step(uint32_t x, uint32_t v,
                                                 uint32_t half,
-                                                const uint32_t* rec) {
-  const uint32_t m = ld(rec), p_mod = ld(rec + 1), w = ld(rec + 2),
-                 wsh = ld(rec + 3);
-  const uint32_t red = v >= m ? v - m : v;
-  const uint32_t corr = v > half ? sub_mod(red, p_mod, m) : red;
-  return mul_const(sub_mod(x, corr, m), w, wsh, m);
+                                                const uint4& r) {
+  const uint32_t red = v >= r.x ? v - r.x : v;
+  const uint32_t corr = v > half ? sub_mod(red, r.y, r.x) : red;
+  return mul_const(sub_mod(x, corr, r.x), r.z, r.w, r.x);
 }
 
 __device__ __forceinline__ uint4 divide_step4(const uint4& x, const uint4& v,
-                                              uint32_t half,
-                                              const uint32_t* rec) {
-  return make_uint4(divide_step(x.x, v.x, half, rec),
-                    divide_step(x.y, v.y, half, rec),
-                    divide_step(x.z, v.z, half, rec),
-                    divide_step(x.w, v.w, half, rec));
+                                              uint32_t half, const uint4& r) {
+  return make_uint4(divide_step(x.x, v.x, half, r),
+                    divide_step(x.y, v.y, half, r),
+                    divide_step(x.z, v.z, half, r),
+                    divide_step(x.w, v.w, half, r));
 }
 
 // What ks_mod_down adds to a kept row before it stores it (K9a). The output
@@ -460,119 +460,203 @@ __device__ __forceinline__ uint4 divide_step4(const uint4& x, const uint4& v,
 // c + b c_stride, component h at + h c_comp, rows of n words apart.
 //   kNoTail: nothing, the halves (k0, k1) themselves;
 //   kRelin:  out[h] = k_h + c[h] mod q, c the size-3 product (h = 0, 1);
-//   kRotate: out[0] = k0 + (sign[j] ? c0[gather[j]] : -c0[gather[j]]) mod
-//            q at column j, the signed coefficient gather of x -> x^g
-//            (gather [n] int64, sign [n] bytes), out[1] = k1.
+//   kRotate: out[0] = k0 + c0^g mod q, out[1] = k1: column j of c0^g, the
+//            image of c0 under x -> x^g, is c0[s] for s = j g^-1 mod 2n
+//            below n, and -c0[s - n] above (g odd: j = s g mod 2n, and x^n
+//            = -1). No table: the host passes g^-1 mod 2n (ginv).
 enum Tail { kNoTail, kRelin, kRotate };
 
 struct TailArgs {
   const uint32_t* c;
   long long c_stride, c_comp;
-  const long long* gather;
-  const uint8_t* sign;
+  uint32_t ginv;
 };
 
+struct ModDownArgs {
+  const uint32_t* x;
+  uint32_t* out;
+  const uint32_t* tab;
+  uint32_t quads;                 // rows groups n / 4 < 2^31
+  long long x_stride;
+  Div groups;                     // groups of G kept rows a half, Lo / G up
+  int Lo, k, logn;
+  TailArgs tail;
+};
+
+// ks_mod_down holds its table's records in registers, and takes two kept
+// rows a thread, for at most this many special primes (the instantiations
+// of 1 and 2: the main paths' k); past them it reads each record where it
+// lies, at the division step that needs it (held there, the rotation's
+// instantiation for 4 spilled 4 bytes)
+constexpr int kHeldSpecials = 2;
+
 // K4b. x: rows of [Lo + k, n] (Lo rows kept, then the k primes divided
-// out), x_stride words apart; out: rows of [Lo, n]. Step s (s = k-1 down to 0) divides every row
-// below Lo + s by the prime of row Lo + s, so a thread carries the k
-// special rows' running values through the steps (the specials below s are
-// divided at step s too) and applies the k steps to its own row. Step s's
-// table: word 0 = half, then a record (rec above) per row t < Lo + s, at
-// tab + s (4 + 4 (Lo + k)). The row's modulus for the tail is the first
-// word of its record at step 0.
-template <int KMAX, Tail T>
-__device__ __forceinline__ void mod_down_body(
-    const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-    const uint32_t* __restrict__ tab, long long quads, long long x_stride,
-    int Lo, int k, int logn, const TailArgs& tail) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (t >= quads) return;
-  const At at = at_of(t, logn);                 // line = row Lo + tr
-  const int tr = static_cast<int>(at.line % Lo);
-  const long long row = at.line / Lo;
-  const size_t n = size_t(1) << logn;
-  const uint32_t* in = x + static_cast<size_t>(row * x_stride) + at.c;
+// out), x_stride words apart; out: rows of [Lo, n]. Step s (s = k-1 down to
+// 0) divides every row below Lo + s by the prime of row Lo + s, so a thread
+// carries the k special rows' running values through the steps (the
+// specials below s are divided at step s too) and applies the k steps to
+// its own rows. Step s's table: word 0 = half, then a record (divide_step)
+// per row t < Lo + s, at tab + s (4 + 4 (Lo + k)); every record 16-byte
+// aligned. The row's modulus for the tail is the first word of its record
+// at step 0.
+//
+// What bounds it: bytes (x read once, out written once) but, at one
+// ciphertext, one launch's latency; a thread a kept row read each special
+// quad Lo times and divided the specials Lo times over, and a rotation's
+// tail waited for an index and a sign table before it could load c0. The
+// design: a thread takes one column quad of G kept rows of one half (G =
+// 1 or 2, the host's choice by the launch's size: rows_arg), loads and
+// divides the specials once for them, and computes the rotation's sources
+// from g^-1. In order: 32-bit indices (Div), a rotation's c0 words
+// (scattered 4-byte loads, issued first), the k special and G kept quads of
+// x, the records its steps need (16-byte loads into registers), a
+// relinearization's c_h quads: all in flight before the first division.
+// Measured on an H100 (PERF.md, K9a), cold: the records issued before x
+// read up to 0.4 us slower at one ciphertext, a relinearization's quads
+// before x up to 0.4 us slower, a rotation's words after x up to 0.1 us
+// slower. A programmatic dependent launch (the records and the tail read
+// while the launch before drains) was measured and is not used
+// (elementwise.cu).
+template <int KMAX, int G, Tail T>
+__device__ __forceinline__ void mod_down_body(const ModDownArgs& a) {
+  constexpr bool kHeld = KMAX <= kHeldSpecials;
+  const int qlog = a.logn - 2;
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= a.quads) return;
+  const uint32_t line = t >> qlog;              // row groups + group
+  const uint32_t row = quot(line, a.groups);
+  const int tr0 = static_cast<int>(line - row * a.groups.d) * G;
+  const uint32_t col = (t & ((1u << qlog) - 1)) * 4;
+  const size_t n = size_t(1) << a.logn;
+  const int Lo = a.Lo, k = a.k, h = static_cast<int>(row & 1);
   const int stride = kRec + kRec * (Lo + k);
-  uint4 v[KMAX];
+  // row r's record at step s
+  const auto rec_at = [&](int s, int r) {
+    return ld4(a.tab + s * stride + kRec * (1 + r));
+  };
+  // the tail's addends: a relinearization's c_h quads, a rotation's (half
+  // 0) 4 words of c0 at the sources of its 4 columns, negated where flip
+  const uint32_t* cb =
+      T == kNoTail ? nullptr
+                   : a.tail.c + static_cast<size_t>(row >> 1) *
+                                    a.tail.c_stride;
+  uint32_t src[4] = {0, 0, 0, 0};
+  bool flip[4] = {false, false, false, false};
+  if (T == kRotate) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t s = ((col + e) * a.tail.ginv) & ((2u << a.logn) - 1);
+      src[e] = s & static_cast<uint32_t>(n - 1);
+      flip[e] = (s >> a.logn) != 0;
+    }
+  }
+  const bool adds = T == kRelin || (T == kRotate && h == 0);
+  uint4 y[G];
+  if (T == kRotate && adds) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      if (tr0 + i >= Lo) continue;
+      const uint32_t* ci = cb + (static_cast<size_t>(tr0 + i) << a.logn);
+      y[i] = make_uint4(ld(ci + src[0]), ld(ci + src[1]), ld(ci + src[2]),
+                        ld(ci + src[3]));
+    }
+  }
+  const uint32_t* in = a.x + static_cast<size_t>(row) * a.x_stride + col;
+  uint4 v[KMAX], own[G];
 #pragma unroll
   for (int s = 0; s < KMAX; ++s) {
     if (s < k) v[s] = ld4(in + (Lo + s) * n);
   }
-  uint4 own = ld4(in + tr * n);
-  // the tail's addend, loaded beside x so that its latency overlaps the
-  // divisions (0 where the tail adds nothing: k1 of a rotation)
-  uint4 y = make_uint4(0, 0, 0, 0);
-  uint32_t m = 0;
-  if (T != kNoTail) {
-    m = ld(tab + kRec * (1 + tr));
-    const int h = static_cast<int>(row & 1);
-    const uint32_t* c = tail.c + static_cast<size_t>((row >> 1) *
-                                                     tail.c_stride) +
-                        (static_cast<size_t>(tr) << logn);
-    if (T == kRelin) {
-      y = ld4(c + h * tail.c_comp + at.c);
-    } else if (h == 0) {
-      uint32_t g[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const size_t j = at.c + e;
-        const uint32_t w = ld(c + __ldg(tail.gather + j));
-        g[e] = __ldg(tail.sign + j) ? w : neg_mod(w, m);
+  for (int i = 0; i < G; ++i) {
+    if (tr0 + i < Lo) own[i] = ld4(in + (tr0 + i) * n);
+  }
+  // the records: own_rec[s][i] row tr0 + i's at step s, chain_rec[s][s2]
+  // special s2's at step s, half[s]
+  uint4 own_rec[kHeld ? KMAX : 1][G];
+  uint4 chain_rec[kHeld ? KMAX : 1][kHeld ? KMAX : 1];
+  uint32_t half[kHeld ? KMAX : 1];
+  if constexpr (kHeld) {
+#pragma unroll
+    for (int s = 0; s < KMAX; ++s) {
+      if (s >= k) continue;
+      half[s] = ld(a.tab + s * stride);
+#pragma unroll
+      for (int s2 = 0; s2 < s; ++s2) chain_rec[s][s2] = rec_at(s, Lo + s2);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (tr0 + i < Lo) own_rec[s][i] = rec_at(s, tr0 + i);
       }
-      y = make_uint4(g[0], g[1], g[2], g[3]);
+    }
+  }
+  if (T == kRelin) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      if (tr0 + i >= Lo) continue;
+      y[i] = ld4(cb + (static_cast<size_t>(tr0 + i) << a.logn) +
+                 h * a.tail.c_comp + col);
     }
   }
 #pragma unroll
   for (int s = KMAX - 1; s >= 0; --s) {
     if (s >= k) continue;
-    const uint32_t* step = tab + static_cast<size_t>(s) * stride;
-    const uint32_t half = ld(step);
+    const uint32_t hs = kHeld ? half[kHeld ? s : 0]
+                              : ld(a.tab + s * stride);
 #pragma unroll
     for (int s2 = 0; s2 < s; ++s2) {
-      v[s2] = divide_step4(v[s2], v[s], half, step + kRec * (1 + Lo + s2));
+      v[s2] = divide_step4(v[s2], v[s], hs,
+                           kHeld ? chain_rec[kHeld ? s : 0][kHeld ? s2 : 0]
+                                 : rec_at(s, Lo + s2));
     }
-    own = divide_step4(own, v[s], half, step + kRec * (1 + tr));
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      if (tr0 + i < Lo) {
+        own[i] = divide_step4(own[i], v[s], hs,
+                              kHeld ? own_rec[kHeld ? s : 0][i]
+                                    : rec_at(s, tr0 + i));
+      }
+    }
   }
-  if (T != kNoTail) {
-    own = make_uint4(add_mod(own.x, y.x, m), add_mod(own.y, y.y, m),
-                     add_mod(own.z, y.z, m), add_mod(own.w, y.w, m));
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const int tr = tr0 + i;
+    if (tr >= Lo) continue;
+    uint4 o = own[i];
+    if (adds) {
+      const uint32_t m = kHeld ? own_rec[0][i].x : ld(a.tab + kRec * (1 + tr));
+      uint4 c = y[i];
+      if (T == kRotate) {
+        c = make_uint4(flip[0] ? neg_mod(c.x, m) : c.x,
+                       flip[1] ? neg_mod(c.y, m) : c.y,
+                       flip[2] ? neg_mod(c.z, m) : c.z,
+                       flip[3] ? neg_mod(c.w, m) : c.w);
+      }
+      o = make_uint4(add_mod(o.x, c.x, m), add_mod(o.y, c.y, m),
+                     add_mod(o.z, c.z, m), add_mod(o.w, c.w, m));
+    }
+    st4(a.out + (static_cast<size_t>(row * Lo + tr) << a.logn) + col, o);
   }
-  st4(out + (static_cast<size_t>(at.line) << logn) + at.c, own);
 }
 
-template <int KMAX>
+// K4b: ks_mod_down
+template <int KMAX, int G>
 __global__ void __launch_bounds__(kThreads)
-ks_mod_down_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                   const uint32_t* __restrict__ tab, long long quads,
-                   long long x_stride, int Lo, int k, int logn,
-                   TailArgs tail) {
-  mod_down_body<KMAX, kNoTail>(x, out, tab, quads, x_stride, Lo, k, logn,
-                               tail);
+ks_mod_down_kernel(const ModDownArgs a) {
+  mod_down_body<KMAX, G, kNoTail>(a);
 }
 
 // K9a: ks_mod_down with the relinearization's tail
-template <int KMAX>
+template <int KMAX, int G>
 __global__ void __launch_bounds__(kThreads)
-ks_mod_down_relin_kernel(const uint32_t* __restrict__ x,
-                         uint32_t* __restrict__ out,
-                         const uint32_t* __restrict__ tab, long long quads,
-                         long long x_stride, int Lo, int k, int logn,
-                         TailArgs tail) {
-  mod_down_body<KMAX, kRelin>(x, out, tab, quads, x_stride, Lo, k, logn,
-                              tail);
+ks_mod_down_relin_kernel(const ModDownArgs a) {
+  mod_down_body<KMAX, G, kRelin>(a);
 }
 
 // K9a: ks_mod_down with the rotation's tail
-template <int KMAX>
+template <int KMAX, int G>
 __global__ void __launch_bounds__(kThreads)
-ks_mod_down_rotate_kernel(const uint32_t* __restrict__ x,
-                          uint32_t* __restrict__ out,
-                          const uint32_t* __restrict__ tab, long long quads,
-                          long long x_stride, int Lo, int k, int logn,
-                          TailArgs tail) {
-  mod_down_body<KMAX, kRotate>(x, out, tab, quads, x_stride, Lo, k, logn,
-                               tail);
+ks_mod_down_rotate_kernel(const ModDownArgs a) {
+  mod_down_body<KMAX, G, kRotate>(a);
 }
 
 // ------------------------------------------------------------- launching
@@ -593,42 +677,70 @@ cudaError_t launch(Kernel kernel, long long threads, void* stream,
   return cudaGetLastError();
 }
 
-// The instantiation of ks_mod_down with tail T for k special primes,
-// passed to `go`.
-template <int KMAX>
-auto mod_down_kernel(Tail tail) {
-  return tail == kRelin    ? ks_mod_down_relin_kernel<KMAX>
-         : tail == kRotate ? ks_mod_down_rotate_kernel<KMAX>
-                           : ks_mod_down_kernel<KMAX>;
+// The instantiation of ks_mod_down with tail T for k special primes and G
+// kept rows a thread, passed to `go`.
+template <int KMAX, int G, typename Go>
+cudaError_t by_tail(Tail tail, Go go) {
+  return tail == kRelin    ? go(ks_mod_down_relin_kernel<KMAX, G>)
+         : tail == kRotate ? go(ks_mod_down_rotate_kernel<KMAX, G>)
+                           : go(ks_mod_down_kernel<KMAX, G>);
+}
+
+template <int KMAX, typename Go>
+cudaError_t by_rows(int G, Tail tail, Go go) {
+  if constexpr (KMAX > kHeldSpecials) {
+    return by_tail<KMAX, 1>(tail, go);
+  } else {
+    return G == 2 ? by_tail<KMAX, 2>(tail, go) : by_tail<KMAX, 1>(tail, go);
+  }
 }
 
 template <typename Go>
-cudaError_t by_specials(int k, Tail tail, Go go) {
-  if (k == 1) return go(mod_down_kernel<1>(tail));
-  if (k == 2) return go(mod_down_kernel<2>(tail));
-  if (k <= 4) return go(mod_down_kernel<4>(tail));
-  return go(mod_down_kernel<kMaxSpecials>(tail));
+cudaError_t by_specials(int k, int G, Tail tail, Go go) {
+  if (k == 1) return by_rows<1>(G, tail, go);
+  if (k == 2) return by_rows<2>(G, tail, go);
+  if (k <= 4) return by_rows<4>(G, tail, go);
+  return by_rows<kMaxSpecials>(G, tail, go);
 }
 
 int specials_arg(int k) {
   return k == 1 ? 1 : k == 2 ? 2 : k <= 4 ? 4 : kMaxSpecials;
 }
 
-// The SMs of the current device, asked until a query succeeds, with the
-// query's error.
-cudaError_t sm_count(int* sms) {
-  static std::atomic<int> known{0};
-  int n = known.load();
-  if (n < 1) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return err;
-    known.store(n);
-  }
-  *sms = n;
+// threads an SM holds of the mod-down kernels (128-thread blocks)
+constexpr long long kModDownResident = 2048;
+
+// ks_mod_down's kept rows a thread (G) for `rows` halves of Lo kept rows
+// of n = 2^logn, k special primes, on `sms` SMs: 2 where a thread a kept
+// row would fill the card (every SM holding kModDownResident threads), at
+// most kHeldSpecials specials (past them their running values and records
+// fill the registers) and Lo >= 2, else 1. Measured on an H100 (PERF.md,
+// K9a): 2 at B=64 of (8192, 6) read fastest at k = 1 and 2, 4 slower; 1
+// at one ciphertext.
+int rows_arg(long long rows, int Lo, int k, int logn, int sms) {
+  const long long quads = ((rows * Lo) << logn) / 4;
+  return k <= kHeldSpecials && Lo >= 2 && quads >= sms * kModDownResident
+             ? 2
+             : 1;
+}
+
+// What a ks_mod_down launch does, by its shape: the instantiation (special
+// primes held, kept rows a thread), the groups of G kept rows a half, and
+// the threads.
+struct ModDownPlan {
+  int kmax, G;
+  long long groups, threads;
+};
+
+cudaError_t mod_down_plan(long long rows, int Lo, int k, int logn,
+                          ModDownPlan* plan) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  plan->kmax = specials_arg(k);
+  plan->G = rows_arg(rows, Lo, k, logn, sms);
+  plan->groups = (Lo + plan->G - 1) / plan->G;
+  plan->threads = ((rows * plan->groups) << logn) / 4;
   return cudaSuccess;
 }
 
@@ -839,34 +951,46 @@ int abc_ks_contract(const void* D, const void* kb, const void* ka, void* out,
 // = 2 B rows, the two halves of B key switches: c the ciphertexts'
 // components ([B, C, Lo, n] rows of n words; ciphertext b at c + b
 // c_stride, component h at + h c_comp, both multiples of 4); the rotation
-// reads component 0 at gather [n] int64 with keep-sign bytes sign [n].
+// by g reads component 0 at the sources of x -> x^g, from ginv = g^-1 mod
+// 2n (odd).
 int abc_ks_mod_down_tail(const void* x, void* out, const void* tab,
                          long long rows, long long x_stride, int Lo, int k,
                          int logn, int tail, const void* c,
-                         long long c_stride, long long c_comp,
-                         const void* gather, const void* sign,
+                         long long c_stride, long long c_comp, long long ginv,
                          void* stream) {
-  if (logn < 2 || rows < 0 || Lo < 1 || k < 1 || k > kMaxSpecials ||
+  if (logn < 2 || logn > 30 || rows < 0 || Lo < 1 || k < 1 ||
+      k > kMaxSpecials ||
       x_stride < (static_cast<long long>(Lo + k) << logn) || x_stride % 4 ||
-      tail < kNoTail || tail > kRotate) {
+      tail < kNoTail || tail > kRotate ||
+      rows * Lo >= (1LL << 31) || ((rows * Lo) << logn) / 4 >= (1LL << 31)) {
     return cudaErrorInvalidValue;
   }
   if (tail != kNoTail &&
       (c == nullptr || rows % 2 || c_stride % 4 || c_comp % 4 ||
-       (tail == kRotate && (gather == nullptr || sign == nullptr)))) {
+       (tail == kRotate &&
+        (ginv < 1 || ginv >= (2LL << logn) || ginv % 2 == 0)))) {
     return cudaErrorInvalidValue;
   }
-  const TailArgs args = {static_cast<const uint32_t*>(c), c_stride, c_comp,
-                         static_cast<const long long*>(gather),
-                         static_cast<const uint8_t*>(sign)};
-  const long long quads = ((rows * Lo) << logn) / 4;
-  return static_cast<int>(by_specials(k, static_cast<Tail>(tail),
-                                      [&](auto kernel) {
-    return launch(kernel, quads, stream, static_cast<const uint32_t*>(x),
-                  static_cast<uint32_t*>(out),
-                  static_cast<const uint32_t*>(tab), quads, x_stride, Lo, k,
-                  logn, args);
-  }));
+  ModDownPlan plan = {};
+  const cudaError_t err = mod_down_plan(rows, Lo, k, logn, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (plan.threads == 0) return cudaSuccess;
+  ModDownArgs args = {};
+  args.x = static_cast<const uint32_t*>(x);
+  args.out = static_cast<uint32_t*>(out);
+  args.tab = static_cast<const uint32_t*>(tab);
+  args.quads = static_cast<uint32_t>(plan.threads);
+  args.x_stride = x_stride;
+  args.groups = div_by(static_cast<uint32_t>(plan.groups));
+  args.Lo = Lo;
+  args.k = k;
+  args.logn = logn;
+  args.tail = {static_cast<const uint32_t*>(c), c_stride, c_comp,
+               static_cast<uint32_t>(tail == kRotate ? ginv : 0)};
+  return static_cast<int>(by_specials(
+      k, plan.G, static_cast<Tail>(tail), [&](auto kernel) {
+        return launch(kernel, plan.threads, stream, args);
+      }));
 }
 
 // K4b: x [rows, Lo + k, n], rows x_stride words apart (a multiple of 4,
@@ -876,34 +1000,41 @@ int abc_ks_mod_down(const void* x, void* out, const void* tab, long long rows,
                     long long x_stride, int Lo, int k, int logn,
                     void* stream) {
   return abc_ks_mod_down_tail(x, out, tab, rows, x_stride, Lo, k, logn,
-                              kNoTail, nullptr, 0, 0, nullptr, nullptr,
-                              stream);
+                              kNoTail, nullptr, 0, 0, 0, stream);
 }
 
-// The launch that abc_ks_mod_down makes (kernel 2; 3 and 4 with the relin
-// and the rotate tail) for `lines` output rows of n = 2^logn (the product
-// of every output axis but the last) and k special primes, into info[6]:
-// the instantiation's special primes, 0, threads a block, blocks, and the
-// kernel's theoretical occupancy
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor): blocks and warps an SM.
-// ks_decompose and ks_contract (kernels 0 and 1) launch by their whole
-// shape: abc_ks_plan. Returns the cudaError_t of the query.
-int abc_ks_launch_info(int kernel, long long lines, int k, int logn,
-                       long long* info) {
-  if (logn < 2 || lines < 0 || k < 1 || k > kMaxSpecials || kernel < 2 ||
-      kernel > 4) {
+// The launch that abc_ks_mod_down makes (tail 0; 1 and 2 with the relin
+// and the rotate tail) over `rows` rows of Lo kept rows of n = 2^logn and k
+// special primes, into info[8]: the instantiation (special primes held,
+// kept rows a thread G), threads a block, blocks, the instantiation's
+// theoretical occupancy (cudaOccupancyMaxActiveBlocksPerMultiprocessor:
+// blocks and warps an SM), threads and the card's SMs. ks_decompose and
+// ks_contract launch by their whole shape: abc_ks_plan. Returns the
+// cudaError_t of the queries, or cudaErrorInvalidValue for a shape the
+// kernel does not take.
+int abc_ks_mod_down_plan(int tail, long long rows, int Lo, int k, int logn,
+                         long long* info) {
+  if (logn < 2 || logn > 30 || rows < 0 || Lo < 1 || k < 1 ||
+      k > kMaxSpecials || tail < kNoTail || tail > kRotate) {
     return cudaErrorInvalidValue;
   }
-  int per_sm = 0;
-  const auto query = [&](auto kern) { return blocks_per_sm(kern, &per_sm); };
-  const cudaError_t err = by_specials(k, static_cast<Tail>(kernel - 2), query);
-  const long long quads = (lines << logn) / 4;
-  info[0] = specials_arg(k);
-  info[1] = 0;
+  ModDownPlan plan = {};
+  int per_sm = 0, sms = 0;
+  cudaError_t err = mod_down_plan(rows, Lo, k, logn, &plan);
+  if (err == cudaSuccess) {
+    err = by_specials(k, plan.G, static_cast<Tail>(tail), [&](auto kern) {
+      return blocks_per_sm(kern, &per_sm);
+    });
+  }
+  if (err == cudaSuccess) err = sm_count(&sms);
+  info[0] = plan.kmax;
+  info[1] = plan.G;
   info[2] = kThreads;
-  info[3] = (quads + kThreads - 1) / kThreads;
+  info[3] = (plan.threads + kThreads - 1) / kThreads;
   info[4] = per_sm;
   info[5] = static_cast<long long>(per_sm) * (kThreads / 32);
+  info[6] = plan.threads;
+  info[7] = sms;
   return static_cast<int>(err);
 }
 

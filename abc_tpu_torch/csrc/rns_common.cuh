@@ -3,6 +3,7 @@
 // read and written four coefficients at a time with one 16-byte access.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -79,6 +80,47 @@ __device__ __forceinline__ uint32_t neg_mod(uint32_t a, uint32_t q) {
 __device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b,
                                             uint32_t q, uint64_t ratio) {
   return reduce64(static_cast<uint64_t>(a) * b, q, ratio);
+}
+
+// ------------------------------------------ indices without 64-bit division
+
+// x / d for 0 <= x < 2^31 and 1 <= d < 2^31 by one 32 x 32 -> 64-bit product
+// and a shift (Granlund and Montgomery): with l = ceil(log2 d) and m =
+// ceil(2^(31 + l) / d), m d - 2^(31 + l) < d <= 2^l, so floor(x m / 2^(31 +
+// l)) = floor(x / d), and m < 2^32. The host makes it (div_by); a kernel
+// whose indices stay below 2^31 then splits them with no division routine.
+struct Div {
+  uint32_t d, m, s;
+};
+
+inline Div div_by(uint32_t d) {
+  int l = 0;
+  while (l < 31 && (uint32_t(1) << l) < d) ++l;
+  const uint64_t top = uint64_t(1) << (31 + l);
+  return {d, static_cast<uint32_t>((top + d - 1) / d),
+          static_cast<uint32_t>(31 + l)};
+}
+
+__device__ __forceinline__ uint32_t quot(uint32_t x, const Div& v) {
+  return static_cast<uint32_t>((static_cast<uint64_t>(x) * v.m) >> v.s);
+}
+
+// The SMs of the current device, asked until a query succeeds, with the
+// query's error.
+inline cudaError_t sm_count(int* sms) {
+  static std::atomic<int> known{0};
+  int n = known.load();
+  if (n < 1) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return err;
+    known.store(n);
+  }
+  *sms = n;
+  return cudaSuccess;
 }
 
 }  // namespace

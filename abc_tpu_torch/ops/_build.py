@@ -57,26 +57,28 @@ def _stale() -> bool:
     return any(os.path.getmtime(src) > built for src in SOURCES + HEADERS)
 
 
-def build() -> None:
-    """Compile SOURCES (one nvcc each, started together) and link them into
-    the shared library (atomically replaced, so concurrent processes never
-    load a half-written file)."""
+def build(csrc: str = _CSRC, so: str = _SO) -> None:
+    """Compile SOURCES (one nvcc each, started together; from another
+    directory `csrc` of the same files, such as a variant of them) and link
+    them into the shared library `so` (atomically replaced, so concurrent
+    processes never load a half-written file)."""
     global build_log, build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
+    sources = [os.path.join(csrc, os.path.basename(src)) for src in SOURCES]
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
-            for src in SOURCES]
-    tmp = f"{_SO}.{tag}"
+            for src in sources]
+    tmp = f"{so}.{tag}"
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(SOURCES, objs)]
+             for src, obj in zip(sources, objs)]
     logs = [p.communicate()[0] for p in procs]
     try:
         build_log = "".join(logs)
-        bad = [(src, p.returncode) for src, p in zip(SOURCES, procs)
+        bad = [(src, p.returncode) for src, p in zip(sources, procs)
                if p.returncode != 0]
         if bad:
             raise RuntimeError(f"nvcc failed on {bad}:\n{build_log}")
@@ -86,7 +88,7 @@ def build() -> None:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{build_log}")
-        os.replace(tmp, _SO)
+        os.replace(tmp, so)
     finally:
         for path in objs:
             if os.path.exists(path):
@@ -102,7 +104,15 @@ def load() -> ctypes.CDLL:
         return _LIB
     if _stale():
         build()
-    lib = ctypes.CDLL(_SO)
+    _LIB = open_library(_SO)
+    return _LIB
+
+
+def open_library(so: str) -> ctypes.CDLL:
+    """A build of SOURCES at `so`, bound and initialised as `load` binds
+    this package's (a variant's build, loaded beside it, is what
+    scripts/replay_ab.py swaps in)."""
+    lib = ctypes.CDLL(so)
     vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_uint32)
     lib.abc_ntt_fwd.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, vp]
@@ -132,7 +142,6 @@ def load() -> ctypes.CDLL:
         if err != 0:
             raise RuntimeError(f"{init.__name__} failed: "
                                f"{lib.abc_cuda_error_string(err).decode()}")
-    _LIB = lib
     return lib
 
 
@@ -177,12 +186,13 @@ def bind_keyswitch(lib: ctypes.CDLL) -> None:
     lib.abc_ks_decompose.argtypes = [vp] * 5 + [i64, i64] + [i32] * 5 + [vp]
     lib.abc_ks_contract.argtypes = [vp] * 7 + [i64, i64] + [i32] * 3 + [vp]
     lib.abc_ks_mod_down.argtypes = [vp] * 3 + [i64, i64] + [i32] * 3 + [vp]
+    # ..., tail, c, c_stride, c_comp, g^-1 mod 2n, stream
     lib.abc_ks_mod_down_tail.argtypes = [vp] * 3 + [i64, i64] + [i32] * 4 + \
-        [vp, i64, i64] + [vp] * 3
-    lib.abc_ks_launch_info.argtypes = [i32, i64, i32, i32, vp]
+        [vp, i64, i64, i64, vp]
+    lib.abc_ks_mod_down_plan.argtypes = [i32, i64] + [i32] * 3 + [vp]
     lib.abc_ks_plan.argtypes = [i32, i64] + [i32] * 5 + [vp]
     for fn in (lib.abc_ks_decompose, lib.abc_ks_contract, lib.abc_ks_mod_down,
-               lib.abc_ks_mod_down_tail, lib.abc_ks_launch_info,
+               lib.abc_ks_mod_down_tail, lib.abc_ks_mod_down_plan,
                lib.abc_ks_plan):
         fn.restype = i32
 

@@ -18,6 +18,9 @@ the same shape as a, a plaintext [L, n] over every component and batch row
 BFV plaintext). `first=True` is the component-0 form: the op with b on
 component 0, the other components copied (negated, for `neg`), the
 plaintext add and subtract of a ciphertext in one launch.
+
+How a launch splits its work (quads a thread) follows from its size:
+`launch_info`.
 """
 
 from __future__ import annotations
@@ -191,7 +194,8 @@ def neg(a, q, ratio=None, b=None, w=None):
 def launch_info(op: str, lines: int, n: int) -> dict:
     """The launch an op makes for `lines` output rows of n (every output
     axis but the last, multiplied) with its theoretical occupancy on the
-    current card: threads a block, blocks, blocks and warps an SM."""
+    current card: the quads a thread (arg0: 1, or 2 where the launch fills
+    the card), threads a block, blocks, blocks and warps an SM."""
     import ctypes
     from abc_tpu_torch.ops import _build
     lib = _build.load()

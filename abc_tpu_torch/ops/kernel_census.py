@@ -13,7 +13,8 @@ the mesh kernels of csrc/mesh.cu by MESH)
 and `fmt_kernel`. For the BEHZ kernels: `launch_of` and `launch_key` (which
 instantiation a launch of one mult+relin runs, as
 `behz_kernels.launch_info` reports it) and `shape_params`, the parameters
-of a measured shape; for the key-switch kernels `ks_launch_key`. Host-only text parsing; imports no
+of a measured shape; for the key-switch kernels `ks_launch_key`, for the
+elementwise ones `ew_launch_key`. Host-only text parsing; imports no
 CUDA toolkit and no JAX.
 """
 
@@ -22,8 +23,10 @@ from __future__ import annotations
 import re
 
 # instructions counted per kernel in the SASS census: IMAD of every kind but
-# IMAD.MOV (a move), IMAD.WIDE, global and shared loads and stores, barriers
-CENSUS = ("IMAD", "IMAD.WIDE", "LDG", "STG", "LDS", "STS", "BAR")
+# IMAD.MOV (a move), IMAD.WIDE, global and shared loads and stores,
+# barriers, and subroutine calls (CALL: the 64-bit division and remainder
+# routines are called so)
+CENSUS = ("IMAD", "IMAD.WIDE", "LDG", "STG", "LDS", "STS", "BAR", "CALL")
 
 _FUNC = re.compile(r"Function : (\S+)")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
@@ -154,15 +157,22 @@ def launch_key(name: str, info: dict) -> str:
 
 
 def ks_launch_key(name: str, info: dict) -> str:
-    """The kernel key of a `keyswitch_kernels.launch_info` or `.plan`:
+    """The kernel key of a `keyswitch_kernels.mod_down_plan` or `.plan`:
     ks_mod_down, and its forms with a tail, are instantiated by their
-    largest number of special primes, ks_decompose by the sources it holds
-    in registers, ks_contract by its lanes a quad and its halves (one lane
-    a quad: the streaming kernel, not a template)."""
+    largest number of special primes and their kept rows a thread,
+    ks_decompose by the sources it holds in registers, ks_contract by its
+    lanes a quad and its halves (one lane a quad: the streaming kernel, not
+    a template)."""
     if name == "ks_contract" and info["arg0"] == 1:
         return f"{name}_stream_kernel"
-    if name == "ks_contract":
+    if name.startswith("ks_mod_down") or name == "ks_contract":
         return f"{name}_kernel<{info['arg0']},{info['arg1']}>"
+    return f"{name}_kernel<{info['arg0']}>"
+
+
+def ew_launch_key(name: str, info: dict) -> str:
+    """The kernel key of an `elementwise_kernels.launch_info`: each op is
+    instantiated by its quads a thread."""
     return f"{name}_kernel<{info['arg0']}>"
 
 

@@ -120,14 +120,14 @@ class Tail(NamedTuple):
     """What `mod_down` adds to the halves (k0, k1) of a key switch of
     [..., 2, Lo + k, n] before it stores them (K9a), finishing a ciphertext
     [..., 2, Lo, n]: "relin" adds components 0 and 1 of the size-3 product
-    `c` ([..., 3, Lo, n]) to k0 and k1; "rotate" adds the signed coefficient
-    gather of `c` (c0 [..., Lo, n]) to k0, coefficient j reading c0 at
-    gather[j] ([n] int64), negated where sign_pos[j] ([n] bool) is False,
-    and keeps k1 (crypto/rlwe.galois_gather's tables)."""
+    `c` ([..., 3, Lo, n]) to k0 and k1; "rotate" adds c0^g, the image of
+    `c` (c0 [..., Lo, n]) under x → x^g, to k0 and keeps k1, given `ginv` =
+    g^-1 mod 2n (RlweKeys._galois_inv; the kernel reads column j of c0^g
+    from c0 at s = j·g^-1 mod 2n, at s − n negated where s >= n, the plain
+    version gathers by crypto/rlwe.galois_gather's tables)."""
     kind: str
     c: torch.Tensor
-    gather: Optional[torch.Tensor] = None
-    sign_pos: Optional[torch.Tensor] = None
+    ginv: int = 0
 
 
 # ----------------------------------------------------------- plain versions
@@ -190,14 +190,19 @@ def mod_down_plain(x, division: Division, tail: Optional[Tail] = None):
 def tail_plain(k, tail: Tail, q):
     """The chains a relinearization and a rotation ran after the key switch
     (k [..., 2, Lo, n], q [Lo, 1]): the two adds and the stack, or the
-    signed gather of c0, its negation, the add to k0 and the stack."""
+    signed gather of c0 by galois_gather's tables for g = ginv^-1 mod 2n,
+    its negation, the add to k0 and the stack."""
+    from abc_tpu_torch.crypto.rlwe import galois_gather
     k0, k1 = k[..., 0, :, :], k[..., 1, :, :]
     if tail.kind == "relin":
         c = tail.c
         return torch.stack([t64.add(c[..., 0, :, :], k0, q),
                             t64.add(c[..., 1, :, :], k1, q)], dim=-3)
-    c0g = tail.c.index_select(-1, tail.gather)
-    c0g = torch.where(tail.sign_pos, c0g, t64.neg(c0g, q))
+    n = k.shape[-1]
+    gather, sign_pos = galois_gather(n, pow(tail.ginv, -1, 2 * n),
+                                     tail.c.device)
+    c0g = tail.c.index_select(-1, gather)
+    c0g = torch.where(sign_pos, c0g, t64.neg(c0g, q))
     return torch.stack([t64.add(c0g, k0, q), k1], dim=-3)
 
 
@@ -338,7 +343,8 @@ def mod_down(x, division: Division, tail: Optional[Tail] = None):
     _operand) → [..., Lo, n], the exact centred division by the last k
     primes of the division's base. With a tail (K9a), x holds the halves
     of key switches, [..., 2, Lo + k, n], and the launch writes the
-    finished ciphertexts [..., 2, Lo, n] (Tail)."""
+    finished ciphertexts [..., 2, Lo, n] (Tail). How the launch splits its
+    work (kept rows a thread): `mod_down_plan`."""
     if x.device.type == "cpu":
         return mod_down_plain(x, division, tail)
     rows, n, x_stride = _operand(x, "x", 2, strided=True)
@@ -361,21 +367,19 @@ def mod_down(x, division: Division, tail: Optional[Tail] = None):
             lambda lib, s: lib.abc_ks_mod_down_tail(
                 x.data_ptr(), out.data_ptr(), division.words.data_ptr(), rows,
                 x_stride, Lo, k, n.bit_length() - 1, kind, tail.c.data_ptr(),
-                c_stride, c_comp,
-                None if tail.gather is None else tail.gather.data_ptr(),
-                None if tail.sign_pos is None else tail.sign_pos.data_ptr(),
-                s))
+                c_stride, c_comp, tail.ginv, s))
     return out
 
 
-# abc_ks_mod_down_tail's tail numbers
+# abc_ks_mod_down_tail's tail numbers (0: none, abc_ks_mod_down)
 _TAILS = {"relin": 1, "rotate": 2}
 
 
 def _tail_operand(x, tail: Tail, Lo, n):
     """(words between ciphertexts, words between components) of a tail's
     ciphertext rows, which must lie where the kernel reads them: one
-    ciphertext per pair of x's rows, [Lo, n] rows of consecutive words."""
+    ciphertext per pair of x's rows, [Lo, n] rows of consecutive words; a
+    rotation's g^-1 must be odd and below 2n."""
     if tail.kind not in _TAILS:
         raise ValueError(f"key-switch mod down: no tail {tail.kind!r}")
     c, lead = tail.c, tuple(x.shape[:-3])
@@ -395,15 +399,10 @@ def _tail_operand(x, tail: Tail, Lo, n):
         raise ValueError(f"key-switch mod down's {tail.kind} tail: rows of "
                          f"{(Lo, n)} at one stride, 16-byte aligned, got "
                          f"strides {c.stride()} of {tuple(c.shape)}")
-    if not relin:
-        _table(tail.gather, "gather", x.device, n, torch.int64)
-        _table(tail.sign_pos, "sign_pos", x.device, n, torch.bool)
+    if not relin and not (0 < tail.ginv < 2 * n and tail.ginv % 2):
+        raise ValueError(f"key-switch mod down's rotate tail: g^-1 mod 2n "
+                         f"must be odd and below {2 * n}, got {tail.ginv}")
     return c_stride, c_comp
-
-
-# abc_ks_launch_info's kernel numbers
-_INFO_KERNEL = {"ks_mod_down": 2, "ks_mod_down_relin": 3,
-                "ks_mod_down_rotate": 4}
 
 
 def _lib():
@@ -417,23 +416,32 @@ def _info_error(lib, what, err):
                            f"{lib.abc_cuda_error_string(err).decode()}")
 
 
-def launch_info(name: str, lines: int, n: int, k: int = 1) -> dict:
-    """The launch ks_mod_down (or a form with a tail) makes for `lines`
-    output rows of n (every output axis but the last, multiplied) and k
-    special primes, with its theoretical occupancy on the current card: the
-    instantiation's special primes, threads a block, blocks, blocks and
-    warps an SM. ks_decompose and ks_contract launch by their whole shape
+# the mod-down kernels and their tail numbers in abc_ks_mod_down_plan
+_MOD_DOWN = {"ks_mod_down": 0,
+             **{f"ks_mod_down_{kind}": v for kind, v in _TAILS.items()}}
+
+
+def mod_down_plan(name: str, n: int, rows: int, Lo: int, k: int = 1) -> dict:
+    """The launch ks_mod_down (or a form with a tail) makes over `rows` rows
+    of Lo kept rows of n and k special primes on the current card
+    (abc_ks_mod_down_plan): the instantiation (arg0: the special primes
+    held in registers; arg1: the kept rows a thread, also as "rows"),
+    threads a block, blocks, blocks and warps an SM, threads and the
+    card's SMs. ks_decompose and ks_contract launch by their whole shape
     (`plan`)."""
     import ctypes
-    if name not in _INFO_KERNEL:
-        raise ValueError(f"launch_info takes {sorted(_INFO_KERNEL)}; "
+    if name not in _MOD_DOWN:
+        raise ValueError(f"mod_down_plan takes {sorted(_MOD_DOWN)}; "
                          f"{name} launches by its shape: plan()")
     lib = _lib()
-    info = (ctypes.c_longlong * 6)()
-    _info_error(lib, f"abc_ks_launch_info({name})", lib.abc_ks_launch_info(
-        _INFO_KERNEL[name], lines, k, n.bit_length() - 1, info))
-    return dict(zip(("arg0", "arg1", "threads", "blocks", "blocks_per_sm",
-                     "warps_per_sm"), info))
+    info = (ctypes.c_longlong * 8)()
+    _info_error(lib, f"abc_ks_mod_down_plan({name})",
+                lib.abc_ks_mod_down_plan(_MOD_DOWN[name], rows, Lo, k,
+                                         n.bit_length() - 1, info))
+    out = dict(zip(("arg0", "arg1", "threads", "blocks", "blocks_per_sm",
+                    "warps_per_sm", "total_threads", "sms"), info))
+    out["rows"] = out["arg1"]
+    return out
 
 
 # abc_ks_plan's kernel numbers and the names of its instantiation and split

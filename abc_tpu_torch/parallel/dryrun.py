@@ -58,8 +58,8 @@ def make_multichip_step(ctx: BfvContext, mesh: Mesh, steps: int = 1
     if ctx.params.L % mesh.shape["limb"]:
         raise ValueError("limb mesh axis must divide L")
     g = pow(3, steps % (n // 2), 2 * n)
-    # the rotation's device tables, cached on the context for good
-    ctx._galois_perm(g)
+    # the rotation's tables, cached on the context for good
+    ctx._galois_inv(g)
     ctx._galois_perm_eval(g)
 
     def step(a, b, kb, ka):

@@ -1,5 +1,6 @@
-"""The key switch's digit lift and contraction (ks_decompose, ks_contract
-of csrc/keyswitch.cu) on the card, beside another build of the same file.
+"""The key switch's kernels (ks_decompose, ks_contract, and ks_mod_down
+with and without its relinearization's and rotation's tails, of
+csrc/keyswitch.cu) on the card, beside other builds of the same file.
 
     python -m abc_tpu_torch.scripts.ks_ab [--baseline DIR ...] [--rounds R]
                                           [--out PATH]
@@ -7,9 +8,12 @@ of csrc/keyswitch.cu) on the card, beside another build of the same file.
 At SHAPES (chip_smoke.py phase 2c's timed shapes) this tree's kernels run
 on the operands of one key switch: the lift of d, the contraction of D
 with both key halves, the contraction with a Galois permutation read in
-its loads, and a decryption's one-half contraction of a ciphertext's two
-components with [1, s]. Each launch's plan is printed
-(keyswitch_kernels.plan: instantiation, columns a thread or lanes a quad,
+its loads, a decryption's one-half contraction of a ciphertext's two
+components with [1, s], the mod switch down of both halves alone, with a
+relinearization's tail and with a rotation's (g = 3), and, at CKKS
+shapes, the rescale of a ciphertext (the division by its last prime).
+Each launch's plan is printed (keyswitch_kernels.plan and .mod_down_plan:
+instantiation, columns a thread, lanes a quad or kept rows a thread,
 threads, blocks, occupancy) beside the compiler's census of every
 key-switch kernel (ops/kernel_census.py).
 
@@ -20,7 +24,9 @@ its directory, and every build runs the same inputs: the words must be
 equal, and the profiler's device time of each kernel, warm (calls one
 after another) and cold (the L2 flushed before each call), is read in
 turns (the baselines, this tree, this tree, the baselines in reverse),
---rounds times. One JSON object per line; the last holds the medians.
+--rounds times. A build without abc_ks_mod_down_plan is one from before
+the rotation's tail took g^-1: its tail reads galois_gather's tables. One
+JSON object per line; the last holds the medians.
 
 Needs a CUDA device and raises without one. Imports no JAX.
 """
@@ -49,18 +55,57 @@ SHAPES = [("bfv", 8192, 6, 1, 1, 6), ("bfv", 8192, 6, 1, 64, 6),
           ("bfv", 8192, 6, 2, 1, 6), ("bfv", 8192, 6, 2, 64, 6),
           ("bfv", 16384, 13, 1, 1, 13), ("ckks", 32768, 8, 2, 1, 8)]
 KERNELS = ("ks_decompose", "ks_contract", "ks_contract+perm",
-           "ks_contract/1")
+           "ks_contract/1", "ks_mod_down", "ks_mod_down_relin",
+           "ks_mod_down_rotate", "ks_mod_down/rescale")
+# the Galois element of the timed rotation tail
+ROTATE_G = 3
 
 
 def bind_two(lib: ctypes.CDLL) -> None:
     """The argument types of abc_ks_decompose and abc_ks_contract, the same
     in every build of the file, on a build that may lack the other entry
-    points (one from before abc_ks_plan)."""
+    points (one from before abc_ks_plan), and of the mod switch down's:
+    abc_ks_mod_down_tail takes g^-1 where a build without
+    abc_ks_mod_down_plan takes the gather and sign tables' pointers."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.abc_ks_decompose.argtypes = [vp] * 5 + [i64, i64] + [i32] * 5 + [vp]
     lib.abc_ks_contract.argtypes = [vp] * 7 + [i64, i64] + [i32] * 3 + [vp]
     for fn in (lib.abc_ks_decompose, lib.abc_ks_contract):
         fn.restype = ctypes.c_int
+    if not hasattr(lib, "abc_ks_mod_down_tail"):
+        return
+    lib.abc_ks_mod_down.argtypes = [vp] * 3 + [i64, i64] + [i32] * 3 + [vp]
+    lib.abc_ks_mod_down_tail.argtypes = [vp] * 3 + [i64, i64] + \
+        [i32] * 4 + [vp, i64, i64] + (
+            [i64, vp] if takes_ginv(lib) else [vp] * 3)
+    for fn in (lib.abc_ks_mod_down, lib.abc_ks_mod_down_tail):
+        fn.restype = ctypes.c_int
+
+
+def takes_ginv(lib) -> bool:
+    """Whether a build's rotation tail takes g^-1 (this tree's), not
+    galois_gather's tables."""
+    return hasattr(lib, "abc_ks_mod_down_plan")
+
+
+def in_turns(launches: dict, match: str, rounds: int):
+    """The profiler's device µs of each build's launch() (behz_ab.device_us:
+    every kernel whose name holds `match`), warm and cold, read in turns
+    (the builds in order, then in reverse) `rounds` times: ({build: {"warm":
+    [...], "cold": [...]}}, their medians). A profile that lost its kernel
+    records reads None and is left out of the median."""
+    which = list(launches)
+    times = {w: {"warm": [], "cold": []} for w in which}
+    for _ in range(rounds):
+        for w in which + which[::-1]:
+            for temp in ("warm", "cold"):
+                us, _ = device_us(launches[w], match=match,
+                                  cold=temp == "cold")
+                times[w][temp].append(us)
+    med = {w: {t: statistics.median(x for x in v if x is not None)
+               for t, v in ts.items() if any(x is not None for x in v)}
+           for w, ts in times.items()}
+    return times, med
 
 
 def operands(scheme, n, L, k, batch, level, dev):
@@ -69,6 +114,7 @@ def operands(scheme, n, L, k, batch, level, dev):
     from abc_tpu_torch.crypto.ckks import CkksParams
     from abc_tpu_torch.crypto.ntt import eval_perm_tables
     from abc_tpu_torch.crypto.params import BfvParams
+    from abc_tpu_torch.crypto.rlwe import galois_gather
     from abc_tpu_torch.ops.modarith import as_residues, ratio_table
     p = BfvParams.create(n, seed=11, ks_digits=k) if scheme == "bfv" else \
         CkksParams.create(n, levels=L, seed=3, ks_digits=k)
@@ -93,7 +139,14 @@ def operands(scheme, n, L, k, batch, level, dev):
     def column(moduli):
         return as_residues(np.asarray(moduli, np.uint32).reshape(-1, 1), dev)
 
+    gather, sign = galois_gather(n, ROTATE_G, dev)
     return {"d": rand(qs, lead), "D": rand(cols, lead + (A,)),
+            "x": rand(cols, lead + (2,)), "prod": rand(qs, lead + (3,)),
+            "division": kk.Division(cols, k, dev),
+            "gather": gather, "sign": sign,
+            "ginv": pow(ROTATE_G, -1, 2 * n),
+            "rescale": kk.Division(qs, 1, dev) if scheme == "ckks" and
+            level > 1 else None,
             "kb": rand(cols, (A,)), "ka": rand(cols, (A,)),
             "q": column(cols), "ratio": ratio_table(cols, dev),
             "ct": rand(qs, lead + (2,)), "sk": rand(qs, (2,)),
@@ -125,7 +178,38 @@ def calls(lib, ops, stream) -> dict:
             *ptrs, outs[name].data_ptr(), perm, q.data_ptr(),
             ratio.data_ptr(), rows, 1, A, R, logn, stream)
 
-    return {
+    x, prod, div = ops["x"], ops["prod"], ops["division"]
+    Lo, k = div.Lo, div.k
+    for name in KERNELS[4:]:
+        outs[name] = torch.empty(lead + (2, L - (name == KERNELS[-1]), n),
+                                 dtype=torch.int32, device=d.device)
+
+    def mod_down(name, tail, c, c_comp, rotate):
+        args = (x.data_ptr(), outs[name].data_ptr(), div.words.data_ptr(),
+                2 * rows, (Lo + k) * n, Lo, k, logn)
+        if tail == 0:
+            return lambda: lib.abc_ks_mod_down(*args, stream)
+        table = (ops["ginv"] if rotate else 0,) if takes_ginv(lib) else \
+            (ops["gather"].data_ptr(), ops["sign"].data_ptr()) if rotate \
+            else (None, None)
+        return lambda: lib.abc_ks_mod_down_tail(
+            *args, tail, c.data_ptr(), 3 * L * n, c_comp, *table, stream)
+
+    mods = {"ks_mod_down": (mod_down("ks_mod_down", 0, None, 0, False),
+                            outs["ks_mod_down"]),
+            "ks_mod_down_relin": (mod_down("ks_mod_down_relin", 1, prod,
+                                           L * n, False),
+                                  outs["ks_mod_down_relin"]),
+            "ks_mod_down_rotate": (mod_down("ks_mod_down_rotate", 2,
+                                            prod[..., 0, :, :], 0, True),
+                                   outs["ks_mod_down_rotate"])}
+    if ops["rescale"] is not None:
+        r = ops["rescale"]
+        mods[KERNELS[-1]] = (lambda: lib.abc_ks_mod_down(
+            ops["ct"].data_ptr(), outs[KERNELS[-1]].data_ptr(),
+            r.words.data_ptr(), 2 * rows, L * n, L - 1, 1, logn, stream),
+            outs[KERNELS[-1]])
+    return {**mods,
         "ks_decompose": (lambda: lib.abc_ks_decompose(
             d.data_ptr(), lifted.data_ptr(), q.data_ptr(), ratio.data_ptr(),
             tab, rows, L * n, L, A, R, K, logn, stream), lifted),
@@ -169,13 +253,21 @@ def run(args) -> int:
         builds = {w: calls(base, ops, stream) for w, base in bases.items()}
         builds["this"] = calls(lib, ops, stream)
         for name in KERNELS:
+            if name not in builds["this"]:
+                continue
             kname = name.split("+")[0].split("/")[0]
-            spec = dict(rows=ops["rows"], A=ops["A"], R=ops["R"])
-            if kname == "ks_decompose":
-                spec["K"] = ops["K"]
-            if name == "ks_contract/1":
-                spec.update(A=2, R=ops["L"], halves=1)
-            plans = {"this": kk.plan(kname, n, **spec)}
+            if kname.startswith("ks_mod_down"):
+                rescale = name.endswith("/rescale")
+                plans = {"this": kk.mod_down_plan(
+                    kname, n, 2 * ops["rows"], ops["L"] - rescale,
+                    1 if rescale else ops["K"])}
+            else:
+                spec = dict(rows=ops["rows"], A=ops["A"], R=ops["R"])
+                if kname == "ks_decompose":
+                    spec["K"] = ops["K"]
+                if name == "ks_contract/1":
+                    spec.update(A=2, R=ops["L"], halves=1)
+                plans = {"this": kk.plan(kname, n, **spec)}
             which_ = list(builds)
             for w in which_:
                 if builds[w][name][0]() != 0:
@@ -187,19 +279,8 @@ def run(args) -> int:
                                    builds["this"][name][1]):
                     raise AssertionError(f"{name} at {shape}: {w}'s words "
                                          "differ from this tree's")
-            order = which_ + which_[::-1]
-            times = {w: {"warm": [], "cold": []} for w in which_}
-            for _ in range(args.rounds):
-                for w in order:
-                    for temp in ("warm", "cold"):
-                        us, _ = device_us(builds[w][name][0], match=kname,
-                                          cold=temp == "cold")
-                        times[w][temp].append(us)
-            # a profile that lost its kernel records reads None
-            med = {w: {t: statistics.median(x for x in v if x is not None)
-                       for t, v in ts.items() if any(x is not None
-                                                     for x in v)}
-                   for w, ts in times.items()}
+            times, med = in_turns({w: builds[w][name][0] for w in which_},
+                                  kname, args.rounds)
             rec = {"shape": list(shape), "kernel": name, "plans": plans,
                    "device_us": times, "median_us": med}
             emit(rec, out)

@@ -54,9 +54,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    call ("cold"), the bound (ks_imads), the plain version's time and, for
    the k=1 lift, that of one torch.remainder giving the same words, beside
    the compiler's census of the instantiation launched and its launch
-   with its theoretical occupancy (abc_ks_launch_info; for ks_decompose
-   and ks_contract abc_ks_plan, with the columns a thread, or the lanes a
-   quad). Every kernel
+   with its theoretical occupancy (abc_ks_mod_down_plan, with the kept
+   rows a thread; for ks_decompose and ks_contract abc_ks_plan, with the
+   columns a thread, or the lanes a quad). Every kernel
    timed against its bound (phases 2, 2b, 7, 9, 13) gets the cold
    readings too, and a device time under its bound is marked as an L2
    reading.
@@ -88,11 +88,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
    sub_from_plain) torch.equal to their plain versions on the card at
    phase 2c's shapes (BFV n=8192, L=6, k=1 and 2 at one ciphertext and at
    B=64, n=16384, L=13, CKKS n=32768, 8 + 2 primes at level 8 and level
-   3), the rotation at Galois elements 3 and 2n-1 (both signs), inputs
-   holding 0 and q-1, and on inputs all 0 and all q-1; at one ciphertext
-   and B=64 (k=1), k=2 and CKKS level 8 warm and cold time, device time,
-   the bound, the plain version's time, the compiler's census and the
-   launch with its occupancy.
+   3), the rotation at Galois elements 3 and 2n-1 (both signs; its
+   sources computed from g^-1), inputs holding 0 and q-1, and on inputs all
+   0 and all q-1 at every timed shape and k=2 B=64; at one ciphertext and
+   B=64 (k=1), k=2, n=16384 L=13 and CKKS level 8 warm and cold time,
+   device time, the bound, the plain version's time, the compiler's census
+   (no subroutine call, so no 64-bit division routine, and no spill) and
+   the launch with its plan (quads or kept rows a thread) and occupancy.
+   Then dependent chains under stress (chain_stress): rns_ew_mul ->
+   rns_ew_add -> ks_mod_down_rotate whose add feeds the mod down's x or the
+   rotation's c0, 200 eager runs and 200 graph replays each on fresh
+   inputs, every result equal to plain.
 3. BFV mult+relin at n=8192 (6 data primes, k=1 and k=2): keys,
    ciphertexts and result on the card equal to the port's CPU context of
    the same seed and to the golden digests; one multiply of fresh operands
@@ -1185,7 +1191,8 @@ def ks_calls(scheme, n, L, k, batch, level, edge, dev):
     """{label: (kernel, kernel call, plain call, bytes, integer
     multiply-adds, launch shape, library call or None)} of the key-switch
     kernels at one shape (the launch shape: keyswitch_kernels.plan's
-    keywords for ks_decompose and ks_contract, else the output rows):
+    keywords for ks_decompose and ks_contract, mod_down_plan's for
+    ks_mod_down):
     the operands of one key switch of `batch` ciphertexts (one: no batch
     axis) at `level` of an (n, L data primes, k special primes) context,
     the digit lift, the contraction without and with a Galois permutation,
@@ -1284,7 +1291,7 @@ def ks_calls(scheme, n, L, k, batch, level, edge, dev):
             lambda: kk.mod_down_plain(x, div),
             4 * 2 * rows * n * (R + level) + nbytes(div.words),
             2 * rows * n * ks_imads("ks_mod_down", R, k=k, Lo=level),
-            2 * rows * level, None)}
+            dict(rows=2 * rows, Lo=level, k=k), None)}
     if scheme == "ckks" and level > 1:
         r = operand(qs, (2,), 6, 1)
         calls["rescale"] = (
@@ -1292,13 +1299,13 @@ def ks_calls(scheme, n, L, k, batch, level, edge, dev):
             lambda: kk.mod_down_plain(r, rdiv),
             4 * 2 * n * (2 * level - 1) + nbytes(rdiv.words),
             2 * n * ks_imads("ks_mod_down", level, k=1, Lo=level - 1),
-            2 * (level - 1), None)
+            dict(rows=2, Lo=level - 1, k=1), None)
     return calls
 
 
 def ks_split(name, info):
-    """How a ks_decompose or ks_contract launch splits its work
-    (keyswitch_kernels.plan), for phase 2c's line; "" for ks_mod_down."""
+    """How a key-switch launch splits its work (keyswitch_kernels.plan,
+    .mod_down_plan), for phase 2c's and 2e's lines."""
     if name == "ks_decompose":
         return (f", {info['cols']} columns a thread ({info['groups']} "
                 f"groups), {info['sources']} sources held")
@@ -1306,7 +1313,8 @@ def ks_split(name, info):
         return (f", {info['lanes']} lanes a quad"
                 + (" (streaming)" if info["lanes"] == 1 else "")
                 + f", {info['halves']} halves")
-    return ""
+    return (f", {info['rows']} kept rows a thread, {info['arg0']} specials "
+            "held")
 
 
 def phase_keyswitch(dev):
@@ -1341,9 +1349,8 @@ def phase_keyswitch(dev):
             if edge is not None or (scheme, n, L, k, batch, level) not in \
                     KS_TIMED:
                 continue
-            info = kk.plan(name, n, **lines) if isinstance(lines, dict) \
-                else kk.launch_info(name, lines, n,
-                                    k if label != "rescale" else 1)
+            info = kk.mod_down_plan(name, n, **lines) \
+                if name == "ks_mod_down" else kk.plan(name, n, **lines)
             key = kc.ks_launch_key(name, info)
             row = table.get(key, {})
             check(row, f"no ptxas / SASS record of {key}")
@@ -1631,19 +1638,25 @@ def phase_rlwe(dev):
 
 
 # phase 2e times the K9 kernels at these of phase 2c's shapes: one
-# ciphertext and B=64 at k=1, k=2, and CKKS at full level; the kernels line
-# reads the first
-K9_TIMED = [KS_SHAPES[0], KS_SHAPES[1], KS_SHAPES[2], KS_SHAPES[5]]
+# ciphertext and B=64 at k=1, k=2, LaplaceSharpening's (16384, 13), and
+# CKKS at full level, and holds them to plain on all-0 and all-(q-1) inputs
+# at every one of them and at k=2 B=64; the kernels line reads the first
+K9_TIMED = [KS_SHAPES[0], KS_SHAPES[1], KS_SHAPES[2], KS_SHAPES[4],
+            KS_SHAPES[5]]
+K9_EDGE_SHAPES = KS_SHAPES[:6]
+# runs of each of phase 2e's dependent chains, eager and replayed
+CHAIN_STRESS_RUNS = 200
 
 
 def k9_calls(scheme, n, L, k, batch, level, edge, dev):
     """{label: (kernel, kernel call, plain call, bytes, integer
-    multiply-adds, output rows, library call or None)} of the K9 kernels at
-    one of phase 2c's shapes (`batch` ciphertexts at `level` of an (n, L
+    multiply-adds, launch shape, library call or None)} of the K9 kernels
+    at one of phase 2c's shapes (`batch` ciphertexts at `level` of an (n, L
     data primes, k special primes) context): ks_mod_down with the
     relinearization's tail (both halves of a key switch and a size-3
     product), with the rotation's at Galois elements 3 and 2n-1 (both
-    signs occur in each), and each elementwise op on [batch, 2, level, n]
+    signs occur in each; the rotation's sources computed from g^-1), and
+    each elementwise op on [batch, 2, level, n]
     ciphertexts: add and sub of two, the plaintext product (mul by
     [level, n]), neg, the CKKS integer multiply (mul by a column), and the
     component-0 forms of add_plain and sub_from_plain (a plaintext's
@@ -1651,11 +1664,12 @@ def k9_calls(scheme, n, L, k, batch, level, edge, dev):
     all 0 (`edge` "zero") or all q-1 ("max"). The bound counts each operand
     and result once and the tables once, and the multiply-adds of
     ks_imads for the division and of a 32x32 product reduced by reduce64
-    for each product mod q. No single PyTorch call computes a modular add,
-    a product mod q or the fused tail."""
+    for each product mod q. The launch shape: keyswitch_kernels.
+    mod_down_plan's keywords for the mod down, the output rows for an
+    elementwise op. No single PyTorch call computes a modular add, a
+    product mod q or the fused tail."""
     from abc_tpu_torch.crypto.ckks import CkksParams
     from abc_tpu_torch.crypto.params import BfvParams
-    from abc_tpu_torch.crypto.rlwe import galois_gather
     from abc_tpu_torch.ops import elementwise_kernels as ew
     from abc_tpu_torch.ops import keyswitch_kernels as kk
     from abc_tpu_torch.ops.modarith import as_residues, ratio_table
@@ -1696,21 +1710,20 @@ def k9_calls(scheme, n, L, k, batch, level, edge, dev):
     red = BEHZ_IMAD["wide"] + BEHZ_IMAD["reduce64"]
     md_imads = 2 * batch * n * ks_imads("ks_mod_down", R, k=k, Lo=level)
     md_bytes = 4 * 2 * batch * R * n + nbytes(div.words)
+    md_shape = dict(rows=2 * batch, Lo=level, k=k)
     relin = kk.Tail("relin", prod)
     calls = {"ks_mod_down_relin": (
         "ks_mod_down_relin", lambda: kk.mod_down(x, div, relin),
         lambda: kk.mod_down_plain(x, div, relin),
-        md_bytes + 4 * 2 * words, md_imads, lines, None)}
+        md_bytes + 4 * 2 * words, md_imads, md_shape, None)}
     for g, label in ((3, "ks_mod_down_rotate"),
                      (2 * n - 1, "ks_mod_down_rotate g=2n-1")):
-        tail = kk.Tail("rotate", prod[..., 0, :, :],
-                       *galois_gather(n, g, dev))
+        tail = kk.Tail("rotate", prod[..., 0, :, :], pow(g, -1, 2 * n))
         calls[label] = (
             "ks_mod_down_rotate",
             lambda tail=tail: kk.mod_down(x, div, tail),
             lambda tail=tail: kk.mod_down_plain(x, div, tail),
-            md_bytes + 4 * (words // 2 + words)
-            + nbytes(tail.gather, tail.sign_pos), md_imads, lines, None)
+            md_bytes + 4 * (words // 2 + words), md_imads, md_shape, None)
     calls.update({
         "rns_ew_add": ("rns_ew_add", lambda: ew.add(a, b, q, ratio),
                        lambda: ew.ew_plain("add", a, b, q),
@@ -1759,7 +1772,7 @@ def phase_elementwise(dev):
           f"{sorted(table)}")
     stats = {name: {"max_abs_err": 0} for name in K9A + K9B}
     cases = [(shape, None) for shape in KS_SHAPES] + \
-        [(shape, edge) for shape in KS_EDGE_SHAPES
+        [(shape, edge) for shape in K9_EDGE_SHAPES
          for edge in ("zero", "max")]
     for shape, edge in cases:
         scheme, n, L, k, batch, level = shape
@@ -1776,26 +1789,121 @@ def phase_elementwise(dev):
             if edge is not None or shape not in K9_TIMED:
                 continue
             if name in K9A:
-                info = kk.launch_info(name, lines, n, k)
-                key = kc.ks_launch_key(name, info)
+                info = kk.mod_down_plan(name, n, **lines)
+                key, split = kc.ks_launch_key(name, info), \
+                    ks_split(name, info)
             else:
                 info = ew.launch_info(name[len("rns_ew_"):], lines, n)
-                key = f"{name}_kernel"
+                key = kc.ew_launch_key(name, info)
+                split = f", {info['arg0']} quads a thread"
             row = table.get(key, {})
             check(row, f"no ptxas / SASS record of {key}")
+            check(row.get("CALL") == 0 and not row.get("spill_stores"),
+                  f"{key} calls a subroutine (a 64-bit division) or "
+                  f"spills: {kc.fmt_kernel(row)}")
             st = {}
             line.append(
                 f"{label} " + _timed(st, kern, plain, list(shape),
                                      bound(n_bytes, imads), library)
                 + f" [{key}: {info['threads']} threads x {info['blocks']} "
-                f"blocks, {info['blocks_per_sm']} blocks "
+                f"blocks{split}, {info['blocks_per_sm']} blocks "
                 f"({info['warps_per_sm']} warps) an SM; "
                 f"{kc.fmt_kernel(row)}]")
             if shape == KS_SHAPES[0] and label == name:
                 stats[name].update(st, launch={"kernel": key, **info, **row})
         print(f"  {at}: every K9 kernel = plain"
               + ("" if not line else "; " + "; ".join(line)), flush=True)
+    chain_stress(dev)
     return stats
+
+
+def chain_stress(dev, runs=CHAIN_STRESS_RUNS):
+    """Two dependent chains of K9 launches at LaplaceSharpening's shape
+    (KS_SHAPES[4]), each reading the output of the launch just before:
+    rns_ew_mul -> rns_ew_add -> ks_mod_down_rotate, the add's output (a) the
+    mod down's x, the key switch's halves, or (b) the rotation's c0; each
+    `runs` times eagerly and `runs` replays of one captured graph, on fresh
+    inputs each run (drawn on the card, copied into the graph's static
+    inputs), every result equal to the plain chain on the same inputs. A
+    kernel that read its operand before the launch before it had written
+    it (as a programmatic dependent launch that read before
+    griddepcontrol.wait would) shows the run before's words. The graph
+    holds exactly the chain's 3 kernels."""
+    from abc_tpu_torch.crypto.params import BfvParams
+    from abc_tpu_torch.ops import elementwise_kernels as ew
+    from abc_tpu_torch.ops import keyswitch_kernels as kk
+    from abc_tpu_torch.ops.modarith import as_residues, ratio_table
+    from abc_tpu_torch.utils.timing import graph_of
+    _, n, L, k, _, level = KS_SHAPES[4]
+    p = BfvParams.create(n, seed=11, ks_digits=k)
+    qs, cols = p.data_primes[:level], p.data_primes[:level] + \
+        p.special_primes
+    div, ginv = kk.Division(cols, k, dev), pow(3, -1, 2 * n)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(CHAIN_STRESS_RUNS)
+
+    def tables(moduli):
+        return (as_residues(np.asarray(moduli, np.uint32).reshape(-1, 1),
+                            dev), ratio_table(moduli, dev))
+
+    def fresh(moduli, lead):
+        q = torch.tensor(moduli, dtype=torch.int64, device=dev)
+        x = torch.randint(0, 1 << 62, lead + (len(moduli), n),
+                          generator=gen, device=dev)
+        return (x % q[:, None]).to(torch.int32)
+
+    tq, tc = tables(qs), tables(cols)
+    chains = {
+        "x": (cols, lambda a, b, m, c0: kk.mod_down(
+            ew.add(ew.mul(a, m, *tc), b, *tc), div,
+            kk.Tail("rotate", c0, ginv))),
+        "c0": (qs, lambda a, b, m, x: kk.mod_down(
+            x, div, kk.Tail("rotate", ew.add(ew.mul(a, m, *tq), b, *tq)[0],
+                            ginv))),
+    }
+    for what, (moduli, chain) in chains.items():
+        q_plain = (tc if what == "x" else tq)[0]
+        other = qs if what == "x" else cols
+
+        def draw():
+            return (fresh(moduli, (2,)), fresh(moduli, (2,)),
+                    fresh(moduli, ()),
+                    fresh(other, () if what == "x" else (2,)))
+
+        def plain(a, b, m, o):
+            s = ew.ew_plain("add", ew.ew_plain("mul", a, m, q_plain), b,
+                            q_plain)
+            if what == "x":
+                return kk.mod_down_plain(s, div, kk.Tail("rotate", o, ginv))
+            return kk.mod_down_plain(o, div, kk.Tail("rotate", s[0], ginv))
+
+        for _ in range(runs):
+            ins = draw()
+            got = chain(*ins)
+            check(torch.equal(got, plain(*ins)),
+                  f"chain stress, chain {what}, eager: != plain")
+        static = draw()
+        g = graph_of(lambda ins: chain(*ins), static)
+        kernels, _, _ = graph_census(g, {**{nm: 0 for nm in
+                                            launch_counts()},
+                                         "rns_ew_mul": 1, "rns_ew_add": 1,
+                                         "ks_mod_down_rotate": 1},
+                                     f"the stress chain {what}")
+        check(kernels == 3, f"the stress chain {what} holds {kernels} "
+              "kernel nodes, not 3")
+        for _ in range(runs):
+            ins = draw()
+            for dst, src in zip(static, ins):
+                dst.copy_(src)
+            g.replay()
+            check(torch.equal(g.output, plain(*ins)),
+                  f"chain stress, chain {what}, replay: != plain")
+        del g
+    torch.cuda.synchronize()
+    print(f"  chain stress (n={n}, L={level}): rns_ew_mul -> rns_ew_add -> "
+          f"ks_mod_down_rotate, the add's output as x and as c0, {runs} "
+          f"eager runs and {runs} replays of each on fresh inputs: every "
+          "result = plain", flush=True)
 
 
 def phase_mult_relin(dev, k, gold):

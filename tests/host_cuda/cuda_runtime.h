@@ -61,14 +61,19 @@ inline T __shfl_xor_sync(unsigned, T value, int lane_mask) {
   return got;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-// the device an H100 SXM is: 132 SMs
+// the device an H100 SXM is: 132 SMs, unless the build names another
+// count (-DHOST_CUDA_SMS=1: a card whose launch plans take a thread more
+// than one unit of work at a few blocks' size)
+#ifndef HOST_CUDA_SMS
+#define HOST_CUDA_SMS 132
+#endif
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetDevice(int* device) {
   *device = 0;
   return cudaSuccess;
 }
 inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
-  *value = 132;
+  *value = HOST_CUDA_SMS;
   return cudaSuccess;
 }
 inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes,

@@ -657,7 +657,8 @@ _SASS = f"""\tcode for sm_90a
         /*0060*/                   STS.128 [R0], R4 ;
         /*0070*/                   LDS.128 R4, [R0] ;
         /*0080*/                   STG.E.128 desc[UR4][R2.64], R4 ;
-        /*0090*/                   EXIT ;
+        /*0090*/                   CALL.REL.NOINC 0xb0 ;
+        /*00a0*/                   EXIT ;
 """
 
 
@@ -669,8 +670,8 @@ def test_kernel_census_reads_ptxas_and_sass():
     table = kc.kernel_table(_PTXAS, _SASS)
     assert table == {"behz_to_bsk_kernel<1,16>": {
         "registers": 40, "smem": 8704, "spill_stores": 8, "spill_loads": 4,
-        "instructions": 10, "IMAD": 2, "IMAD.WIDE": 1, "LDG": 1, "STG": 1,
-        "LDS": 1, "STS": 1, "BAR": 1}}
+        "instructions": 11, "IMAD": 2, "IMAD.WIDE": 1, "LDG": 1, "STG": 1,
+        "LDS": 1, "STS": 1, "BAR": 1, "CALL": 1}}
     for demangled in ("void (anonymous namespace)::behz_to_bsk_kernel<1, "
                       "16>(unsigned int const*, int)",
                       "void <unnamed>::behz_to_bsk_kernel<(int)1, (int)16>"

@@ -40,6 +40,16 @@ HOST_STUB = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "host_cuda")
 N_REF = 1024              # the CPU route against the reference
 VALS_A, VALS_B = [1, -2, 3000, 4, 77], [9, 8, -7, 6, -1]
+# (n, L, rows, U) of the host build's launches on a card of one SM (2048
+# threads an SM): U = 2 from one full load of the card (2048 quads) where a
+# block's 128 threads x 2 quads fit one line (n >= 1024), else 1
+EW_WIDE_CASES = [(1024, 4, 2, 2), (1024, 3, 3, 2), (2048, 4, 2, 2),
+                 (2048, 5, 3, 2), (256, 7, 6, 1), (512, 4, 8, 1)]
+# {(output lines, n): U} of the plan on the stub's card of 132 SMs: 2 from
+# 270 336 quads
+EW_PLANS = {(12, 8192): 1, (26, 16384): 1, (16, 32768): 1, (768, 8192): 2,
+            (131, 8192): 1, (132, 8192): 2, (1056, 1024): 2, (1055, 1024): 1,
+            (3000, 512): 1, (100000, 256): 1}
 
 
 @pytest.fixture
@@ -76,21 +86,35 @@ def _tables(moduli):
 
 # ---------------------- the kernel source, compiled for the host (g++)
 
-@pytest.fixture(scope="module")
-def host_ew(tmp_path_factory):
+def _host_build(tmp_path_factory, sms):
     """csrc/elementwise.cu compiled by g++ against tests/host_cuda's stub
-    runtime (a launch runs its blocks in turn, a std::thread per thread)."""
+    runtime (a launch runs its blocks in turn, a std::thread per thread),
+    on a card of `sms` SMs."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
-    lib_path = tmp_path_factory.mktemp("ew_host") / "libew_host.so"
+    lib_path = tmp_path_factory.mktemp("ew_host") / f"libew_host{sms}.so"
     src = [s for s in _build.SOURCES if s.endswith("elementwise.cu")][0]
     subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
-                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}", src,
-                    "-o", str(lib_path)], check=True, capture_output=True)
+                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}",
+                    f"-DHOST_CUDA_SMS={sms}", src, "-o", str(lib_path)],
+                   check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     _build.bind_elementwise(lib)
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_ew(tmp_path_factory):
+    """The host build on the stub's card of an H100's 132 SMs."""
+    return _host_build(tmp_path_factory, 132)
+
+
+@pytest.fixture(scope="module")
+def host_ew_one_sm(tmp_path_factory):
+    """The host build on a card of one SM, whose plans take U = 2 quads a
+    thread from a few blocks (2048 quads)."""
+    return _host_build(tmp_path_factory, 1)
 
 
 def _host_ew(lib, op, a, b, q, ratio, w=None, first=False):
@@ -101,24 +125,25 @@ def _host_ew(lib, op, a, b, q, ratio, w=None, first=False):
     return out
 
 
-def _forms(moduli, n, seed, edge, dev="cpu"):
+def _forms(moduli, n, seed, edge, dev="cpu", rows=3):
     """{form: (op, a, b, w, first)} on `dev`: every op on operands of one
-    shape, a plaintext over every component and row, an [n] coefficient
-    vector over the limbs too, with and without a multiplier w, a column,
-    the component-0 forms, fewer leading rows, and views read in place (a
-    batch's components, a level's limbs of a wider ciphertext)."""
+    shape ([rows, 2, L, n]), a plaintext over every component and row, an
+    [n] coefficient vector over the limbs too, with and without a
+    multiplier w, a column, the component-0 forms, fewer leading rows, and
+    views read in place (a batch's components, a level's limbs of a wider
+    ciphertext)."""
     L = len(moduli)
 
     def rand(mods, shape, s, e=edge):
         return _rand(mods, shape, s, e).to(dev)
 
-    a = rand(moduli, (3, 2, L, n), seed)
-    b = rand(moduli, (3, 2, L, n), seed + 1)
+    a = rand(moduli, (rows, 2, L, n), seed)
+    b = rand(moduli, (rows, 2, L, n), seed + 1)
     plane = rand(moduli, (L, n), seed + 2)
     coeffs = rand(moduli[:1], (1, n), seed + 3)[0] % 65537
     w = rand(moduli, (L, 1), seed + 4, None)
     col = rand(moduli, (L, 1), seed + 5)
-    wide = rand(moduli + moduli[:2], (3, 3, L + 2, n), seed + 6)
+    wide = rand(moduli + moduli[:2], (rows, 3, L + 2, n), seed + 6)
     view = wide[:, 1:3, :L]
     forms = {}
     for op in ("add", "sub", "mul"):
@@ -153,6 +178,67 @@ def test_every_form_on_the_host(host_ew, n, L, edge):
         want = ew.ew_plain(op, a, b, q, w, first)
         got = _host_ew(host_ew, op, a, b, q, ratio, w, first)
         assert torch.equal(got, want), form
+
+
+def _host_plan(lib, op, lines, n):
+    info = (ctypes.c_longlong * 6)()
+    assert lib.abc_ew_launch_info(ew.OPS[op], lines, n.bit_length() - 1,
+                                  info) == 0
+    return dict(zip(("arg0", "arg1", "threads", "blocks", "blocks_per_sm",
+                     "warps_per_sm"), info))
+
+
+@pytest.mark.parametrize("edge", [None, "max"])
+@pytest.mark.parametrize("n,L,rows,U", EW_WIDE_CASES)
+def test_wide_plans_on_the_host(host_ew_one_sm, n, L, rows, U, edge):
+    """Where the plan gives a thread U = 2 quads (a card of one SM: from
+    2048 quads; U = 1 below n = 1024, where a block's 128 threads x 2 quads
+    take more than one line), every op and form of the host build equals
+    the plain chain, on random residues and all-(q-1) inputs, and a ragged
+    grid (n = 256: 64 quads a line) too."""
+    moduli = _moduli(n, L)
+    q, ratio = _tables(moduli)
+    assert _host_plan(host_ew_one_sm, "add", rows * 2 * L, n)["arg0"] == U
+    for form, (op, a, b, w, first) in _forms(moduli, n, n + L, edge,
+                                              rows=rows).items():
+        want = ew.ew_plain(op, a, b, q, w, first)
+        got = _host_ew(host_ew_one_sm, op, a, b, q, ratio, w, first)
+        assert torch.equal(got, want), form
+
+
+def test_plan_choice_on_the_host(host_ew):
+    """abc_ew_launch_info on the stub's card (132 SMs): U quads a thread by
+    the launch's size, each op alike, 2 only where a block's 128 x 2 quads
+    fit one line (n >= 1024), blocks of 128 threads."""
+    for (lines, n), U in EW_PLANS.items():
+        for op in ew.OPS:
+            got = _host_plan(host_ew, op, lines, n)
+            assert got["arg0"] == U, (lines, n, op)
+            assert (got["threads"], got["blocks"]) == \
+                (128, -(-lines * n // 4 // (128 * U))), (lines, n, op)
+    info = (ctypes.c_longlong * 6)()
+    assert host_ew.abc_ew_launch_info(4, 12, 13, info) != 0
+    assert host_ew.abc_ew_launch_info(0, 12, 1, info) != 0
+
+
+def test_division_by_multiply_and_shift():
+    """The kernels' 32-bit index split (rns_common.cuh: Div, div_by, quot),
+    mirrored: with l = ceil(log2 d) and m = ceil(2^(31+l) / d), m < 2^32
+    and (x m) >> (31 + l) = x // d for every x below 2^31, at every d up to
+    3000, at d = 2^30 - 1, 2^30 and 2^31 - 1, and at the edges x = 0, d - 1,
+    d, d + 1, 2^31 - 1 and random x."""
+    rng = np.random.default_rng(5)
+    ds = list(range(1, 3001)) + [2 ** 30 - 1, 2 ** 30, 2 ** 31 - 1] + \
+        [int(v) for v in rng.integers(3001, 2 ** 31, size=200)]
+    for d in ds:
+        l = next(i for i in range(32) if (1 << i) >= d)
+        m = -(-(1 << (31 + l)) // d)
+        assert m < 1 << 32, d
+        xs = [0, d - 1, d, d + 1, 2 ** 31 - 1] + \
+            [int(v) for v in rng.integers(0, 2 ** 31, size=20)]
+        for x in xs:
+            if x < 2 ** 31:
+                assert (x * m) >> (31 + l) == x // d, (x, d)
 
 
 def test_host_refusals(host_ew):

@@ -40,6 +40,14 @@ HOST_STUB = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "host_cuda")
 N = 256                   # the plain-vs-reference cases
 L = 5
+# (n, L kept rows, k, leading axes, the plan's kept rows a thread G) of
+# ks_mod_down on a card of one SM: G = 2 from one full load of the card
+# (2048 threads of a thread a kept row), but 1 past 2 special primes and
+# for one kept row
+MD_ROWS_CASES = [(256, 13, 1, (10,), 2), (256, 13, 1, (2,), 2),
+                 (128, 6, 2, (6,), 2), (256, 6, 2, (11,), 2),
+                 (256, 1, 1, (40,), 1), (256, 5, 3, (16,), 1),
+                 (64, 13, 1, (2,), 1)]
 
 
 @pytest.fixture
@@ -264,21 +272,35 @@ def test_tables_have_the_source_layout():
 
 # ---------------------- the kernel source, compiled for the host (g++)
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def _host_build(tmp_path_factory, sms):
     """csrc/keyswitch.cu compiled by g++ against tests/host_cuda's stub
-    runtime (a launch runs its blocks in turn, a std::thread per thread)."""
+    runtime (a launch runs its blocks in turn, a std::thread per thread),
+    on a card of `sms` SMs."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
-    lib_path = tmp_path_factory.mktemp("ks_host") / "libks_host.so"
+    lib_path = tmp_path_factory.mktemp("ks_host") / f"libks_host{sms}.so"
     src = [s for s in _build.SOURCES if s.endswith("keyswitch.cu")][0]
     subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
-                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}", src,
-                    "-o", str(lib_path)], check=True, capture_output=True)
+                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}",
+                    f"-DHOST_CUDA_SMS={sms}", src, "-o", str(lib_path)],
+                   check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     _build.bind_keyswitch(lib)
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The host build on the stub's card of an H100's 132 SMs."""
+    return _host_build(tmp_path_factory, 132)
+
+
+@pytest.fixture(scope="module")
+def host_lib_one_sm(tmp_path_factory):
+    """The host build on a card of one SM, whose plans take G > 1 kept rows
+    a thread from a few blocks."""
+    return _host_build(tmp_path_factory, 1)
 
 
 def _ptr(t):
@@ -479,8 +501,7 @@ def _host_tail(lib, x, div, tail):
     assert lib.abc_ks_mod_down_tail(
         x.data_ptr(), out.data_ptr(), div.words.data_ptr(), rows, _stride(x),
         div.Lo, div.k, n.bit_length() - 1, kk._TAILS[tail.kind],
-        tail.c.data_ptr(), c_stride, c_comp, _ptr(tail.gather),
-        _ptr(tail.sign_pos), None) == 0
+        tail.c.data_ptr(), c_stride, c_comp, tail.ginv, None) == 0
     return out
 
 
@@ -513,34 +534,126 @@ def test_tails_source_on_the_host(host_lib, n, L, k, lead, edge):
     assert torch.equal(_host_tail(host_lib, x, div, tail),
                        kk.mod_down_plain(x, div, tail))
     for g in (3, pow(3, 5, 2 * n), 2 * n - 1):
-        gather, sign = galois_gather(n, g, "cpu")
+        _, sign = galois_gather(n, g, "cpu")
         assert sign.any() and not sign.all()
-        tail = kk.Tail("rotate", prod[..., 2, :, :], gather, sign)
+        tail = kk.Tail("rotate", prod[..., 2, :, :], pow(g, -1, 2 * n))
         assert torch.equal(_host_tail(host_lib, x, div, tail),
                            kk.mod_down_plain(x, div, tail)), g
 
 
 def test_host_tail_launch_info_and_refusals(host_lib):
     """The tails launch as ks_mod_down does, instantiated by k; a tail
-    without its ciphertext, or over an odd number of rows, is refused, and
-    so is a ciphertext the wrapper cannot hand to the kernel."""
-    info = (ctypes.c_longlong * 6)()
-    for kernel in (3, 4):
-        assert host_lib.abc_ks_launch_info(kernel, 12, 2, 13, info) == 0
-        assert tuple(info[:4]) == (2, 0, 128, 12 * 8192 // 4 // 128)
-    assert host_lib.abc_ks_launch_info(5, 12, 2, 13, info) != 0
+    without its ciphertext, over an odd number of rows, or a rotation by
+    an even g^-1 or one past 2n, is refused, and so is a ciphertext the
+    wrapper cannot hand to the kernel."""
+    info = (ctypes.c_longlong * 8)()
+    for tail in (1, 2):
+        assert host_lib.abc_ks_mod_down_plan(tail, 2, 6, 2, 13, info) == 0
+        assert tuple(info[:4]) == (2, 1, 128, 12 * 8192 // 4 // 128)
+    assert host_lib.abc_ks_mod_down_plan(3, 2, 6, 2, 13, info) != 0
     assert host_lib.abc_ks_mod_down_tail(None, None, None, 2, 7 << 6, 6, 1,
-                                         6, 1, None, 0, 0, None, None,
-                                         None) != 0
+                                         6, 1, None, 0, 0, 0, None) != 0
     assert host_lib.abc_ks_mod_down_tail(None, None, None, 3, 7 << 6, 6, 1,
-                                         6, 1, 16, 0, 0, None, None,
-                                         None) != 0
+                                         6, 1, 16, 0, 0, 0, None) != 0
+    for ginv in (0, 4, 129):
+        assert host_lib.abc_ks_mod_down_tail(None, None, None, 2, 7 << 6, 6,
+                                             1, 6, 2, 16, 0, 0, ginv,
+                                             None) != 0
     _, cols, _, _ = _base(64, 3, 1)
     x = as_residues(_rand(cols, (2,), 64, 1), "cpu")
     with pytest.raises(ValueError, match="relin tail"):
         kk._tail_operand(x, kk.Tail("relin", x[:1, :3]), 3, 64)
-    with pytest.raises(ValueError, match="gather"):
-        kk._tail_operand(x, kk.Tail("rotate", x[0, :3], None, None), 3, 64)
+    with pytest.raises(ValueError, match="g\\^-1"):
+        kk._tail_operand(x, kk.Tail("rotate", x[0, :3], 0), 3, 64)
+
+
+def gather_of(n, ginv):
+    """The rotation tail's sources as csrc/keyswitch.cu (kRotate) computes
+    them from g^-1, mirrored: column j of c0^g reads c0 at s = j g^-1 mod
+    2n, at s - n negated where s >= n; ([n] sources, [n] keep-sign
+    flags)."""
+    s = (np.arange(n, dtype=np.int64) * ginv) % (2 * n)
+    return np.where(s >= n, s - n, s), s < n
+
+
+@pytest.mark.parametrize("n", [4 << i for i in range(11)])
+def test_rotation_sources_equal_galois_gather(n):
+    """The rotation tail's sources as the kernel computes them from g^-1
+    (gather_of) are galois_gather's tables for every odd g, n = 4 ..
+    4096."""
+    for g in range(1, 2 * n, 2):
+        gather, sign = galois_gather(n, g, "cpu")
+        src, keep = gather_of(n, pow(g, -1, 2 * n))
+        assert np.array_equal(src, gather.numpy()), g
+        assert np.array_equal(keep, sign.numpy()), g
+
+
+def test_rotation_sources_at_laplace_sharpening():
+    """The same at LaplaceSharpening's n = 16384 for its Galois elements
+    (3^s mod 2n for its rotation steps, all |s| <= 64, kept here whole)
+    and the column rotation's 2n - 1."""
+    n = 16384
+    for g in {pow(3, s % (n // 2), 2 * n) for s in range(-64, 65)} | \
+            {2 * n - 1}:
+        gather, sign = galois_gather(n, g, "cpu")
+        src, keep = gather_of(n, pow(g, -1, 2 * n))
+        assert np.array_equal(src, gather.numpy()), g
+        assert np.array_equal(keep, sign.numpy()), g
+
+
+def _host_md_plan(lib, tail, rows, Lo, k, n):
+    info = (ctypes.c_longlong * 8)()
+    assert lib.abc_ks_mod_down_plan(tail, rows, Lo, k, n.bit_length() - 1,
+                                    info) == 0
+    return dict(zip(("arg0", "arg1", "threads", "blocks", "blocks_per_sm",
+                     "warps_per_sm", "total_threads", "sms"), info))
+
+
+def test_mod_down_plan_choice_on_the_host(host_lib):
+    """abc_ks_mod_down_plan on the stub's card (132 SMs): two kept rows a
+    thread where a thread a kept row fills the card (270 336 quads: B=64 of
+    (8192, 6), k = 1 and 2), else one (one ciphertext at (8192, 6),
+    (16384, 13), CKKS (32768, 8, k = 2); past 2 special primes; one kept
+    row), every tail alike."""
+    for (rows, Lo, k, logn), G in {
+            (2, 6, 1, 13): 1, (128, 6, 1, 13): 2, (2, 13, 1, 14): 1,
+            (2, 8, 2, 15): 1, (128, 6, 2, 13): 2, (128, 6, 3, 13): 1,
+            (600, 1, 1, 13): 1, (22, 6, 1, 13): 2, (21, 6, 1, 13): 1}.items():
+        for tail in (0, 1, 2):
+            plan = _host_md_plan(host_lib, tail, rows, Lo, k, 1 << logn)
+            assert plan["arg1"] == G, (rows, Lo, k, logn, tail)
+            assert plan["total_threads"] == \
+                rows * -(-Lo // G) * (1 << logn) // 4
+
+
+@pytest.mark.parametrize("edge", [None, "max"])
+@pytest.mark.parametrize("n,L,k,lead,G", MD_ROWS_CASES)
+def test_mod_down_rows_on_the_host(host_lib_one_sm, n, L, k, lead, G,
+                                   edge):
+    """ks_mod_down with G kept rows a thread, the plan's choice by the
+    launch's size on a card of one SM (the specials loaded and
+    divided once for the G rows, the rotation's sources once for them):
+    alone, with the relinearization's tail and with the rotation's (g = 3
+    and 2n - 1) equal to the plain chains, on random
+    residues and on all-(q-1) inputs; 13 kept rows leave a ragged last
+    group of one row in groups of 2 and of 4."""
+    host_lib = host_lib_one_sm
+    _, cols, _, _ = _base(n, L, k)
+    rows = 2 * int(np.prod(lead))
+    plan = _host_md_plan(host_lib, 0, rows, L, k, n)
+    assert (plan["arg1"], plan["total_threads"]) == \
+        (G, rows * -(-L // G) * n // 4)
+    div = kk.Division(cols, k, "cpu")
+    x = _edge_rand(cols, lead + (2,), n, n + k, edge)
+    prod = _edge_rand(cols[:L], lead + (3,), n, n + k + 1, edge)
+    assert torch.equal(_host_mod_down(host_lib, x, div),
+                       kk.mod_down_plain(x, div))
+    tails = [kk.Tail("relin", prod)] + [
+        kk.Tail("rotate", prod[..., 0, :, :], pow(g, -1, 2 * n))
+        for g in (3, 2 * n - 1)]
+    for tail in tails:
+        assert torch.equal(_host_tail(host_lib, x, div, tail),
+                           kk.mod_down_plain(x, div, tail)), tail.kind
 
 
 @pytest.mark.parametrize("level,size", [(6, 2), (2, 3)])
@@ -570,7 +683,7 @@ def test_host_launch_info_and_refusals(host_lib):
     ks_contract 2 lanes a quad (3 digits each), both halves, at one
     ciphertext (under 256 quads an SM), and a decryption's one half, and
     the streaming kernel, a thread a quad, at B=64 and (16384, 13).
-    abc_ks_launch_info: 128 a block, ks_mod_down's instantiation by k;
+    abc_ks_mod_down_plan: 128 a block, ks_mod_down's instantiation by k;
     shapes the kernels do not take are refused."""
     one = _host_plan(host_lib, 0, 1, 6, 7, 1, 2, 13)
     assert one == {**one, "arg0": 1, "arg2": 2, "arg3": 4,
@@ -599,13 +712,13 @@ def test_host_launch_info_and_refusals(host_lib):
                      (17, 8), (33, 8)):
         assert _host_plan(host_lib, 1, 2, A, 7, 1, 1, 13)["arg0"] == lanes
     info = (ctypes.c_longlong * 10)()
-    assert host_lib.abc_ks_launch_info(1, 2 * 7, 1, 13, info) != 0
+    assert host_lib.abc_ks_mod_down_plan(3, 2, 7, 1, 13, info) != 0
     assert host_lib.abc_ks_plan(2, 1, 6, 7, 1, 2, 13, info) != 0
     assert host_lib.abc_ks_plan(1, 1, 6, 7, 1, 3, 13, info) != 0
     for k, arg in ((1, 1), (2, 2), (3, 4), (5, 16), (16, 16)):
-        assert host_lib.abc_ks_launch_info(2, 12, k, 13, info) == 0
+        assert host_lib.abc_ks_mod_down_plan(0, 2, 6, k, 13, info) == 0
         assert info[0] == arg
-    assert host_lib.abc_ks_launch_info(2, 12, 17, 13, info) != 0
+    assert host_lib.abc_ks_mod_down_plan(0, 2, 6, 17, 13, info) != 0
     assert host_lib.abc_ks_mod_down(None, None, None, 1, 23 << 13, 6, 17,
                                     13, None) != 0
     assert host_lib.abc_ks_mod_down(None, None, None, 1, 6 << 13, 6, 1, 13,
@@ -694,10 +807,10 @@ def _card_cases(scheme, n, L, k, lead, level, dev):
     cases = [
         ("ks_mod_down_relin", lambda: msd(ctx, x, kk.Tail("relin", prod)),
          lambda: msd(cpu, xc, kk.Tail("relin", prodc))),
-        ("ks_mod_down_rotate", lambda: msd(ctx, x, kk.Tail("rotate", 
-            prod[..., 1, :, :], *ctx._galois_perm(perm_g))),
+        ("ks_mod_down_rotate", lambda: msd(ctx, x, kk.Tail(
+            "rotate", prod[..., 1, :, :], ctx._galois_inv(perm_g))),
          lambda: msd(cpu, xc, kk.Tail("rotate", prodc[..., 1, :, :],
-                                             *cpu._galois_perm(perm_g)))),
+                                      cpu._galois_inv(perm_g)))),
         ("ks_decompose", lambda: lift(ctx, d), lambda: lift(cpu, dc)),
         ("ks_contract", lambda: ks(ctx, D, kb, ka),
          lambda: ks(cpu, Dc, kbc, kac)),
