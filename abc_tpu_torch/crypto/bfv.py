@@ -226,7 +226,7 @@ class BfvContext(RlweKeys):
         path."""
         v = self._dot_secret(ct)
         m, flag = rk.bfv_dec_round(v, self._dec_round)
-        if bool(flag):
+        if flag.cpu().any():
             return self._decrypt_exact(to_host(v))[0]
         return Plaintext(m)
 

@@ -231,10 +231,11 @@ def bind_rlwe(lib: ctypes.CDLL) -> None:
     lib.abc_rns_uniform.argtypes = [vp] * 4 + [i64, i32, i32, vp]
     lib.abc_ksk_compose.argtypes = [vp] * 10 + [i64, i32, i32, i32, vp]
     lib.abc_rlwe_lift.argtypes = [vp] * 6 + [i64, i32, i32, vp]
-    lib.abc_bfv_dec_round.argtypes = [vp] * 4 + [i64, i32, u32, i32, vp]
-    lib.abc_rlwe_launch_info.argtypes = [i32, i64, i32, vp]
+    lib.abc_bfv_dec_round.argtypes = [vp] * 4 + [i64, i64, i32, u32, i32,
+                                                 vp]
+    lib.abc_rlwe_plan.argtypes = [i32, i64, i32, i32, vp]
     for fn in (lib.abc_rns_uniform, lib.abc_ksk_compose, lib.abc_rlwe_lift,
-               lib.abc_bfv_dec_round, lib.abc_rlwe_launch_info):
+               lib.abc_bfv_dec_round, lib.abc_rlwe_plan):
         fn.restype = i32
 
 

@@ -14,7 +14,8 @@ and `fmt_kernel`. For the BEHZ kernels: `launch_of` and `launch_key` (which
 instantiation a launch of one mult+relin runs, as
 `behz_kernels.launch_info` reports it) and `shape_params`, the parameters
 of a measured shape; for the key-switch kernels `ks_launch_key`, for the
-elementwise ones `ew_launch_key`. Host-only text parsing; imports no
+elementwise ones `ew_launch_key`, for rlwe_lift and bfv_dec_round
+`rlwe_launch_key`. Host-only text parsing; imports no
 CUDA toolkit and no JAX.
 """
 
@@ -174,6 +175,14 @@ def ew_launch_key(name: str, info: dict) -> str:
     """The kernel key of an `elementwise_kernels.launch_info`: each op is
     instantiated by its quads a thread."""
     return f"{name}_kernel<{info['arg0']}>"
+
+
+def rlwe_launch_key(name: str, info: dict) -> str:
+    """The kernel key of an `rlwe_kernels.launch_info`: rlwe_lift is
+    instantiated by its limb rows a thread; the others are no templates."""
+    if name == "rlwe_lift":
+        return f"{name}_kernel<{info['arg0']}>"
+    return f"{name}_kernel"
 
 
 def fmt_kernel(row: dict) -> str:

@@ -327,6 +327,7 @@ def rlwe_lift(v, q, base=None, msg=None, delta=None):
     rows = _operand(v, "v", 1, torch.int8)
     R, n = q.shape[0], v.shape[-1]
     _table(q, "q", dev, (R, 1))
+    _indices("rlwe_lift", rows * R * n // 4, "output quads")
     shape = tuple(v.shape[:-1]) + (R, n)
     if base is not None:
         _operand(base, "base", 2)
@@ -354,8 +355,11 @@ def rlwe_lift(v, q, base=None, msg=None, delta=None):
 
 def bfv_dec_round(v, tab: DecRound):
     """v [..., L, n] → (m [..., n] int32, flag): bfv_dec_round_plain's
-    words; on the card the flag is an int32 [1] tensor, nonzero where a
-    coefficient lies within DEC_MARGIN of the rounding boundary."""
+    words; on the card the flag is an int32 tensor of the call's own, a
+    word for each block of its launch (flag_words), some word 1 iff a
+    coefficient lies within DEC_MARGIN of the rounding boundary, every word
+    written by the one launch of the call (no memset). `flag.any()` reads
+    it on either route."""
     if v.device.type == "cpu":
         return bfv_dec_round_plain(v, tab)
     dev = v.device
@@ -366,33 +370,49 @@ def bfv_dec_round(v, tab: DecRound):
                          f"{tab.L}")
     _table(tab.words, "dec_round", dev, (L * DEC_REC,))
     rows = v.numel() // (L * n)
+    _indices("bfv_dec_round", rows * n, "coefficients")
     m = torch.empty(tuple(v.shape[:-2]) + (n,), dtype=torch.int32,
                     device=dev)
-    flag = torch.empty(1, dtype=torch.int32, device=dev)
+    flag = torch.empty(flag_words(rows * n), dtype=torch.int32, device=dev)
     _launch("bfv_dec_round", dev, lambda lib, st: lib.abc_bfv_dec_round(
         v.data_ptr(), tab.words.data_ptr(), m.data_ptr(), flag.data_ptr(),
-        rows, L, tab.t, n.bit_length() - 1, st))
+        flag.numel(), rows, L, tab.t, n.bit_length() - 1, st))
     return m, flag
 
 
-# abc_rlwe_launch_info's kernel numbers
+def flag_words(coeffs: int) -> int:
+    """Words of bfv_dec_round's flag for `coeffs` coefficients: its
+    launch's blocks, 64 coefficients each (128 threads, 8 lanes a quad)."""
+    return -(-coeffs // 64)
+
+
+def _indices(name, count, what):
+    """Raises unless `count` fits the kernels' 32-bit indices."""
+    if count >= 1 << 31:
+        raise ValueError(f"{name}: {count} {what} pass the kernel's 32-bit "
+                         f"indices (< 2^31)")
+
+
+# abc_rlwe_plan's kernel numbers
 _INFO_KERNEL = {"rns_uniform": 0, "ksk_compose": 1, "rlwe_lift": 2,
                 "bfv_dec_round": 3}
 
 
-def launch_info(name: str, lines: int, n: int) -> dict:
-    """The launch a kernel makes for `lines` output rows of n (every output
-    axis but the last, multiplied; bfv_dec_round: its [n] rows) with its
-    theoretical occupancy on the current card: threads a block, blocks,
-    blocks and warps an SM."""
+def launch_info(name: str, rows: int, R: int, n: int) -> dict:
+    """The launch a kernel makes for `rows` rows of R limbs of n (the
+    output rows flattened for rns_uniform and ksk_compose; v's rows and the
+    limbs lifted to for rlwe_lift; v's rows and L for bfv_dec_round) with
+    its theoretical occupancy on the current card: arg0 and arg1 (rlwe_lift:
+    limb rows a thread and groups of them a source row; else 0), threads a
+    block, blocks, blocks and warps an SM."""
     import ctypes
     from abc_tpu_torch.ops import _build
     lib = _build.load()
     info = (ctypes.c_longlong * 6)()
-    err = lib.abc_rlwe_launch_info(_INFO_KERNEL[name], lines,
-                                   n.bit_length() - 1, info)
+    err = lib.abc_rlwe_plan(_INFO_KERNEL[name], rows, R, n.bit_length() - 1,
+                            info)
     if err != 0:
-        raise RuntimeError(f"abc_rlwe_launch_info({name}): "
+        raise RuntimeError(f"abc_rlwe_plan({name}): "
                            f"{lib.abc_cuda_error_string(err).decode()}")
     return dict(zip(("arg0", "arg1", "threads", "blocks", "blocks_per_sm",
                      "warps_per_sm"), info))

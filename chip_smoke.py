@@ -69,16 +69,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
    and (16384, 13), config 2's relinearization key (α = 6), k = 2 at
    (8192, 6 + 2), CKKS (32768, 8 + 2, k = 2) with a relin and a Galois key,
    LaplaceSharpening's 19 keys in one batch, encryption of 1 and 64
-   ciphertexts at (8192, 6), decryption at (8192, 6) and (16384, 13); on
-   key words 0 and 0xFFFFFFFF, residues all 0 and all q-1, lifts of ±19
-   and 0, and fractions exactly 2^31 + d (d = 0, ±4095: flag, ±4096: none)
-   next to m = t-1 and 3. At the timed cases warm and cold time, the
-   profiler's device time, the bound (bytes, or the operations of
-   rlwe_ops: the Threefry rounds counted, all integer operations over the
-   SM's issue rate and the multiply-adds over their pipe's), the plain
-   version's time, the
-   compiler's census and the launch with its occupancy
-   (abc_rlwe_launch_info).
+   ciphertexts at (8192, 6), of one at (16384, 13) and CKKS's at (32768,
+   8), decryption at (8192, 6) and (16384, 13); on key words 0 and
+   0xFFFFFFFF, residues all 0 and all q-1, lifts of ±19 and 0, and
+   fractions exactly 2^31 + d (d = 0, ±4095: flag, ±4096: none) next to m
+   = t-1 and 3. At the timed cases warm and cold time, the profiler's
+   device time, the bound (bytes, or the operations of rlwe_ops: the
+   Threefry rounds counted, all integer operations over the SM's issue
+   rate and the multiply-adds over their pipe's), the plain version's
+   time, the library call's (torch.remainder, the lifts without base or
+   message), the compiler's census and the launch with its occupancy
+   (abc_rlwe_plan); no SASS CALL and no spill in rlwe_lift's and
+   bfv_dec_round's instantiations; a flagged then an unflagged
+   bfv_dec_round, and a graph of one call: one kernel node, no memset.
 2e. The K9 kernels: ks_mod_down_relin and ks_mod_down_rotate (ks_mod_down
    of csrc/keyswitch.cu with the relinearization's adds, or the rotation's
    signed coefficient gather of c0 and its add, in the same launch) and the
@@ -282,6 +285,7 @@ JAX or of abc_tpu. Prints the card's name and power limit, a
 {"kernels": [...]} JSON line, and last {"ok": true, "device": {...}}.
 """
 
+import functools
 import hashlib
 import json
 import os
@@ -411,17 +415,20 @@ KS_TIMED = KS_SHAPES[:6]
 # LaplaceSharpening's n=16384; switching keys: config 2's relin key (α = 6),
 # k = 2 (α = 3), CKKS config 5's relin and a Galois key at n=32768, and
 # LaplaceSharpening's 19 keys in one batch; the encryption of 1 and of 64
-# ciphertexts; decryption at n=8192 and n=16384.
+# ciphertexts; decryption at n=8192 and n=16384; the encryption of one
+# ciphertext at LaplaceSharpening's n=16384 (config 6) and CKKS config 5's
+# at n=32768 (plaintext rows added to c0, no Δ).
 RLWE = tuple(NO_RLWE)
 RLWE_CASES = [
     ("pk", "bfv", 8192, 6, 1, 0, 0), ("pk", "bfv", 16384, 13, 1, 0, 0),
     ("keys", "bfv", 8192, 6, 1, 1, 0), ("keys", "bfv", 8192, 6, 2, 1, 0),
     ("keys", "ckks", 32768, 8, 2, 2, 0), ("keys", "bfv", 16384, 13, 1, 19, 0),
     ("enc", "bfv", 8192, 6, 1, 0, 1), ("enc", "bfv", 8192, 6, 1, 0, 64),
-    ("dec", "bfv", 8192, 6, 1, 0, 0), ("dec", "bfv", 16384, 13, 1, 0, 0)]
+    ("dec", "bfv", 8192, 6, 1, 0, 0), ("dec", "bfv", 16384, 13, 1, 0, 0),
+    ("enc", "bfv", 16384, 13, 1, 0, 1), ("enc", "ckks", 32768, 8, 2, 0, 1)]
 RLWE_KEYS19 = RLWE_CASES[5]
-RLWE_TIMED = [RLWE_CASES[i] for i in (0, 2, 5, 6, 7, 8, 9)]
-RLWE_EDGE_CASES = [RLWE_CASES[i] for i in (0, 2, 4, 6, 8, 9)]
+RLWE_TIMED = [RLWE_CASES[i] for i in (0, 2, 5, 6, 7, 8, 9, 10, 11)]
+RLWE_EDGE_CASES = [RLWE_CASES[i] for i in (0, 2, 4, 6, 8, 9, 10, 11)]
 # where the kernels line reads each: LaplaceSharpening's key build (its 19
 # keys' uniform halves, error lift and composition) and decryption
 RLWE_JSON = {"rns_uniform": (RLWE_KEYS19, "rns_uniform"),
@@ -1046,6 +1053,15 @@ def words(out):
     return out
 
 
+def dec_words(out):
+    """bfv_dec_round's (m, flag) as one tensor: m's words, then 1 if any
+    word of the flag is set, else 0 (the kernel's flag has a word a block,
+    the plain version's one)."""
+    m, flag = out
+    return torch.cat([m.reshape(-1),
+                      (flag != 0).any().to(torch.int32).reshape(1)])
+
+
 def behz_calls(bz, batch, edge, dev):
     """{kernel name: (kernel call, plain call, bytes, integer
     multiply-adds)} for the BEHZ kernels at one shape: the operands of one
@@ -1419,6 +1435,19 @@ def boundary_residues(qs, tab, m, d):
     raise AssertionError(f"no integer at fraction offset {d}")
 
 
+@functools.lru_cache(maxsize=None)
+def rlwe_context(scheme, n, L, k, dev):
+    """The context whose operands rlwe_calls reads, made once for all the
+    cases and edges of one shape (phase 2d empties the cache)."""
+    from abc_tpu_torch.crypto.bfv import BfvContext
+    from abc_tpu_torch.crypto.ckks import CkksContext, CkksParams
+    from abc_tpu_torch.crypto.params import BfvParams
+    if scheme == "bfv":
+        return BfvContext(BfvParams.create(n, seed=11, ks_digits=k), dev)
+    return CkksContext(CkksParams.create(n, levels=L, seed=3, ks_digits=k),
+                       dev)
+
+
 def rlwe_calls(what, scheme, n, L, k, K, B, edge, dev):
     """{label: (kernel, kernel call, plain call, bytes, integer operations,
     output rows, library call or None)} of the key generation, encryption
@@ -1434,19 +1463,15 @@ def rlwe_calls(what, scheme, n, L, k, K, B, edge, dev):
     (decryption) fractions exactly 2^31 + d for d in 0, ±4095, ±4096 next
     to m = t-1 and 3 ("half": the plain call also holds the flag and the
     rounding to what d gives). The bound counts each operand and result
-    once, and the operations of rlwe_ops. No single PyTorch call draws
-    Threefry words, composes a key, lifts with these adds or rounds by
-    this fixed-point sum."""
-    from abc_tpu_torch.crypto.bfv import BfvContext
-    from abc_tpu_torch.crypto.ckks import CkksContext, CkksParams
-    from abc_tpu_torch.crypto.params import BfvParams
+    once, and the operations of rlwe_ops. Launch shape: (rows, limbs) as
+    rlwe_kernels.launch_info takes them. The lift without base or message
+    is one PyTorch call, torch.remainder(v[..., None, :], q) (int8 against
+    an int32 [R, 1] column: canonical int32 residues), its library call;
+    no single PyTorch call draws Threefry words, composes a key, lifts with
+    the encryption's adds or rounds by this fixed-point sum."""
     from abc_tpu_torch.ops import rlwe_kernels as rk
     from abc_tpu_torch.ops.modarith import as_residues
-    if scheme == "bfv":
-        ctx = BfvContext(BfvParams.create(n, seed=11, ks_digits=k), dev)
-    else:
-        ctx = CkksContext(CkksParams.create(n, levels=L, seed=3,
-                                            ks_digits=k), dev)
+    ctx = rlwe_context(scheme, n, L, k, dev)
     p = ctx.params
     check(p.L == L, f"{scheme} n={n}: L={p.L}")
     rng = np.random.default_rng(n + L + K + B)
@@ -1485,6 +1510,15 @@ def rlwe_calls(what, scheme, n, L, k, K, B, edge, dev):
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
+    def lift_call(v, qv):
+        """The lift alone of v over qv's moduli, and its library call."""
+        return ("rlwe_lift", lambda: rk.rlwe_lift(v, qv),
+                lambda: rk.rlwe_lift_plain(v, qv),
+                v.numel() + 4 * v.numel() * qv.shape[0] + nbytes(qv),
+                v.numel() * qv.shape[0] * rlwe_ops("rlwe_lift"),
+                (v.numel() // n, qv.shape[0]),
+                lambda: torch.remainder(v[..., None, :], qv))
+
     qs, full = p.data_primes, p.coeff_modulus
     q_q, ratio_q = ctx.ntt_q.q_col, ctx.ntt_q.ratio
     q_f, ratio_f = ctx.ntt_qp.q_col, ctx.ntt_qp.ratio
@@ -1514,7 +1548,7 @@ def rlwe_calls(what, scheme, n, L, k, K, B, edge, dev):
             "rns_uniform", lambda: rk.rns_uniform(keys, q, ratio, n),
             lambda: rk.rns_uniform_plain(keys, q, n),
             4 * rows * R * n + nbytes(keys, q, ratio),
-            rows * R * n * rlwe_ops("rns_uniform"), rows * R, None)
+            rows * R * n * rlwe_ops("rns_uniform"), (rows, R), None)
         calls["ksk_compose"] = (
             "ksk_compose",
             lambda: rk.ksk_compose(keys, e, s, q, ratio, fac, target, perms),
@@ -1523,39 +1557,32 @@ def rlwe_calls(what, scheme, n, L, k, K, B, edge, dev):
             + nbytes(keys, q, ratio, fac, target, perms),
             R * n * A * sum(rlwe_ops("ksk_compose", target=(
                 None if fac is None else "relin" if j == 0 else "galois"))
-                for j in range(K or 1)), rows * R, None)
+                for j in range(K or 1)), (rows, R), None)
         for label, (v, qv) in lifts.items():
-            calls[label] = (
-                "rlwe_lift", lambda v=v, qv=qv: rk.rlwe_lift(v, qv),
-                lambda v=v, qv=qv: rk.rlwe_lift_plain(v, qv),
-                v.numel() + 4 * v.numel() * qv.shape[0] + nbytes(qv),
-                v.numel() * qv.shape[0] * rlwe_ops("rlwe_lift"),
-                v.numel() // n * qv.shape[0], None)
+            calls[label] = lift_call(v, qv)
     if what == "enc":
-        t = p.plain_modulus
         base = residues(qs, (B, 2), 9)
         e = small((B, 2, n))
         u = small((B, n), -1, 2)
-        m = torch.from_numpy(rng.integers(0, t, size=(B, n))).to(
-            torch.int32).to(dev)
-        if edge == "max":
-            m.fill_(t - 1)
-        elif edge == "zero":
-            m.zero_()
-        delta = ctx._delta
+        if scheme == "bfv":
+            t = p.plain_modulus
+            m = torch.from_numpy(rng.integers(0, t, size=(B, n))).to(
+                torch.int32).to(dev)
+            if edge == "max":
+                m.fill_(t - 1)
+            elif edge == "zero":
+                m.zero_()
+            delta, times = ctx._delta, BEHZ_IMAD["shoup"]
+        else:                                   # CKKS: plaintext rows
+            m, delta, times = residues(qs, (B,), 12), None, 0
         calls["lift_encrypt"] = (
             "rlwe_lift",
             lambda: rk.rlwe_lift(e, q_q, base, m, delta),
             lambda: rk.rlwe_lift_plain(e, q_q, base, m, delta),
             e.numel() + 2 * 4 * B * 2 * L * n + nbytes(m, delta, q_q),
             B * 2 * L * n * rlwe_ops("rlwe_lift")
-            + B * L * n * np.array([BEHZ_IMAD["shoup"], 1]), B * 2 * L,
-            None)
-        calls["lift_u"] = (
-            "rlwe_lift", lambda: rk.rlwe_lift(u, q_q),
-            lambda: rk.rlwe_lift_plain(u, q_q),
-            u.numel() + 4 * B * L * n + nbytes(q_q),
-            B * L * n * rlwe_ops("rlwe_lift"), B * L, None)
+            + B * L * n * np.array([times, 1]), (B * 2, L), None)
+        calls["lift_u"] = lift_call(u, q_q)
     if what == "dec":
         tab = ctx._dec_round
 
@@ -1573,7 +1600,7 @@ def rlwe_calls(what, scheme, n, L, k, K, B, edge, dev):
             calls[label] = (
                 "bfv_dec_round", lambda: rk.bfv_dec_round(v, tab), plain,
                 4 * (L + 1) * n + nbytes(tab.words),
-                n * rlwe_ops("bfv_dec_round", L), 1, None)
+                n * rlwe_ops("bfv_dec_round", L), (1, L), None)
 
         if edge == "half":
             t = p.plain_modulus
@@ -1588,11 +1615,64 @@ def rlwe_calls(what, scheme, n, L, k, K, B, edge, dev):
     return calls
 
 
+def dec_round_flags(dev):
+    """On the card, through rk.bfv_dec_round on one table: a flagged call
+    (a coefficient 4095 units of 2^-32 from the rounding boundary), then
+    an unflagged one (4096 units), both read after the second ran; each
+    flag and word as the plain call gives them. Then one call captured in
+    a CUDA graph: its node
+    list must be one bfv_dec_round kernel and no other node (no memset),
+    and replays of it alternately on flagged and unflagged words read as
+    the plain calls."""
+    from abc_tpu_torch.crypto.params import BfvParams
+    from abc_tpu_torch.ops import rlwe_kernels as rk
+    from abc_tpu_torch.utils.timing import graph_of
+    p = BfvParams.create(16384, seed=11)
+    qs, t = p.data_primes, p.plain_modulus
+    tab = rk.DecRound(qs, t, dev)
+    vs = {}
+    for flagged, (mv, d) in ((True, (t - 1, 4095)), (False, (3, -4096))):
+        v = torch.zeros((len(qs), p.n), dtype=torch.int32)
+        v[:, 1:2] = boundary_residues(qs, tab, mv, d)
+        v[:, -1:] = boundary_residues(qs, tab, 3, 4096)
+        vs[flagged] = v.to(dev)
+    got = [rk.bfv_dec_round(vs[True], tab), rk.bfv_dec_round(vs[False], tab)]
+    torch.cuda.synchronize()
+    for (m, flag), flagged in zip(got, (True, False)):
+        want_m, want_flag = rk.bfv_dec_round_plain(vs[flagged], tab)
+        check(torch.equal(m, want_m) and bool(flag.any()) == flagged
+              == bool(want_flag), f"bfv_dec_round's {'un' * (not flagged)}"
+              f"flagged call read flag {flag.tolist()} (words equal: "
+              f"{torch.equal(m, want_m)})")
+    x = vs[True].clone()
+    g = graph_of(lambda y: rk.bfv_dec_round(y, tab), x)
+    want = {**{nm: 0 for nm in launch_counts()}, "bfv_dec_round": 1}
+    kernels, other, others = graph_census(
+        g, want, "a graph of one bfv_dec_round call")
+    check(kernels == 1 and not other and not others,
+          f"a graph of one bfv_dec_round call holds {kernels} kernel nodes, "
+          f"other kernels {other} and other nodes {others}")
+    for flagged in (False, True, False):
+        x.copy_(vs[flagged])
+        g.replay()
+        torch.cuda.synchronize()
+        want_m, want_flag = rk.bfv_dec_round_plain(vs[flagged], tab)
+        check(torch.equal(g.output[0], want_m)
+              and bool(g.output[1].any()) == bool(want_flag) == flagged,
+              f"a replay of bfv_dec_round on {'un' * (not flagged)}flagged "
+              f"words read flag {g.output[1].tolist()}")
+    return f"flagged then unflagged, one kernel node a graph ({others})"
+
+
 def phase_rlwe(dev):
     """Phase 2d: every key generation, encryption and decryption kernel
-    against its plain version at RLWE_CASES and on edge inputs; times,
-    launches and compiler census at the timed cases. Returns the kernels
-    line's stats (RLWE_JSON's cases)."""
+    against its plain version at RLWE_CASES and on edge inputs (the plain
+    lifts also against their library call); times, launches and compiler
+    census at the timed cases; no 64-bit division or remainder routine
+    (SASS CALL) and no spill in any instantiation of rlwe_lift and
+    bfv_dec_round; a flagged then an unflagged bfv_dec_round, and a graph of
+    one (dec_round_flags). Returns the kernels line's stats (RLWE_JSON's
+    cases)."""
     from abc_tpu_torch.ops import _build
     from abc_tpu_torch.ops import kernel_census as kc
     from abc_tpu_torch.ops import rlwe_kernels as rk
@@ -1600,6 +1680,15 @@ def phase_rlwe(dev):
     table = kc.kernel_table(_build.build_log, _build.sass(), prefix=kc.RLWE)
     check(len(table) >= 4, f"no ptxas / SASS record of the rlwe kernels: "
           f"{sorted(table)}")
+    for key, row in table.items():
+        if key.startswith(("rlwe_lift", "bfv_dec_round")):
+            check(row.get("CALL") == 0 and row.get("spill_stores") == 0
+                  and row.get("spill_loads") == 0,
+                  f"{key}: SASS CALL {row.get('CALL')}, spills "
+                  f"{row.get('spill_stores')}/{row.get('spill_loads')} B")
+    print("  rlwe_lift, bfv_dec_round: " + "; ".join(
+        f"{key} {kc.fmt_kernel(row)}" for key, row in table.items()
+        if key.startswith(("rlwe_lift", "bfv_dec_round"))), flush=True)
     stats = {name: {"max_abs_err": 0} for name in RLWE}
     cases = [(case, None) for case in RLWE_CASES] + \
         [(case, edge) for case in RLWE_EDGE_CASES for edge in ("zero", "max")
@@ -1609,17 +1698,20 @@ def phase_rlwe(dev):
         at = f"{what} {scheme} n={n} L={L} k={k} keys={K} " \
             f"ciphertexts={B}" + (f" edge {edge}" if edge else "")
         line = []
-        for label, (name, kern, plain, n_bytes, ops, lines, library) in \
+        for label, (name, kern, plain, n_bytes, ops, shape, library) in \
                 rlwe_calls(*case, edge, dev).items():
-            got, want = words(kern()), words(plain())
+            read = dec_words if name == "bfv_dec_round" else words
+            got, want = read(kern()), read(plain())
             torch.cuda.synchronize()
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
             check(torch.equal(got, want), f"{label} != plain at {at}")
+            check(library is None or torch.equal(library(), got),
+                  f"{label}'s library call != the kernel at {at}")
             if edge is not None or case not in RLWE_TIMED:
                 continue
-            info = rk.launch_info(name, lines, n)
-            key = f"{name}_kernel"
+            info = rk.launch_info(name, *shape, n)
+            key = kc.rlwe_launch_key(name, info)
             row = table.get(key, {})
             check(row, f"no ptxas / SASS record of {key}")
             st = {}
@@ -1634,6 +1726,8 @@ def phase_rlwe(dev):
                 stats[name].update(st, launch={"kernel": key, **info, **row})
         print(f"  {at}: every rlwe kernel = plain"
               + ("" if not line else "; " + "; ".join(line)), flush=True)
+    rlwe_context.cache_clear()
+    print(f"  bfv_dec_round: {dec_round_flags(dev)}", flush=True)
     return stats
 
 

@@ -1,13 +1,14 @@
 // Host stand-in for the CUDA runtime: a launch runs its blocks one after
 // another on one std::thread per thread of a block; __syncthreads is a
-// std::barrier of the block, threadIdx is thread_local and __shared__
-// storage is static (one block runs at a time).
+// std::barrier of the block (__syncthreads_or also ORs the predicates),
+// threadIdx is thread_local and __shared__ storage is static (one block
+// runs at a time).
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
-#include <cstring>
 #include <thread>
 #include <vector>
 #define __global__
@@ -24,6 +25,17 @@ static thread_local dim3 threadIdx;
 static dim3 blockIdx, blockDim, gridDim;
 static std::barrier<>* block_barrier = nullptr;
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+// the barrier with the OR of every thread's predicate
+inline int __syncthreads_or(int predicate) {
+  static std::atomic<int> any{0};
+  if (predicate) any.fetch_or(1);
+  __syncthreads();
+  const int got = any.load();
+  __syncthreads();
+  if (threadIdx.x == 0) any.store(0);
+  __syncthreads();
+  return got;
+}
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return uint4{x, y, z, w};
@@ -74,11 +86,6 @@ inline cudaError_t cudaGetDevice(int* device) {
 }
 inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
   *value = HOST_CUDA_SMS;
-  return cudaSuccess;
-}
-inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes,
-                                   cudaStream_t) {
-  std::memset(p, value, bytes);
   return cudaSuccess;
 }
 template <typename K>

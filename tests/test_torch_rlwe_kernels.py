@@ -217,21 +217,41 @@ def test_ckks_encrypt_decrypt_match_reference():
 
 # ---------------------- the kernel source, compiled for the host (g++)
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def _host_build(tmp_path_factory, sms):
     """csrc/rlwe.cu compiled by g++ against tests/host_cuda's stub runtime
-    (a launch runs its blocks in turn, a std::thread per thread)."""
+    (a launch runs its blocks in turn, a std::thread per thread), on a
+    card of `sms` SMs."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
-    lib_path = tmp_path_factory.mktemp("rlwe_host") / "librlwe_host.so"
+    lib_path = tmp_path_factory.mktemp("rlwe_host") / f"librlwe_host{sms}.so"
     src = [s for s in _build.SOURCES if s.endswith("rlwe.cu")][0]
     subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
-                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}", src,
-                    "-o", str(lib_path)], check=True, capture_output=True)
+                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}",
+                    f"-DHOST_CUDA_SMS={sms}", src, "-o", str(lib_path)],
+                   check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     _build.bind_rlwe(lib)
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The host build on the stub's card of an H100's 132 SMs."""
+    return _host_build(tmp_path_factory, 132)
+
+
+@pytest.fixture(scope="module")
+def host_lib_one_sm(tmp_path_factory):
+    """The host build on a card of one SM, whose lift plans take two limb
+    rows a thread from 2048 output quads."""
+    return _host_build(tmp_path_factory, 1)
+
+
+def _plan(lib, kernel, rows, R, n):
+    info = (ctypes.c_longlong * 6)()
+    assert lib.abc_rlwe_plan(kernel, rows, R, n.bit_length() - 1, info) == 0
+    return tuple(info)
 
 
 def _ptr(t):
@@ -268,14 +288,18 @@ def _host_lift(lib, v, q, base=None, msg=None, delta=None):
 
 
 def _host_dec_round(lib, v, tab):
+    """One call of the host build: (m, flag), the flag 1 if any of its
+    words is set, else 0. Every word is written by the call (they start at
+    7), each 0 or 1."""
     L, n = v.shape[-2:]
     m = torch.empty(tuple(v.shape[:-2]) + (n,), dtype=torch.int32)
-    flag = torch.full((1,), 7, dtype=torch.int32)     # zeroed by the call
+    flag = torch.full((rk.flag_words(v.numel() // L),), 7, dtype=torch.int32)
     assert lib.abc_bfv_dec_round(v.data_ptr(), tab.words.data_ptr(),
-                                 m.data_ptr(), flag.data_ptr(),
+                                 m.data_ptr(), flag.data_ptr(), flag.numel(),
                                  v.numel() // (L * n), L, tab.t,
                                  n.bit_length() - 1, None) == 0
-    return m, flag
+    assert set(flag.tolist()) <= {0, 1}
+    return m, flag.any().to(torch.int32)
 
 
 # key words of every kind: all-zero, all-one and the known-answer keys of
@@ -340,14 +364,26 @@ def test_compose_source_on_the_host(host_lib, n, K, A, R, kinds, edge):
 
 
 @pytest.mark.parametrize("n,lead,R", [(4, (3,), 2), (64, (2, 2), 6),
-                                      (512, (5,), 3), (128, (3, 4), 14)])
+                                      (512, (5,), 3), (128, (3, 4), 14),
+                                      (512, (1,), 27), (64, (3,), 5),
+                                      (256, (64,), 7), (128, (2, 3), 13)])
 @pytest.mark.parametrize("form", ["lift", "base", "bfv", "ckks"])
 @pytest.mark.parametrize("edge", [None, "zero", "max"])
-def test_lift_source_on_the_host(host_lib, n, lead, R, form, edge):
+@pytest.mark.parametrize("sms", [132, 1])
+def test_lift_source_on_the_host(request, n, lead, R, form, edge, sms):
     """rlwe_lift on the host: the lift alone, with a base, and the
     encryption's two forms (Δ·m on the even rows; plaintext rows on the
     even rows); v of ±19 and 0 at random, all 0, or ±19 with base
-    and message at q-1 (every sum past q and 2q)."""
+    and message at q-1 (every sum past q and 2q). Rows 1, 3, 5, 6, 12
+    and 64 (odd counts: a last ciphertext's c0 without its c1), R from 2
+    to 27; on a card of 132 SMs every launch takes a limb row a thread, on
+    a card of one SM those of 2048 output quads or more take two (a last
+    group of one row where R is odd)."""
+    lib = request.getfixturevalue("host_lib" if sms == 132 else
+                                  "host_lib_one_sm")
+    rows = int(np.prod(lead))
+    G = _plan(lib, 2, rows, R, n)[0]
+    assert G == (2 if sms == 1 and rows * R * n // 4 >= 2048 else 1)
     moduli = gen_ntt_primes(30, R, max(n, 64))
     t = gen_ntt_primes(20, 1, max(n, 64), exclude=moduli)[0]
     q = _col(moduli)
@@ -375,19 +411,20 @@ def test_lift_source_on_the_host(host_lib, n, lead, R, form, edge):
         if form == "bfv":
             msg = torch.full_like(msg, t - 1)
     v8 = torch.from_numpy(v.astype(np.int8))
-    got = _host_lift(host_lib, v8, q, base, msg, delta)
+    got = _host_lift(lib, v8, q, base, msg, delta)
     assert torch.equal(got, rk.rlwe_lift_plain(v8, q, base, msg, delta))
 
 
 @pytest.mark.parametrize("n,L", [(4, 1), (8, 3), (64, 3), (256, 6),
-                                 (512, 13), (32, 27)])
+                                 (512, 13), (32, 27), (16, 65), (256, 40)])
 def test_dec_round_source_on_the_host(host_lib, n, L):
     """bfv_dec_round on the host against the plain version: random words,
     v = 0 and v = q-1, and columns whose fraction lies exactly 2^31 + d for
     d = 0 (rounds up), ±4095 (flag on) and ±4096 (flag off), next to m = t-1
     and m = 3 (chip_smoke.boundary_residues, from L = 3: one prime's
     product is too coarse to place a fraction to the unit), L from 1 to
-    27."""
+    65 (the kernel stages 32 limbs at a time: 40 and 65 take two and three
+    chunks)."""
     qs = gen_ntt_primes(30, L, max(n, 64))
     t = gen_ntt_primes(20, 1, max(n, 64), exclude=qs)[0]
     tab = rk.DecRound(qs, t, "cpu")
@@ -413,11 +450,13 @@ def test_dec_round_source_on_the_host(host_lib, n, L):
 
 
 @pytest.mark.parametrize("n,L,rows", [(4, 2, 3), (8, 5, 5), (64, 13, 3),
-                                      (16, 27, 2)])
+                                      (16, 27, 2), (32, 65, 3), (128, 6, 3)])
 def test_dec_round_batches_on_the_host(host_lib, n, L, rows):
     """bfv_dec_round on the host over rows of ciphertexts whose quads do not
-    fill the last warp (a warp takes 4 quads): random words with 0 and q-1
-    among them, against the plain version row by row and as one batch."""
+    fill the last warp (a warp takes 4 quads) or block (64 coefficients):
+    rows n of 12, 40, 192, 32, 96 and 384, L up to 65, random words with 0
+    and q-1 among them, against the plain version row by row and as one
+    batch."""
     qs = gen_ntt_primes(30, L, max(n, 64))
     t = gen_ntt_primes(20, 1, max(n, 64), exclude=qs)[0]
     tab = rk.DecRound(qs, t, "cpu")
@@ -432,18 +471,47 @@ def test_dec_round_batches_on_the_host(host_lib, n, L, rows):
         assert torch.equal(got_m[r], rk.bfv_dec_round_plain(x[r], tab)[0])
 
 
+@pytest.mark.parametrize("L,n,rows", [(3, 8, 1), (13, 512, 1), (6, 64, 4),
+                                      (27, 32, 5), (65, 16, 9)])
+def test_dec_round_flag_is_each_calls_own(host_lib, L, n, rows):
+    """The flag is written by the launch (no memset): a flagged call, then
+    an unflagged one on the same table, reads unflagged; the flagged
+    coefficient in the first or the last of several blocks; the words
+    equal the plain version's throughout."""
+    qs = gen_ntt_primes(30, L, 64)
+    t = gen_ntt_primes(20, 1, 64, exclude=qs)[0]
+    tab = rk.DecRound(qs, t, "cpu")
+    from chip_smoke import boundary_residues
+    near = boundary_residues(qs, tab, t - 1, 4095)
+    far = boundary_residues(qs, tab, 3, -4096)
+    for at in ((0, 1), (rows - 1, n - 1)):
+        x = torch.zeros((rows, L, n), dtype=torch.int32)
+        x[..., :1] = far
+        x[at[0], :, at[1]:at[1] + 1] = near
+        for v, flagged in ((x, True), (torch.zeros_like(x), False),
+                           (x, True), (x.roll(1, dims=-1) * 0 + far, False)):
+            got_m, got_flag = _host_dec_round(host_lib, v, tab)
+            want_m, want_flag = rk.bfv_dec_round_plain(v, tab)
+            assert torch.equal(got_m, want_m)
+            assert int(got_flag) == int(flagged) == int(want_flag)
+
+
 def test_host_launch_info_and_refusals(host_lib):
-    """abc_rlwe_launch_info: a quad a thread (bfv_dec_round: a quad's limbs
-    over 8 lanes), 128 a block; shapes the kernels do not take are
-    refused."""
+    """abc_rlwe_plan: a quad a thread (rlwe_lift: one limb row a thread
+    under a full card, two past it; bfv_dec_round: a quad's limbs over 8
+    lanes, 64 coefficients a block: its flag words), 128 a block; shapes
+    the kernels do not take are refused."""
     info = (ctypes.c_longlong * 6)()
-    for kernel in range(4):
-        assert host_lib.abc_rlwe_launch_info(kernel, 14, 13, info) == 0
-        lanes = 8 if kernel == 3 else 1
-        assert tuple(info[:4]) == (0, 0, 128, 14 * 8192 // 4 * lanes // 128)
-    assert host_lib.abc_rlwe_launch_info(3, 1, 2, info) == 0
-    assert tuple(info[:4]) == (0, 0, 128, 1)         # one quad: one warp
-    assert host_lib.abc_rlwe_launch_info(4, 14, 13, info) != 0
+    for kernel in range(3):
+        assert _plan(host_lib, kernel, 1, 14, 8192)[:4] == \
+            ((1, 14) if kernel == 2 else (0, 0)) + (128, 14 * 8192 // 4 // 128)
+    # the 19 keys' errors fill the card: two limb rows a thread
+    assert _plan(host_lib, 2, 19 * 14, 14, 16384)[:4] == \
+        (2, 7, 128, 19 * 14 * 7 * 4096 // 128)
+    for rows, L, n in ((1, 13, 16384), (3, 2, 4), (5, 6, 8192)):
+        assert _plan(host_lib, 3, rows, L, n)[:4] == \
+            (0, 0, 128, rk.flag_words(rows * n))
+    assert host_lib.abc_rlwe_plan(4, 14, 13, 13, info) != 0
     assert host_lib.abc_rns_uniform(None, None, None, None, 1, 3, 1,
                                     None) != 0
     assert host_lib.abc_rns_uniform(None, None, None, None, 1, 1 << 20, 13,
@@ -453,8 +521,15 @@ def test_host_launch_info_and_refusals(host_lib):
                                     None) != 0          # factors, no targets
     assert host_lib.abc_rlwe_lift(None, None, None, 1, None, None, 1, 3, 13,
                                   None) != 0            # delta, no message
-    assert host_lib.abc_bfv_dec_round(None, None, None, None, 1, 3, 1, 13,
-                                      None) != 0        # t < 2
+    assert host_lib.abc_bfv_dec_round(None, None, None, None, 128, 1, 3, 1,
+                                      13, None) != 0    # t < 2
+    assert host_lib.abc_bfv_dec_round(None, None, None, None, 127, 1, 3,
+                                      65537, 13, None) != 0   # a word short
+    assert host_lib.abc_bfv_dec_round(None, None, None, None, 1 << 25,
+                                      1 << 18, 3, 65537, 13,
+                                      None) != 0   # 2^31 coefficients
+    assert host_lib.abc_rlwe_lift(None, None, None, None, None, None,
+                                  1 << 18, 1, 15, None) != 0  # 2^31 quads
 
 
 # --------------------------------------------------------------- the routing
@@ -521,18 +596,18 @@ def test_tables_have_the_source_layout():
     ("dec", "bfv", 8192, 6, 1, 0, 0), ("dec", "bfv", 16384, 13, 1, 0, 0)])
 def test_kernels_equal_plain_on_cuda(cuda, what, scheme, n, L, k, K, B):
     """Each kernel on the card against its plain version (on the card) at
-    chip_smoke.py phase 2d's shapes, one launch per call."""
+    chip_smoke.py phase 2d's shapes, one launch per call (the
+    scale-and-round's flag read as set where any of its words is)."""
     import chip_smoke
     for label, (name, kern, plain, *_rest) in chip_smoke.rlwe_calls(
             what, scheme, n, L, k, K, B, None, cuda).items():
         before = rk.launches[name]
-        got, want = kern(), plain()
+        read = chip_smoke.dec_words if name == "bfv_dec_round" else \
+            chip_smoke.words
+        got, want = read(kern()), read(plain())
         torch.cuda.synchronize()
         assert rk.launches[name] == before + 1, label
-        got, want = (got, want) if isinstance(got, tuple) else \
-            ((got,), (want,))
-        for g, w in zip(got, want):
-            assert torch.equal(g.cpu(), w.cpu()), label
+        assert torch.equal(got.cpu(), want.cpu()), label
 
 
 @pytest.mark.gpu
