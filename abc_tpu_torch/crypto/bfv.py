@@ -511,7 +511,8 @@ class BfvContext(RlweKeys):
                 acc.shape, dtype=torch.int32, device=acc.device)
             for h in (0, 1):
                 mesh.psum_mod(acc[..., h, :, :], q_full, axis,
-                              out=summed[..., h, :, :])
+                              out=summed[..., h, :, :],
+                              ratio=self.ntt_qp.ratio)
             acc = summed
         out = self._mod_switch_down(self.ntt_qp.inv(acc), tail)
         return out if tail is not None else (out[..., 0, :, :],

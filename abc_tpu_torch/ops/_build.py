@@ -216,9 +216,11 @@ def bind_mesh(lib: ctypes.CDLL) -> None:
     view = [vp] + [i64] * 3
     lib.abc_dist_ntt_combine.argtypes = [i32] + view * 2 + [i32] + view + \
         [vp, vp, i64] + [vp] * 3 + [i64] + [i32] * 5 + [vp]
-    lib.abc_rns_psum_mod.argtypes = [i32] + view + [vp, i64, i64, vp, i64] + \
-        [i32] * 3 + [vp]
-    for fn in (lib.abc_dist_ntt_combine, lib.abc_rns_psum_mod):
+    lib.abc_rns_psum_mod.argtypes = [i32] + view + [vp, i64, i64, vp, vp,
+                                                    i64] + [i32] * 3 + [vp]
+    lib.abc_mesh_plan.argtypes = [i32, i64, i32, i32, i32, vp]
+    for fn in (lib.abc_dist_ntt_combine, lib.abc_rns_psum_mod,
+               lib.abc_mesh_plan):
         fn.restype = i32
 
 

@@ -15,6 +15,10 @@ Operands are read and written where they lie: [..., D, L, C] with the
 leading axes collapsing to one stride, the coefficients consecutive, every
 row 16-byte aligned and a multiple of 4 words from the next (mesh.scatter's
 views, a chunk of a shard's columns, a shard axis moved behind the rows).
+The kernels split their indices in 32 bits: an operand of 2^31 quads or
+more (x's for a combine, the output's for a psum) is refused.
+`launch_info` reads a launch's plan (pairs a thread, shards unrolled) from
+the library without launching.
 """
 
 from __future__ import annotations
@@ -25,6 +29,10 @@ import torch
 from abc_tpu_torch.ops.modarith import in_chain, t64
 
 launches = {"dist_ntt_combine": 0, "rns_psum_mod": 0}
+# abc_mesh_plan's kernel kinds
+_PLAN_KIND = {"combine": 0, "combine_rank": 1, "psum": 2, "psum_wide": 3}
+# the kernels index quads in 32 bits
+INDEX_LIMIT = 1 << 31
 
 
 # ---------------------------------------------------------- plain versions
@@ -64,7 +72,8 @@ def combine_plain(x, w, q, t_sh, forward, partner=None, d0=0, u=None):
 def psum_plain(x, q):
     """Σ over the shard axis (dim -3) of int32 residues x mod q (q a column
     broadcasting against x's last two dims); int64 words x (the sums an
-    all_reduce made) reduced mod q."""
+    all_reduce made, in [0, 2^63): there the kernel's reduction of the
+    words as uint64 and torch.remainder agree) reduced mod q."""
     if x.dtype == torch.int64:
         return torch.remainder(x, q.to(torch.int64)).to(torch.int32)
     return t64.sum_mod(x, q, dim=-3)
@@ -112,6 +121,34 @@ def _cols(C, what):
     return C.bit_length() - 1
 
 
+def _indexed(words, what):
+    """Raises unless `words` words are fewer than 2^31 quads."""
+    if words // 4 >= INDEX_LIMIT:
+        raise ValueError(f"{what}: {words // 4} quads, the kernel indexes "
+                         f"fewer than 2^31")
+
+
+def launch_info(kind: str, rows: int, D: int, L: int, C: int) -> dict:
+    """The launch a mesh kernel makes for `rows` rows of [D, L, C] (kind
+    "combine": the LocalComm combine over D shards; "combine_rank": a
+    rank's, D = 1; "psum": the sum of D shards' residues; "psum_wide": the
+    rank form, D = 1) with its theoretical occupancy on the current card:
+    arg0 (the combine's butterfly pairs a thread, else 1), arg1 (the
+    psum's shards a thread loads before its first add, 0 for chunks of 8;
+    else 0), threads a block, blocks, blocks and warps an SM."""
+    import ctypes
+    from abc_tpu_torch.ops import _build
+    lib = _build.load()
+    info = (ctypes.c_longlong * 6)()
+    err = lib.abc_mesh_plan(_PLAN_KIND[kind], rows, D, L,
+                            _cols(C, "launch_info"), info)
+    if err != 0:
+        raise RuntimeError(f"abc_mesh_plan({kind}): "
+                           f"{lib.abc_cuda_error_string(err).decode()}")
+    return dict(zip(("arg0", "arg1", "threads", "blocks", "blocks_per_sm",
+                     "warps_per_sm"), info))
+
+
 def combine_args(x, w, wsh, q, t_sh, forward, partner=None, d0=0,
                  u=None, out=None):
     """(output, a function of the output tensor giving
@@ -127,6 +164,10 @@ def combine_args(x, w, wsh, q, t_sh, forward, partner=None, d0=0,
     D = x.shape[-3] if local else 1
     L, C = x.shape[-2], x.shape[-1]
     logc = _cols(C, "dist_ntt_combine")
+    _indexed(x.numel(), "dist_ntt_combine")
+    if local and D % (2 * t_sh):
+        raise ValueError(f"dist_ntt_combine: {D} shards do not split into "
+                         f"pairs d, d ^ {t_sh}")
     lead = x.dim() - (3 if local else 2)
     if not local and (partner.shape != x.shape or partner.device != dev or
                       partner.dtype != torch.int32):
@@ -190,10 +231,11 @@ def dist_ntt_combine(x, tw, q, t_sh, forward, partner=None, d0=0, u=None,
     return res
 
 
-def psum_args(x, q, out=None):
+def psum_args(x, q, out=None, ratio=None):
     """(output, a function of the output tensor giving abc_rns_psum_mod's
     arguments but the stream) of one call; raises unless the kernel takes
-    its operands."""
+    its operands (int64 words need `ratio`). The host build of the tests
+    calls the source with them."""
     dev = x.device
     wide = x.dtype == torch.int64
     if x.dtype not in (torch.int32, torch.int64) or \
@@ -205,6 +247,7 @@ def psum_args(x, q, out=None):
         tuple(x.shape[-2:])
     L, n = shape[-2], shape[-1]
     logn = _cols(n, "rns_psum_mod")
+    _indexed(int(np.prod(shape, dtype=np.int64)), "rns_psum_mod")
     if out is None:
         out = torch.empty(shape, dtype=torch.int32, device=dev)
     elif tuple(out.shape) != shape or out.device != dev or \
@@ -215,24 +258,31 @@ def psum_args(x, q, out=None):
     vx = _view(x, "x", lead, not wide)
     vo = _view(out, "out", lead, False)
     _table(q, "q", dev, L)
+    if wide:
+        _table(ratio, "ratio", dev, L, torch.int64)
     return out, lambda o: (int(wide), x.data_ptr(), *vx[1:], o.data_ptr(),
-                           vo[1], vo[3], q.data_ptr(), vx[0],
+                           vo[1], vo[3], q.data_ptr(),
+                           ratio.data_ptr() if wide else None, vx[0],
                            1 if wide else x.shape[-3], L, logn)
 
 
 @in_chain("psum_mod")
-def rns_psum_mod(x, q, out=None):
+def rns_psum_mod(x, q, out=None, ratio=None):
     """Σ over the shard axis of residues x [..., D, L, n] (int32) mod q,
     [..., L, n]; or int64 words x [..., L, n], the sums an all_reduce made,
-    reduced mod q (q [L, 1]). Into `out` where given (a view, written at
-    its strides on the card; filled by a copy on the CPU)."""
+    reduced mod q (q [L, 1]; on the card `ratio`, q's [L] floor(2^64 / q)
+    words as NttContext.ratio holds them, is required). The words must lie
+    in [0, 2^63), as sums of residues do: there the kernel, which reduces
+    them as uint64 by the ratio, and psum_plain (torch.remainder) agree.
+    Into `out` where given (a view, written at its strides on the card;
+    filled by a copy on the CPU)."""
     if x.device.type == "cpu":
         r = psum_plain(x, q)
         return r if out is None else out.copy_(r)
     if x.device.type != "cuda":
         raise ValueError(f"mesh kernels take CPU or CUDA tensors, got "
                          f"{x.device}")
-    res, args = psum_args(x, q, out)
+    res, args = psum_args(x, q, out, ratio)
     from abc_tpu_torch.ops import _build
     _build.launch(launches, "rns_psum_mod", x.device,
                   lambda lib, s: lib.abc_rns_psum_mod(*args(res), s))

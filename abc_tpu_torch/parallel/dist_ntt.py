@@ -35,10 +35,11 @@ stage and ntt_inv scales by n⁻¹ itself.
 
 An exchange stage's combine is one launch of the mesh kernel
 (ops/mesh_kernels.py: dist_ntt_combine; its plain version on the CPU).
-Under LocalComm the kernel reads each shard's partner in place at shard
-d XOR t_sh: the exchange is its addressing, and one launch takes every
-shard. Under DistComm the partner is the block a batch_isend_irecv
-received.
+Under LocalComm the kernel takes a butterfly pair d, d XOR t_sh a thread,
+both shards read in place: the exchange is its addressing, one launch
+takes every shard, and the pair's one twiddle (both shards' tables hold
+it, checked in __init__) makes one product for both outputs. Under
+DistComm the partner is the block a batch_isend_irecv received.
 
 Exchange pipelining: an exchange stage's butterfly is elementwise over the
 local [L, S] block, so the block splits into `pipeline_chunks` independent
@@ -100,6 +101,13 @@ class DistNttContext:
                 idx = m + d // (D // m)
                 for i, tab in enumerate((fwd_tw, fwd_sh, inv_tw, inv_sh)):
                     cross[i, d, s] = tab[:, idx]
+            # the pair d, d ^ t_sh (t_sh = D / 2m < D / m) shares d // (D/m),
+            # so its twiddle: the LocalComm combine reads it once a pair
+            pos = np.arange(D)
+            if not np.array_equal(cross[:, pos, s],
+                                  cross[:, pos ^ (D >> (s + 1)), s]):
+                raise AssertionError(f"stage {s}: a butterfly pair's shards "
+                                     f"hold different twiddles")
         # local-stage tables: shard d's size-S stage loop reads the stage-m
         # block from global indices [m·(D+d), m·(D+d)+m), packed at [m, 2m)
         loc = np.zeros((4, D, L, S), dtype=np.uint32)

@@ -30,8 +30,9 @@ Collectives find the shard axis at dim=-3 (psum, axis_index).
 Residues are int32 below 2^30. psum is the mesh kernel rns_psum_mod
 (ops/mesh_kernels.py): under LocalComm it adds the shards' residues mod q
 along the shard axis; on a rank an int64 all_reduce sums them (any mesh
-fits) and the kernel reduces each sum mod q once (the reference splits
-uint32 words into 16-bit halves instead; all give the canonical words).
+fits: the sums stay below 2^63) and the kernel reduces each sum mod q once
+by q's ratio words, which the caller passes (the reference splits uint32
+words into 16-bit halves instead; all give the canonical words).
 
 Each mesh keeps a census of the collectives it ran, by the reference's kind
 names (parallel/report.py reads it): ops and the bytes one shard puts on
@@ -79,7 +80,7 @@ class LocalComm:
     def local_slice(self, mesh, axis, size) -> slice:
         return slice(0, size)
 
-    def psum_mod(self, mesh, x, q, axis, out):
+    def psum_mod(self, mesh, x, q, axis, out, ratio):
         return mk.rns_psum_mod(x, q, out)
 
     def world_count(self, mesh) -> int:
@@ -153,11 +154,11 @@ class DistComm:
         c = mesh.coord[axis]
         return slice(c * chunk, (c + 1) * chunk)
 
-    def psum_mod(self, mesh, x, q, axis, out):
+    def psum_mod(self, mesh, x, q, axis, out, ratio):
         import torch.distributed as dist
         wide = x.to(torch.int64)
         dist.all_reduce(wide, group=mesh.groups[axis])
-        return mk.rns_psum_mod(wide, q, out)
+        return mk.rns_psum_mod(wide, q, out, ratio)
 
     def ppermute_start(self, mesh, x, axis, pairs):
         import torch.distributed as dist
@@ -252,15 +253,19 @@ class Mesh:
 
     # --- collectives -------------------------------------------------------
     def psum_mod(self, x: torch.Tensor, q: torch.Tensor, axis: str,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out: Optional[torch.Tensor] = None,
+                 ratio: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Σ over the shards of `axis` of residues x < q, reduced mod q (q
         an [L, 1] column of x's last two dims): one launch of the mesh
         kernel (ops/mesh_kernels.py: rns_psum_mod) over the shard axis, or
-        on a rank over the words an int64 all_reduce summed. Into `out`
-        where given (a view of the result's shape)."""
+        on a rank over the words an int64 all_reduce summed, reduced by
+        q's ratio words ([L] floor(2^64 / q), NttContext.ratio: a rank on
+        the card needs them; a device table, so that a capture copies
+        nothing from the host). Into `out` where given (a view of the
+        result's shape)."""
         per_shard = x.numel() // (self.shape[axis] if self.is_local else 1)
         self.count("all-reduce", per_shard * 8)
-        return self.comm.psum_mod(self, x, q, axis, out)
+        return self.comm.psum_mod(self, x, q, axis, out, ratio)
 
     def ppermute_start(self, x: torch.Tensor, axis: str,
                        pairs: Sequence[Tuple[int, int]]):

@@ -339,7 +339,7 @@ def run_mesh_kernels(n: int = 256, limbs: int = 3, D: int = 8,
                                          f"forward={forward}")
                 checked += 1
     wide = blocks.to(torch.int64).sum(dim=0)
-    if not torch.equal(mk.rns_psum_mod(wide, q).cpu(),
+    if not torch.equal(mk.rns_psum_mod(wide, q, ratio=dist.ctx.ratio).cpu(),
                        mk.psum_plain(blocks.cpu(), qh)):
         raise AssertionError("rns_psum_mod (rank form) != plain")
     return {"n": n, "L": limbs, "D": D, "combines_checked": checked,

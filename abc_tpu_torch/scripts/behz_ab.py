@@ -178,14 +178,15 @@ def baseline_packer(directory: str):
 
 
 def build_baseline(directory: str, source: str = "behz.cu",
-                   bind=_build.bind_behz) -> tuple:
+                   bind=_build.bind_behz, name=None) -> tuple:
     """DIR/<source> built as this package builds csrc/ (nvcc, sm_90a, ptxas
-    -v) and bound by `bind`: (library, ptxas output, SASS)."""
+    -v) and bound by `bind`: (library, ptxas output, SASS). The library's
+    file is named by `name`, else by the directory."""
     out_dir = os.path.join(_build.BUILD_DIR, "baseline")
     os.makedirs(out_dir, exist_ok=True)
     # one file a directory: ctypes loads a path once a process
-    so = os.path.join(out_dir, f"lib{source.split('.')[0]}_"
-                      f"{os.path.basename(os.path.normpath(directory))}.so")
+    name = name or os.path.basename(os.path.normpath(directory))
+    so = os.path.join(out_dir, f"lib{source.split('.')[0]}_{name}.so")
     nvcc = _build._nvcc()
     run = subprocess.run([nvcc] + _build.NVCC_FLAGS + [
         "-shared", f"-I{directory}", "-o", so,

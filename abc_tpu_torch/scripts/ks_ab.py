@@ -88,19 +88,20 @@ def takes_ginv(lib) -> bool:
     return hasattr(lib, "abc_ks_mod_down_plan")
 
 
-def in_turns(launches: dict, match: str, rounds: int):
+def in_turns(launches: dict, match, rounds: int):
     """The profiler's device µs of each build's launch() (behz_ab.device_us:
-    every kernel whose name holds `match`), warm and cold, read in turns
-    (the builds in order, then in reverse) `rounds` times: ({build: {"warm":
-    [...], "cold": [...]}}, their medians). A profile that lost its kernel
-    records reads None and is left out of the median."""
+    every kernel whose name holds `match`, or match[build] where it is a
+    dict), warm and cold, read in turns (the builds in order, then in
+    reverse) `rounds` times: ({build: {"warm": [...], "cold": [...]}},
+    their medians). A profile that lost its kernel records reads None and
+    is left out of the median."""
     which = list(launches)
     times = {w: {"warm": [], "cold": []} for w in which}
     for _ in range(rounds):
         for w in which + which[::-1]:
             for temp in ("warm", "cold"):
-                us, _ = device_us(launches[w], match=match,
-                                  cold=temp == "cold")
+                us, _ = device_us(launches[w], match=match[w] if isinstance(
+                    match, dict) else match, cold=temp == "cold")
                 times[w][temp].append(us)
     med = {w: {t: statistics.median(x for x in v if x is not None)
                for t, v in ts.items() if any(x is not None for x in v)}

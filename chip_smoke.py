@@ -3795,6 +3795,13 @@ MESH_CKKS_CENSUS = {**CKKS_OP_CENSUS, "dist_ntt_combine":
 # the shapes of the kernels line's K8 entries (k8_calls's labels)
 K8_JSON = {"dist_ntt_combine": "combine fwd (c) digits",
            "rns_psum_mod": "psum rank form (a)"}
+# the k8_calls forms timed here (the others are held to plain only;
+# scripts/mesh_ab.py times every form beside other builds), and the rounds
+# of the rank form's psum against torch.remainder in turns
+K8_TIMED = ("combine fwd (b)", "combine fwd (c) digits",
+            "combine inv (c) accumulators, n^-1 folded", "psum (a)",
+            "psum (d)", "psum rank form (a)", "psum D=8")
+K8_TURNS = 3
 
 
 def is_copy(kernel):
@@ -3806,26 +3813,35 @@ def is_copy(kernel):
 
 def k8_calls(dev, edge=None):
     """{label: (kernel, kernel call, plain call, bytes, integer
-    multiply-adds, library call or None, shape)} of the mesh kernels (K8)
+    multiply-adds, library call or None, shape, operands)} of the mesh
+    kernels (K8)
     at the mesh paths' shapes, their operands where the paths read them:
     the combine of the distributed NTT (b) (MESH_NTT: [D, L, S] a view of
-    one polynomial), of the CKKS op's digits (c) ([L digits, D, L+1, S]:
-    the lift's output with the digit axis moved in front, the largest
-    transform of the op) and its accumulators' last inverse stage with n^-1
-    folded, written as [D, 2, L+1, S]; the psum of the limb-sharded key
-    switch (a) (MESH_BFV: one half of [limb, 2, L+1, n]) into its half of
-    the summed pair, over D = 8 shards of MESH_NTT's blocks, and the rank
-    form on the int64 sums an all_reduce of (a)'s four shards makes. With
-    0 and q-1 among random residues, or every word q-1 (`edge` "max"). The
-    bound counts each input once (a combine reads each word twice, as x
-    and as a partner), each output once, the tables, and a Shoup product
-    (3 multiply-adds) a coefficient where one is made. The rank form's
+    one polynomial; a butterfly pair a thread), of the CKKS op's digits (c)
+    ([L digits, D, L+1, S]: the lift's output with the digit axis moved in
+    front, the largest transform of the op; two pairs a thread) and its
+    accumulators' last inverse stage with n^-1 folded, written as [D, 2,
+    L+1, S]; a rank's combine at (b)'s shape, one shard with its partner's
+    block, on the u side (forward) and the v side (the last inverse
+    stage); the psum of the limb-sharded key switch (a) (MESH_BFV: one
+    half of [limb, 2, L+1, n]) into its half of the summed pair, and of
+    the mesh hamming (d) (one half of [MESH_BATCH, limb, 2, L+1, n]), over
+    D = 1, 2, 4 and 8 shards of MESH_NTT's blocks (each unrolled form of
+    the shard loop), and the rank form on the int64 sums an
+    all_reduce of (a)'s four shards makes. With 0 and q-1 among random
+    residues, or every word q-1 (`edge` "max"). The bound counts each input
+    once, each output once, the tables, and a Shoup product (3
+    multiply-adds) a coefficient pair of a combine (the LocalComm form
+    makes one for both sides, a rank one for its side). The rank form's
     library call is torch.remainder, which computes its int64 residues in
-    one call; nothing else has one."""
+    one call; nothing else has one. `operands`: ("combine", args, kwargs) of
+    mesh_kernels.combine_args or ("psum", args, kwargs) of psum_args, the
+    kernel call's (scripts/mesh_ab.py launches other builds with them)."""
     from abc_tpu_torch.crypto.ckks import CkksParams
     from abc_tpu_torch.crypto.ntt import NttContext
     from abc_tpu_torch.crypto.numthy import gen_ntt_primes
     from abc_tpu_torch.ops import mesh_kernels as mk
+    from abc_tpu_torch.ops.modarith import ratio_table
     from abc_tpu_torch.parallel.dist_ntt import DistNttContext
     from abc_tpu_torch.parallel.mesh import coeff_mesh
 
@@ -3858,8 +3874,31 @@ def k8_calls(dev, edge=None):
             lambda: mk.combine_plain(x, tw[0], dist.q_col, t_sh, forward,
                                      u=None if u is None else u[0]),
             4 * 2 * words + nbytes(*tw, dist.q_col, *(u or ())),
-            3 * words, None, ["forward" if forward else "inverse"]
-            + list(x.shape))
+            3 * words // 2 * (2 if u else 1),
+            None, ["forward" if forward else "inverse"] + list(x.shape),
+            ("combine", (x, *tw, dist.q_col, t_sh, forward),
+             {"u": u, "out": out}))
+
+    def rank_combine(label, dist, b, x, d0, forward):
+        """One shard of x at position d0 with its partner's block, as a
+        rank combines them (stage 0)."""
+        t_sh = dist.D // 2
+        tw = tuple(t[d0] for t in (b["fwd"] if forward else b["inv"])[0])
+        u = None if forward else b["n_inv"]
+        xs, ps = x[d0].contiguous(), x[d0 ^ t_sh].contiguous()
+        words = xs.numel()
+        calls[label] = (
+            "dist_ntt_combine",
+            lambda: mk.dist_ntt_combine(xs, tw, dist.q_col, t_sh, forward,
+                                        partner=ps, d0=d0, u=u),
+            lambda: mk.combine_plain(xs, tw[0], dist.q_col, t_sh, forward,
+                                     partner=ps, d0=d0,
+                                     u=None if u is None else u[0]),
+            4 * 3 * words + nbytes(*tw, dist.q_col, *(u or ())),
+            3 * words, None, ["rank", d0, "forward" if forward else
+                              "inverse"] + list(xs.shape),
+            ("combine", (xs, *tw, dist.q_col, t_sh, forward),
+             {"partner": ps, "d0": d0, "u": u}))
 
     # (b) the distributed NTT's forward, one [L, n] polynomial over D
     n, D, L = MESH_NTT["n"], MESH_NTT["D"], MESH_NTT["L"]
@@ -3867,8 +3906,11 @@ def k8_calls(dev, edge=None):
     dist = DistNttContext(NttContext(n, moduli, dev), D)
     mesh = coeff_mesh(D, device=dev)
     b = dist.bind(mesh)
-    combine("combine fwd (b)", dist, b,
-            mesh.scatter(residues(moduli, (), n, 1), "coeff", dim=-1), True)
+    poly = mesh.scatter(residues(moduli, (), n, 1), "coeff", dim=-1)
+    combine("combine fwd (b)", dist, b, poly, True)
+    rank_combine("combine rank fwd (b) u side", dist, b, poly, 0, True)
+    rank_combine("combine rank inv (b) v side, n^-1 folded", dist, b, poly,
+                 D // 2, False)
     # (c) the CKKS op's digit transform and its accumulators' last stage
     p = CkksParams.create(MESH_CKKS["n"], levels=MESH_CKKS["levels"],
                           seed=MESH_CKKS["seed"])
@@ -3892,6 +3934,7 @@ def k8_calls(dev, edge=None):
     primes = gen_ntt_primes(30, MESH_BFV["limbs"] + 1, n_b, exclude=[t])
     q = torch.tensor(primes, dtype=torch.int32, device=dev).reshape(-1, 1)
     q64 = q.to(torch.int64)
+    ratio = ratio_table(primes, dev)
     part = residues(primes, (MESH_LIMB, 2), n_b, 4)
     summed = torch.empty((2, len(primes), n_b), dtype=torch.int32,
                          device=dev)
@@ -3901,19 +3944,37 @@ def k8_calls(dev, edge=None):
         lambda: mk.rns_psum_mod(part[:, 0], q, out=summed[0]),
         lambda: mk.psum_plain(part[:, 0], q),
         4 * (MESH_LIMB + 1) * words + nbytes(q), 0, None,
-        ["local", MESH_LIMB, len(primes), n_b])
+        ["local", 1, MESH_LIMB, len(primes), n_b],
+        ("psum", (part[:, 0], q), {"out": summed[0]}))
+    # (d) the mesh hamming's: one half of [batch, limb, 2, L+1, n] into its
+    # half of the summed [batch, 2, L+1, n]
+    acc_d = residues(primes, (MESH_BATCH, MESH_LIMB, 2), n_b, 6)
+    summed_d = torch.empty((MESH_BATCH, 2, len(primes), n_b),
+                           dtype=torch.int32, device=dev)
+    calls["psum (d)"] = (
+        "rns_psum_mod",
+        lambda: mk.rns_psum_mod(acc_d[:, :, 0], q, out=summed_d[:, 0]),
+        lambda: mk.psum_plain(acc_d[:, :, 0], q),
+        4 * (MESH_LIMB + 1) * MESH_BATCH * words + nbytes(q), 0, None,
+        ["local", MESH_BATCH, MESH_LIMB, len(primes), n_b],
+        ("psum", (acc_d[:, :, 0], q), {"out": summed_d[:, 0]}))
     wide = part[:, 0].to(torch.int64).sum(dim=0)
     calls["psum rank form (a)"] = (
-        "rns_psum_mod", lambda: mk.rns_psum_mod(wide, q),
-        lambda: mk.psum_plain(wide, q), (8 + 4) * words + nbytes(q), 0,
-        lambda: torch.remainder(wide, q64), ["rank", len(primes), n_b])
-    # over D = 8 shards of MESH_NTT's blocks
+        "rns_psum_mod", lambda: mk.rns_psum_mod(wide, q, ratio=ratio),
+        lambda: mk.psum_plain(wide, q), (8 + 4) * words + nbytes(q, ratio),
+        5 * words, lambda: torch.remainder(wide, q64),
+        ["rank", len(primes), n_b], ("psum", (wide, q), {"ratio": ratio}))
+    # over D = 1, 2, 4 and 8 shards of MESH_NTT's blocks
     blocks = residues(moduli, (D,), n // D, 5)
-    calls["psum D=8"] = (
-        "rns_psum_mod", lambda: mk.rns_psum_mod(blocks, dist.q_col),
-        lambda: mk.psum_plain(blocks, dist.q_col),
-        4 * (D + 1) * blocks.numel() // D + nbytes(dist.q_col), 0, None,
-        ["local", D, L, n // D])
+    for shards in (1, 2, 4, D):
+        part_d = blocks[:shards]
+        calls[f"psum D={shards}"] = (
+            "rns_psum_mod",
+            lambda part_d=part_d: mk.rns_psum_mod(part_d, dist.q_col),
+            lambda part_d=part_d: mk.psum_plain(part_d, dist.q_col),
+            4 * (shards + 1) * part_d.numel() // shards +
+            nbytes(dist.q_col), 0, None, ["local", 1, shards, L, n // D],
+            ("psum", (part_d, dist.q_col), {}))
     return calls
 
 
@@ -3923,10 +3984,40 @@ def k8_calls_kernel(label):
         "rns_psum_mod"
 
 
+def k8_plan(at):
+    """mesh_kernels.launch_info of a k8_calls shape."""
+    from abc_tpu_torch.ops import mesh_kernels as mk
+    if at[0] in ("forward", "inverse"):           # the LocalComm combine
+        rows = int(np.prod(at[1:-3]))
+        return mk.launch_info("combine", rows, *at[-3:])
+    if at[0] == "rank":
+        kind = "psum_wide" if len(at) == 3 else "combine_rank"
+        rows = 1 if kind == "psum_wide" else int(np.prod(at[3:-2]))
+        return mk.launch_info(kind, rows, 1, *at[-2:])
+    return mk.launch_info("psum", *at[1:])
+
+
+def in_turns(fns, rounds=K8_TURNS):
+    """{name: median warm device ms} of each fn's kernels, the fns profiled
+    in turns (in order, then in reverse) `rounds` times; a profile that saw
+    nothing is left out."""
+    seen = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in list(fns) + list(fns)[::-1]:
+            prof = kernel_profile(fns[name])
+            if prof is not None:
+                seen[name].append(prof[0])
+    return {name: statistics.median(v) if v else None
+            for name, v in seen.items()}
+
+
 def phase_k8(dev):
-    """The mesh kernels' compiler census; the kernels against their plain
-    versions at the mesh paths' shapes (k8_calls), on random and
-    all-(q-1) inputs; times and bounds.
+    """The mesh kernels' compiler census, with no 64-bit division or
+    remainder routine (SASS CALL) and no spill in any instantiation; the
+    kernels against their plain versions at the mesh paths' shapes
+    (k8_calls), on random and all-(q-1) inputs, with each launch's plan;
+    times and bounds at K8_TIMED's forms; the rank form of the psum and
+    torch.remainder warm in turns (two readings a round).
     Returns ({kernel: the kernels line's stats}, {label: stats of the other
     shapes})."""
     from abc_tpu_torch.ops import _build
@@ -3937,11 +4028,16 @@ def phase_k8(dev):
           f"{sorted(table)}")
     for key, row in table.items():
         print(f"  {key}: {kc.fmt_kernel(row)}", flush=True)
+        check(row.get("CALL") == 0 and row.get("spill_stores") == 0
+              and row.get("spill_loads") == 0,
+              f"{key}: SASS CALL {row.get('CALL')}, spills "
+              f"{row.get('spill_stores')}/{row.get('spill_loads')} B")
     k8 = {name: {"max_abs_err": 0} for name in MESH_K}
-    extra = {}
+    extra, plans = {}, {}
     for edge in (None, "max"):
-        for label, (name, kern, plain, n_bytes, imads, library, at) in \
-                k8_calls(dev, edge).items():
+        calls = k8_calls(dev, edge)
+        for label, (name, kern, plain, n_bytes, imads, library, at, _) in \
+                calls.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
@@ -3950,13 +4046,31 @@ def phase_k8(dev):
                   + (" on all-(q-1) inputs" if edge else ""))
             if edge is not None:
                 continue
-            st = {}
+            plans[label] = k8_plan(at)
+            if label not in K8_TIMED:
+                print(f"  {label} {at} = plain; plan {plans[label]}",
+                      flush=True)
+                continue
+            st = {"launch": plans[label]}
             line = _timed(st, kern, plain, at, bound(n_bytes, imads), library)
-            print(f"  {label} {at} = plain; {line}", flush=True)
+            print(f"  {label} {at} = plain; plan {plans[label]}; {line}",
+                  flush=True)
             if K8_JSON[name] == label:
                 k8[name].update(st)
             else:
                 extra[label] = st
+        if edge is None:
+            _, kern, _, _, _, library, _, _ = calls["psum rank form (a)"]
+            turns = in_turns({"kernel": kern, "torch.remainder": library})
+            k8["rns_psum_mod"]["turns_device_ms"] = turns
+            print(f"  psum rank form (a), warm device ms in turns (median of "
+                  f"{2 * K8_TURNS} readings): " + ", ".join(
+                      f"{what} " + ("not measured" if ms is None else
+                                    f"{ms:.5f} ms")
+                      for what, ms in turns.items()), flush=True)
+    unrolled = {plans[f"psum D={d}"]["arg1"] for d in (1, 2, 4, 8)}
+    check(unrolled == {1, 2, 4, 8}, f"the psums ran the unrolled forms "
+          f"{sorted(unrolled)}, not 1, 2, 4 and 8")
     print("  every K8 form = plain on all-(q-1) inputs too", flush=True)
     return k8, extra
 

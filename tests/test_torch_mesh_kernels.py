@@ -4,18 +4,23 @@ on them and on the port's other kernels (parallel/dist_ntt.py,
 dist_ckks.py, mesh.py, dryrun.py):
 
 * csrc/mesh.cu compiled for the host with g++ against the stub runtime of
-  tests/host_cuda, every form held word-equal to its plain version: both
-  directions, both sides of a pair, D ∈ {2, 4, 8} shards on one process
-  and one shard of D ∈ {2, 4, 8} with the block it received, chunks
-  of a shard's columns and whole shards, operands read and written at
-  their strides, the folded n⁻¹, and the psum over 1-8 shards (every word
-  q − 1 at D = 8) and of all-reduced int64 words;
+  tests/host_cuda, twice: on a card of 132 SMs and of one SM, so that
+  every form the launch's size picks runs (the combine's one or two
+  butterfly pairs a thread). Every form
+  held word-equal to its plain version: both directions, a butterfly
+  pair a thread over D ∈ {2, 4, 8} shards on one process and one shard
+  of D ∈ {2, 4, 8} with the block it received, chunks of a shard's
+  columns and whole shards, operands read and written at their strides,
+  the folded n⁻¹, the psum over D ∈ {1, 2, 3, 4, 5, 8, 16} shards (its
+  unrolled and chunked loads; every word q − 1 and 0 too) and of
+  all-reduced int64 words up to 2^63 − 1;
+  the launch plans read through abc_mesh_plan;
 * the CPU route of DistNttContext (fwd, inv, negacyclic_mul at D ∈ {1, 2,
   4, 8}), DistCkksMultiplier, sharded_key_switch and the dry run's step
   against abc_tpu's np64 contexts of the same seed, with no launch;
 * the refusals, and on a CUDA device every form against its plain version.
 
-Inputs are drawn with numpy from a seed (n ∈ {64, 256}), with 0 and q − 1
+Inputs are drawn with numpy from a seed (n ∈ {64, 256, 1024}), with 0 and q − 1
 among them; residues are integers, so the tolerance is exact equality.
 """
 
@@ -39,7 +44,7 @@ from abc_tpu_torch.ops import elementwise_kernels as ew
 from abc_tpu_torch.ops import keyswitch_kernels as kk
 from abc_tpu_torch.ops import mesh_kernels as mk
 from abc_tpu_torch.ops import ntt_kernels as nk
-from abc_tpu_torch.ops.modarith import as_residues, to_host
+from abc_tpu_torch.ops.modarith import as_residues, ratio_table, to_host
 from abc_tpu_torch.parallel import make_mesh, sharded_key_switch
 from abc_tpu_torch.parallel.dist_ckks import DistCkksMultiplier
 from abc_tpu_torch.parallel.dist_ntt import DistNttContext
@@ -88,21 +93,50 @@ def _launches():
 
 # ---------------------- the kernel source, compiled for the host (g++)
 
-@pytest.fixture(scope="module")
-def host_mesh(tmp_path_factory):
+def _host_build(tmp_path_factory, sms):
     """csrc/mesh.cu compiled by g++ against tests/host_cuda's stub runtime
-    (a launch runs its blocks in turn, a std::thread per thread)."""
+    (a launch runs its blocks in turn, a std::thread per thread), on a
+    card of `sms` SMs."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
-    lib_path = tmp_path_factory.mktemp("mesh_host") / "libmesh_host.so"
+    lib_path = tmp_path_factory.mktemp("mesh_host") / \
+        f"libmesh_host{sms}.so"
     src = [s for s in _build.SOURCES if s.endswith("mesh.cu")][0]
     subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
-                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}", src,
-                    "-o", str(lib_path)], check=True, capture_output=True)
+                    "-x", "c++", f"-I{HOST_STUB}", f"-I{_build._CSRC}",
+                    f"-DHOST_CUDA_SMS={sms}", src, "-o", str(lib_path)],
+                   check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     _build.bind_mesh(lib)
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_mesh(tmp_path_factory):
+    """The host build on the stub's card of an H100's 132 SMs."""
+    return _host_build(tmp_path_factory, 132)
+
+
+@pytest.fixture(scope="module")
+def host_mesh_one_sm(tmp_path_factory):
+    """The host build on a card of one SM (a wave of 2048 threads): a
+    LocalComm combine of 2048 pairs or more takes two pairs a thread."""
+    return _host_build(tmp_path_factory, 1)
+
+
+def _lib(request, sms):
+    return request.getfixturevalue("host_mesh" if sms == 132 else
+                                   "host_mesh_one_sm")
+
+
+def _plan(lib, kind, rows, D, L, C):
+    """abc_mesh_plan's (arg0, arg1, threads a block, blocks, blocks and
+    warps an SM) of one launch."""
+    info = (ctypes.c_longlong * 6)()
+    assert lib.abc_mesh_plan(mk._PLAN_KIND[kind], rows, D, L,
+                             C.bit_length() - 1, info) == 0
+    return tuple(info)
 
 
 def _host_combine(lib, x, tw, q, t_sh, forward, partner=None, d0=0, u=None,
@@ -119,7 +153,10 @@ def _host_combine(lib, x, tw, q, t_sh, forward, partner=None, d0=0, u=None,
 
 
 def _host_psum(lib, x, q, out=None):
-    res, args = mk.psum_args(x, q, out)
+    """One call of the host build with the arguments the wrapper passes
+    (int64 words with q's ratio words, as the mesh paths pass them)."""
+    res, args = mk.psum_args(x, q, out, ratio_table(q.reshape(-1).tolist(),
+                                                    "cpu"))
     res.fill_(-1)
     assert lib.abc_rns_psum_mod(*args(res), None) == 0
     return res
@@ -223,6 +260,164 @@ def test_psum_on_the_host(host_mesh, n, D):
     big = torch.from_numpy(np.random.default_rng(D).integers(
         0, 2 ** 62, size=(L, n), dtype=np.int64))
     assert torch.equal(_host_psum(host_mesh, big, q), mk.psum_plain(big, q))
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 5, 8, 16])
+def test_psum_shards_on_the_host(host_mesh, D):
+    """The psum over D shards, a thread a quad with its shards' loads
+    unrolled whole (D = 1, 2, 4, 8), over the next unrolled form (3, 5)
+    or in chunks of 8 (16): random residues, every word q - 1 and 0, from
+    a batch of rows, into a view of a wider output."""
+    n = 64
+    moduli = gen_ntt_primes(30, 3, n)
+    q = as_residues(np.asarray(moduli, np.uint32).reshape(-1, 1), "cpu")
+    L = len(moduli)
+    M = next((m for m in (1, 2, 4, 8) if D <= m), 0)
+    for rows in (1, 11):
+        assert _plan(host_mesh, "psum", rows, D, L, n)[:4] == \
+            (1, M, 128, -(-rows * L * n // 4 // 128)), rows
+        for edge in (None, "max", "zero"):
+            x = _rand(moduli, (rows, D, L, n), rows + D, edge)
+            want = mk.psum_plain(x, q)
+            assert torch.equal(_host_psum(host_mesh, x, q), want), \
+                (rows, edge)
+        wider = torch.empty((rows, 2, L, n), dtype=torch.int32)
+        _host_psum(host_mesh, x, q, out=wider[:, 1])
+        assert torch.equal(wider[:, 1], mk.psum_plain(x, q)), rows
+
+
+def test_psum_rank_form_words_on_the_host(host_mesh):
+    """The rank form's reduction of int64 words by q's ratio: 0, q - 1,
+    k q, k q - 1, 2^62 + 1 and 2^63 - 1 (the top of the range where it and
+    torch.remainder agree) on every limb, and the all_reduce sums of 8
+    shards of every word q - 1, equal to the plain version."""
+    lib = host_mesh
+    n = 256
+    moduli = gen_ntt_primes(30, 4, n)
+    q = as_residues(np.asarray(moduli, np.uint32).reshape(-1, 1), "cpu")
+    qs = torch.tensor(moduli, dtype=torch.int64).reshape(-1, 1)
+    k = torch.from_numpy(np.random.default_rng(5).integers(
+        1, 2 ** 32, size=(len(moduli), n), dtype=np.int64))
+    picks = [torch.zeros_like(k), (qs - 1).expand_as(k), k * qs, k * qs - 1,
+             torch.full_like(k, 2 ** 62 + 1), torch.full_like(k, 2 ** 63 - 1)]
+    words = torch.stack([picks[i % len(picks)][:, i] for i in range(n)], -1)
+    for x in (words, torch.stack([words, words.flip(-1)])):
+        got = _host_psum(lib, x.contiguous(), q)
+        assert torch.equal(got, mk.psum_plain(x, q))
+        assert torch.equal(got.to(torch.int64), torch.remainder(x, qs))
+    full = _rand(moduli, (8, len(moduli), n), 0, "max")
+    wide = full.to(torch.int64).sum(dim=0)
+    assert torch.equal(_host_psum(lib, wide, q), mk.psum_plain(full, q))
+
+
+@pytest.mark.parametrize("D", [2, 4, 8])
+@pytest.mark.parametrize("sms", [132, 1])
+def test_pair_combine_on_the_host(request, sms, D):
+    """The LocalComm combine, a butterfly pair a thread (two pairs a thread
+    where a thread a pair would fill the card: on one SM from 2048 pairs),
+    over every stage's t_sh of both directions, the inverse's last with
+    n⁻¹ folded, from a batch read at mesh.scatter's strides into its own
+    tensor and into a view with the shard axis moved behind the rows; and
+    one shard a rank with its partner's block, in two chunks of its
+    columns. Each equal to the plain chain."""
+    lib = _lib(request, sms)
+    n = 1024
+    dist, moduli = _dist(n, D)
+    mesh = coeff_mesh(D, device="cpu")
+    b = dist.bind(mesh)
+    L, S = len(moduli), n // D
+    x = mesh.scatter(_rand(moduli, (2, 3, L, n), D), "coeff", dim=-1)
+    pairs = x.numel() // 8
+    U = 2 if pairs >= sms * 2048 else 1
+    assert _plan(lib, "combine", 6, D, L, S)[:4] == \
+        (U, 0, 128, -(-pairs // (128 * U)))
+    if sms == 1:
+        assert U == 2
+    for forward in (True, False):
+        for s, t_sh, tw, u in _stages(dist, b, forward):
+            want = mk.combine_plain(x, tw[0], dist.q_col, t_sh, forward,
+                                    u=None if u is None else u[0])
+            got = _host_combine(lib, x, tw, dist.q_col, t_sh, forward, u=u)
+            assert torch.equal(got, want), (forward, s)
+            moved = torch.empty((D, 2, 3, L, S), dtype=torch.int32)
+            _host_combine(lib, x, tw, dist.q_col, t_sh, forward, u=u,
+                          out=moved.movedim(0, 2))
+            assert torch.equal(moved.movedim(0, 2), want), (forward, s)
+            for d0 in (0, D - 1):
+                rt = tuple(t[d0] for t in tw)
+                part = x[:, :, d0 ^ t_sh].contiguous()
+                res = torch.empty(x[:, :, d0].shape, dtype=torch.int32)
+                for c, pc, o in zip(x[:, :, d0].chunk(2, -1),
+                                    part.chunk(2, -1), res.chunk(2, -1)):
+                    _host_combine(lib, c, rt, dist.q_col, t_sh, forward,
+                                  partner=pc.contiguous(), d0=d0, u=u,
+                                  out=o)
+                assert torch.equal(res, want[:, :, d0]), (forward, s, d0)
+
+
+def test_pair_shards_share_their_twiddle():
+    """The pair form reads one twiddle a butterfly pair: in every stage's
+    tables (forward, inverse, the last inverse's w·n⁻¹, their companions)
+    shards d and d ^ t_sh hold the same words."""
+    for D in (2, 4, 8, 16):
+        dist, _ = _dist(256, D)
+        b = dist.bind(coeff_mesh(D, device="cpu"))
+        pos = torch.arange(D)
+        for forward in (True, False):
+            for s, t_sh, tw, _ in _stages(dist, b, forward):
+                for t in tw:
+                    assert torch.equal(t, t[pos ^ t_sh]), (D, forward, s)
+
+
+def test_mesh_plan_and_index_refusals_on_the_host(host_mesh):
+    """abc_mesh_plan at the mesh paths' shapes on 132 SMs: the psums of a
+    key switch's half (4 shards of [9, 8192]), of the mesh hamming's (4
+    rows of it) and of D = 8 blocks of [8, 4096] a thread a quad with 4,
+    4 and 8 shards' loads unrolled; the rank forms a thread a quad; the
+    LocalComm combine a pair a thread at (b), two at (c)'s
+    digits (295 k pairs fill the card). Shapes the kernels do not take
+    are refused by the query, allocating nothing: an odd D for the
+    LocalComm combine, more than one shard for a rank's form, 2^31 quads
+    or more; and by the wrappers before any pointer is read."""
+    assert _plan(host_mesh, "psum", 1, 4, 9, 8192)[:4] == (1, 4, 128, 144)
+    assert _plan(host_mesh, "psum", 4, 4, 9, 8192)[:4] == (1, 4, 128, 576)
+    assert _plan(host_mesh, "psum", 1, 8, 8, 4096)[:4] == (1, 8, 128, 64)
+    assert _plan(host_mesh, "psum_wide", 1, 1, 9, 8192)[:4] == \
+        (1, 0, 128, 144)
+    assert _plan(host_mesh, "combine", 1, 8, 8, 4096)[:4] == (1, 0, 128, 256)
+    assert _plan(host_mesh, "combine", 8, 8, 9, 4096)[:4] == \
+        (2, 0, 128, 1152)
+    assert _plan(host_mesh, "combine_rank", 3, 1, 9, 2048)[:4] == \
+        (1, 0, 128, 3 * 9 * 512 // 128)
+    info = (ctypes.c_longlong * 6)()
+    for kind, rows, D, L, logc in ((0, 1, 3, 8, 12),      # odd D
+                                   (1, 1, 2, 8, 12),      # a rank's 2 shards
+                                   (3, 1, 4, 8, 12),
+                                   (2, 1 << 20, 8, 8, 12),   # 2^33 quads
+                                   (0, 1 << 12, 8, 64, 12),  # 2^31 quads
+                                   (2, 1 << 31, 1, 1, 2),
+                                   (4, 1, 1, 1, 2),       # no such kind
+                                   (2, 1, 1, 1, 1)):      # n = 2
+        assert host_mesh.abc_mesh_plan(kind, rows, D, L, logc, info) != 0, \
+            (kind, rows, D, L, logc)
+    meta = torch.empty((1 << 12, 8, 64, 4096), dtype=torch.int32,
+                       device="meta")
+    q = torch.empty((64, 1), dtype=torch.int32, device="meta")
+    w = torch.empty((8, 64, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        mk.combine_args(meta, w, w, q, 4, True)
+    with pytest.raises(ValueError, match="2\\^31"):     # out: 2^31 quads
+        mk.psum_args(meta.reshape(1 << 15, 1, 64, 4096).expand(
+            1 << 15, 2, 64, 4096), q)
+    moduli = gen_ntt_primes(30, 2, 64)
+    qc = as_residues(np.asarray(moduli, np.uint32).reshape(-1, 1), "cpu")
+    wide = _rand(moduli, (2, 64), 1).to(torch.int64)
+    with pytest.raises(ValueError, match="table ratio"):
+        mk.psum_args(wide, qc)
+    res, args = mk.psum_args(wide, qc, ratio=ratio_table(moduli, "cpu"))
+    call = list(args(res))
+    call[9] = None                                  # no ratio words
+    assert host_mesh.abc_rns_psum_mod(*call, None) != 0
 
 
 def test_host_refusals(host_mesh):
@@ -381,8 +576,9 @@ def test_sharded_key_switch_and_dry_run_step_match_np64(dp, limb):
                                    (8192, 4, 8)])
 def test_every_form_equals_plain_on_cuda(cuda, n, D, L):
     """The combine over every stage of both directions (all shards in one
-    launch; one shard with a received block, in 2 chunks) and the psum in
-    both forms on the card, each against its plain version."""
+    launch, a butterfly pair a thread; one shard with a received block, in
+    2 chunks) and the psum in both forms over 1, 2, 4 and D shards on the
+    card, each against its plain version."""
     moduli = gen_ntt_primes(30, L, n)
     dist = DistNttContext(NttContext(n, moduli, cuda), D)
     mesh = coeff_mesh(D, device=cuda)
@@ -410,8 +606,10 @@ def test_every_form_equals_plain_on_cuda(cuda, n, D, L):
                 assert torch.equal(res.cpu(), want[:, d0]), (forward, d0)
     q = dist.q_col
     for edge in (None, "max"):
-        acc = _rand(moduli, (D, L, n // D), 3, edge).to(cuda)
-        want = mk.psum_plain(acc.cpu(), q.cpu())
-        assert torch.equal(mk.rns_psum_mod(acc, q).cpu(), want)
-        wide = acc.to(torch.int64).sum(dim=-3)
-        assert torch.equal(mk.rns_psum_mod(wide, q).cpu(), want)
+        for shards in (1, 2, 4, D):
+            acc = _rand(moduli, (shards, L, n // D), 3, edge).to(cuda)
+            want = mk.psum_plain(acc.cpu(), q.cpu())
+            assert torch.equal(mk.rns_psum_mod(acc, q).cpu(), want)
+            wide = acc.to(torch.int64).sum(dim=-3)
+            assert torch.equal(mk.rns_psum_mod(
+                wide, q, ratio=dist.ctx.ratio).cpu(), want)
