@@ -42,7 +42,8 @@ Layout (module for module the reference's):
   crypto/noise.py      — circuit noise analysis, auto-chosen parameter sets
   circuits.py          — DSL source generators for the benchmark programs
   cli.py, __main__.py  — `python -m abc_tpu_torch <benchmark> <out.csv>`
-  utils/profiling.py   — PhaseTimer, ProfilingFactory, device_trace
+  utils/profiling.py   — SpanRecorder (a program's spans), DeviceStages,
+                         ProfilingFactory, device_trace
   convert.py           — context_from_reference, ckks_context_from_reference:
                          a reference context's state (numpy arrays, plain
                          values) → a port context

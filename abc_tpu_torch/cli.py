@@ -23,14 +23,14 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
-from typing import Callable, Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from abc_tpu_torch.parser import Parser
 from abc_tpu_torch.passes.pipeline import (
     CompileOptions, Compiler, input_types_from_ast,
 )
 from abc_tpu_torch.runtime.executor import RuntimeVisitor
+from abc_tpu_torch.utils.profiling import SpanRecorder
 
 
 def _workload(name: str) -> Tuple[str, str, str, CompileOptions]:
@@ -126,12 +126,14 @@ def _workload(name: str) -> Tuple[str, str, str, CompileOptions]:
 
 
 def run_benchmark(name: str, backend: str = "bfv", slots: int = 1024,
-                  runs: int = 1, device="cuda",
-                  auto_params: bool = False) -> Dict[str, float]:
+                  runs: int = 1, device="cuda", auto_params: bool = False,
+                  tracer: Optional[SpanRecorder] = None) -> Dict[str, float]:
     """Run one workload through the per-op executor (not the whole-program
-    graph of runtime/jit_executor.py) and time its four phases on the host
-    clock, the device drained at the end of each. `device` is where the bfv
-    backend evaluates; the dummy backend is host-only and does not read it."""
+    graph of runtime/jit_executor.py) and time its four phases as spans of
+    `tracer` (a fresh SpanRecorder by default), the device drained at both
+    ends of each; with the tracer activated, what the library builds inside
+    a phase is a span of it too. `device` is where the bfv backend
+    evaluates; the dummy backend is host-only and does not read it."""
     inputs_src, program_src, output_src, options = _workload(name)
     input_ast = Parser.parse(inputs_src)
     output_ast = Parser.parse(output_src)
@@ -155,53 +157,52 @@ def run_benchmark(name: str, backend: str = "bfv", slots: int = 1024,
               f"{report['he_standard_128bit']}", file=sys.stderr)
 
     import torch
-    on_card = backend == "bfv" and torch.device(device).type == "cuda"
-
-    def clock() -> float:
-        if on_card:
-            torch.cuda.synchronize(device)
-        return time.perf_counter()
+    if tracer is None:
+        tracer = SpanRecorder()
+    if backend == "bfv" and torch.device(device).type == "cuda" and \
+            torch.cuda.is_available():
+        tracer.sync = lambda: torch.cuda.synchronize(device)
 
     best: Dict[str, float] = {}
     for _ in range(max(1, runs)):
-        t0 = time.perf_counter()
-        if backend == "dummy":
-            from abc_tpu_torch.runtime.dummy import DummyCiphertextFactory
-            factory = DummyCiphertextFactory(slots)
-        elif backend == "bfv":
-            from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
-            if chosen_params is not None:
-                from abc_tpu_torch.crypto.bfv import BfvContext
-                factory = BfvCiphertextFactory(
-                    context=BfvContext(chosen_params, device))
-            else:
-                factory = BfvCiphertextFactory(slots=slots, seed=1,
-                                               device=device)
-        else:
-            raise SystemExit(f"unknown backend {backend!r}")
-        t_keygen = clock() - t0
+        with tracer.activated():
+            with tracer.span("keygen") as keygen:
+                if backend == "dummy":
+                    from abc_tpu_torch.runtime.dummy import \
+                        DummyCiphertextFactory
+                    factory = DummyCiphertextFactory(slots)
+                elif backend == "bfv":
+                    from abc_tpu_torch.runtime.bfv_backend import \
+                        BfvCiphertextFactory
+                    if chosen_params is not None:
+                        from abc_tpu_torch.crypto.bfv import BfvContext
+                        factory = BfvCiphertextFactory(
+                            context=BfvContext(chosen_params, device))
+                    else:
+                        factory = BfvCiphertextFactory(slots=slots, seed=1,
+                                                       device=device)
+                else:
+                    raise SystemExit(f"unknown backend {backend!r}")
 
-        t0 = time.perf_counter()
-        rv = RuntimeVisitor(factory, input_ast, compiled.secret_tainted)
-        t_encrypt = clock() - t0
+            with tracer.span("input_encryption") as encrypt:
+                rv = RuntimeVisitor(factory, input_ast,
+                                    compiled.secret_tainted)
 
-        t0 = time.perf_counter()
-        rv.execute_ast(compiled.ast)
-        outputs = rv.get_output(output_ast)
-        t_compute = clock() - t0
+            with tracer.span("computation") as compute:
+                rv.execute_ast(compiled.ast)
+                outputs = rv.get_output(output_ast)
 
-        t0 = time.perf_counter()
-        from abc_tpu_torch.runtime.values import AbstractCiphertext
-        decrypted = {ident: (factory.decrypt(v)
-                             if isinstance(v, AbstractCiphertext)
-                             else v.values)
-                     for ident, v in outputs}
-        t_decrypt = time.perf_counter() - t0
+            from abc_tpu_torch.runtime.values import AbstractCiphertext
+            with tracer.span("decryption") as decrypt:
+                decrypted = {ident: (factory.decrypt(v)
+                                     if isinstance(v, AbstractCiphertext)
+                                     else v.values)
+                             for ident, v in outputs}
 
-        timings = {"t_keygen": t_keygen * 1e3,
-                   "t_input_encryption": t_encrypt * 1e3,
-                   "t_computation": t_compute * 1e3,
-                   "t_decryption": t_decrypt * 1e3}
+        timings = {"t_keygen": keygen.ms,
+                   "t_input_encryption": encrypt.ms,
+                   "t_computation": compute.ms,
+                   "t_decryption": decrypt.ms}
         if not best or timings["t_computation"] < best["t_computation"]:
             best = timings
             best["_outputs"] = decrypted
@@ -234,19 +235,23 @@ def main(argv=None) -> int:
                          "the chosen set is below 128-bit security")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="write a torch.profiler Chrome trace of the run to "
-                         "DIR/trace.json (open with Perfetto)")
+                         "DIR/trace.json and the program's spans (the four "
+                         "phases, key builds, Galois tables, each "
+                         "encryption's draws and device pass) to "
+                         "DIR/spans.json (open with Perfetto)")
     args = ap.parse_args(argv)
 
     import contextlib
+    tracer = SpanRecorder()
     if args.profile:
         from abc_tpu_torch.utils.profiling import device_trace
-        trace_cm = device_trace(args.profile)
+        trace_cm = device_trace(args.profile, tracer)
     else:
         trace_cm = contextlib.nullcontext()
     with trace_cm:
         result = run_benchmark(args.benchmark, args.backend, args.slots,
                                args.runs, args.device,
-                               auto_params=args.auto_params)
+                               auto_params=args.auto_params, tracer=tracer)
     outputs = result.pop("_outputs", {})
     header = "t_keygen,t_input_encryption,t_computation,t_decryption"
     row = ",".join(f"{result[k]:.3f}" for k in header.split(","))

@@ -56,6 +56,7 @@ from abc_tpu_torch.ops import keyswitch_kernels as kk
 from abc_tpu_torch.ops import rlwe_kernels as rk
 from abc_tpu_torch.ops.modarith import as_residues, in_chain, to_host
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
+from abc_tpu_torch.utils.profiling import span
 
 _SLOT_MAP_CACHE: Dict[int, np.ndarray] = {}
 
@@ -188,19 +189,25 @@ class BfvContext(RlweKeys):
         and transformed, u·pk as one contraction of one digit with the
         public key's two halves (ks_contract), one inverse NTT of [B, 2, L,
         n], then c0 = ci0 + e0 + Δ·m and c1 = ci1 + e1 in one rlwe_lift.
-        The generator is drawn per ciphertext in the order u, e0, e1."""
+        The generator is drawn per ciphertext in the order u, e0, e1 (the
+        span `draws`; the rest is the span `device_pass`)."""
         if not pts:
             return []
-        samples = [(self._sample_ternary(), self._sample_error(),
-                    self._sample_error()) for _ in pts]
-        u = self._lift_signed(np.stack([s[0] for s in samples]), self.q_q)
-        e = self._small(np.stack([s[1:] for s in samples]))    # [B, 2, n]
-        u_ntt = self.ntt_q.fwd(u)                              # [B, L, n]
-        pre = kk.contract(u_ntt[:, None], self.pk_b_ntt[None],
-                          self.pk_a_ntt[None], self.q_q, self.ntt_q.ratio)
-        ci = self.ntt_q.inv(pre)                               # [B, 2, L, n]
-        m = torch.stack([pt.coeffs for pt in pts])             # [B, n]
-        data = rk.rlwe_lift(e, self.q_q, base=ci, msg=m, delta=self._delta)
+        with span("draws", rows=len(pts)):
+            samples = [(self._sample_ternary(), self._sample_error(),
+                        self._sample_error()) for _ in pts]
+        with span("device_pass"):
+            u = self._lift_signed(np.stack([s[0] for s in samples]),
+                                  self.q_q)
+            e = self._small(np.stack([s[1:] for s in samples]))  # [B, 2, n]
+            u_ntt = self.ntt_q.fwd(u)                            # [B, L, n]
+            pre = kk.contract(u_ntt[:, None], self.pk_b_ntt[None],
+                              self.pk_a_ntt[None], self.q_q,
+                              self.ntt_q.ratio)
+            ci = self.ntt_q.inv(pre)                         # [B, 2, L, n]
+            m = torch.stack([pt.coeffs for pt in pts])           # [B, n]
+            data = rk.rlwe_lift(e, self.q_q, base=ci, msg=m,
+                                delta=self._delta)
         return [BfvCiphertext(data[i]) for i in range(len(pts))]
 
     # --------------------------------------------------------------- decrypt

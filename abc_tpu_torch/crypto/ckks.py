@@ -55,6 +55,7 @@ from abc_tpu_torch.ops.behz_kernels import behz_tensor
 from abc_tpu_torch.ops.modarith import (as_residues, chain_range, in_chain,
                                           to_host)
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
+from abc_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -336,19 +337,22 @@ class CkksContext(RlweKeys):
         """The generator is drawn in the order u, e0, e1: u lifted
         (rlwe_lift) and transformed, u·pk as one contraction of one digit
         with the public key's two halves (ks_contract), one inverse NTT,
-        then c0 = ci0 + e0 + m and c1 = ci1 + e1 in one rlwe_lift."""
+        then c0 = ci0 + e0 + m and c1 = ci1 + e1 in one rlwe_lift (the
+        draws are the span `draws`, the rest the span `device_pass`)."""
         L = self.params.L
         if pt.level != L:
             raise RuntimeExecutionError("encrypt expects a full-level plaintext")
         q = self.q_q
-        u = self._sample_ternary()
-        e0, e1 = self._sample_error(), self._sample_error()
-        u_ntt = self.ntt_q.fwd(self._lift_signed(u, q))
-        pre = kk.contract(u_ntt[None, None], self.pk_b_ntt[None],
-                          self.pk_a_ntt[None], q, self.ntt_q.ratio)
-        ci = self.ntt_q.inv(pre[0])                              # [2, L, n]
-        data = rk.rlwe_lift(self._small(np.stack([e0, e1])), q, base=ci,
-                            msg=self._plain_dev(pt, L))
+        with span("draws", rows=1):
+            u = self._sample_ternary()
+            e0, e1 = self._sample_error(), self._sample_error()
+        with span("device_pass"):
+            u_ntt = self.ntt_q.fwd(self._lift_signed(u, q))
+            pre = kk.contract(u_ntt[None, None], self.pk_b_ntt[None],
+                              self.pk_a_ntt[None], q, self.ntt_q.ratio)
+            ci = self.ntt_q.inv(pre[0])                          # [2, L, n]
+            data = rk.rlwe_lift(self._small(np.stack([e0, e1])), q,
+                                base=ci, msg=self._plain_dev(pt, L))
         return CkksCiphertext(data, L, pt.scale)
 
     def decrypt(self, ct: CkksCiphertext) -> CkksPlaintext:

@@ -59,6 +59,7 @@ from abc_tpu_torch.ops import elementwise_kernels as ew
 from abc_tpu_torch.ops import rlwe_kernels as rk
 from abc_tpu_torch.ops.modarith import as_residues
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
+from abc_tpu_torch.utils.profiling import span
 
 _CACHE_CAP = 8
 
@@ -250,11 +251,12 @@ class RlweKeys:
 
     def materialize_keys(self, key_ids: Sequence[str]) -> Dict[str, Tuple]:
         """Device key pairs for a set of key ids ("relin" / "galois_<g>"),
-        building every missing one in one batch."""
+        building every missing one in one batch (a span `build_keys`)."""
         missing = [kid for kid in dict.fromkeys(key_ids)
                    if kid not in self._keys]
         if missing:
-            self._keys.update(self._build_keys_batch(missing))
+            with span("build_keys", keys=len(missing)):
+                self._keys.update(self._build_keys_batch(missing))
         return {key_id: self._keys[key_id] for key_id in key_ids}
 
     def _secret_powers(self, level: int, size: int) -> torch.Tensor:
@@ -344,7 +346,8 @@ class RlweKeys:
         (keyswitch_kernels.Tail) to read c0^g with no gather table."""
         key = ("inv", g)
         if key not in self._perm_dev:
-            self._perm_dev[key] = pow(g, -1, 2 * self.params.n)
+            with span("galois_inv"):
+                self._perm_dev[key] = pow(g, -1, 2 * self.params.n)
         return self._perm_dev[key]
 
     def _galois_perm_eval(self, g: int) -> torch.Tensor:
@@ -356,9 +359,10 @@ class RlweKeys:
         key = ("eval", g)
         if key not in self._perm_dev:
             n = self.params.n
-            e, pos_of_exp = eval_perm_tables(n)
-            self._perm_dev[key] = torch.from_numpy(
-                pos_of_exp[(e * g) % (2 * n)]).to(self.device)
+            with span("galois_perm", bytes=8 * n):
+                e, pos_of_exp = eval_perm_tables(n)
+                self._perm_dev[key] = torch.from_numpy(
+                    pos_of_exp[(e * g) % (2 * n)]).to(self.device)
         return self._perm_dev[key]
 
     # ------------------------------------------------- identity-keyed cache

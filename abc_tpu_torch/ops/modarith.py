@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from abc_tpu_torch.utils.profiling import profiler_range
+
 CHAIN_PREFIX = "chain::"
 
 
@@ -27,7 +29,7 @@ def chain_range(name: str):
     An eager profile then sums device time per chain (the kernels themselves
     are anonymous elementwise kernels). It launches nothing and records
     nothing while no profiler runs."""
-    return torch.profiler.record_function(CHAIN_PREFIX + name)
+    return profiler_range(CHAIN_PREFIX + name)
 
 
 def in_chain(name: str):

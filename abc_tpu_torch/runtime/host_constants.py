@@ -18,6 +18,7 @@ import torch
 
 from abc_tpu_torch.runtime.backend import AbstractCiphertextFactory
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
+from abc_tpu_torch.utils.profiling import nbytes, span
 
 
 def zero_pad(data: torch.Tensor, size: int) -> torch.Tensor:
@@ -34,7 +35,9 @@ class HostConstants:
     run gets the recorded values back, each checked against the key it was
     recorded under (the program's control flow is cleartext-driven, so
     every run asks in the same order). The tape keeps the tensors alive for
-    as long as a CUDA graph reads them."""
+    as long as a CUDA graph reads them. Each value made while recording is
+    a span `host_constant` (its `kind`, "encode" or "encrypt", and its
+    `bytes`) of the recorder activated, if any."""
 
     def __init__(self):
         self.items: list = []
@@ -42,7 +45,9 @@ class HostConstants:
 
     def take(self, key, make):
         if self._pos is None:
-            value = make()
+            with span("host_constant", kind=key[0]) as made:
+                value = make()
+                made.set(bytes=nbytes(value))
             self.items.append((key, value))
             return value
         if self._pos >= len(self.items) or self.items[self._pos][0] != key:

@@ -79,6 +79,7 @@ from abc_tpu_torch.runtime.host_constants import HostConstants
 from abc_tpu_torch.runtime.executor import RuntimeVisitor
 from abc_tpu_torch.runtime.values import AbstractCiphertext, Cleartext
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
+from abc_tpu_torch.utils.profiling import DeviceStages, SpanRecorder
 from abc_tpu_torch.utils.timing import capture_graph
 
 
@@ -89,11 +90,18 @@ class JittedProgram:
     returns decrypted outputs; run_raw(tensors) executes it on fresh
     ciphertext tensors of the same shapes without walking the tree again.
 
+    tracer: the program's SpanRecorder (utils/profiling.py). It holds the
+    set-up's phases as spans, always, and the requests' spans once
+    trace_requests(True).
     phase_ms: host-clock milliseconds of the set-up, the device drained at
-    each mark. `key_census` + `key_build` are keygen (the reference CSV's
-    t_keygen), `encrypt` is input encryption, `warmup` the eager run that
-    fills every lazily built table and the host-constants tape, `capture`
-    the recording and instantiation of the graph.
+    both ends of each phase: the view of the tracer's set-up phases.
+    `key_census` + `key_build` are keygen (the reference CSV's t_keygen),
+    `encrypt` is input encryption, `warmup` the eager run that fills every
+    lazily built table and the host-constants tape (its child spans: each
+    host-made constant, `host_constant` with its `kind` and `bytes`, and
+    each table or key built lazily; they time the host's work and what it
+    enqueued, with no drain of their own), `capture` the recording and
+    instantiation of the graph.
     device_bytes: on a CUDA device, what the set-up left on the card:
     `total` (allocated after minus before: keys, tape, static inputs and the
     live outputs) and `graph_pool` (memory the capture reserved: the graph's
@@ -147,25 +155,51 @@ class JittedProgram:
         # a DistComm rank's collectives are process-group calls: it runs
         # eagerly, a LocalComm mesh is captured like a single device
         capture = on_card and (mesh is None or mesh.is_local)
-        self.phase_ms: Dict[str, float] = {}
-        if on_card:
+        self.tracer = SpanRecorder(
+            (lambda: torch.cuda.synchronize(self.device)) if on_card
+            else None)
+        self._tracing = False
+        with self.tracer.activated():
+            try:
+                self._set_up(batch_values, capture)
+            finally:
+                self.tracer.phase(None)
+
+    @property
+    def phase_ms(self) -> Dict[str, float]:
+        """The set-up's phases, ms (class note)."""
+        return self.tracer.phase_ms()
+
+    def trace_requests(self, on: bool = True) -> None:
+        """Record the requests' spans (off by default). Each encrypt_inputs
+        call is a request `encrypt_inputs` (children: `draws`, the host's
+        Generator draws, and `device_pass`, for each encryption), each
+        run_raw call a request `run_raw` (children: `checks`, `copy_in`,
+        `launch`, `clone_out`; `run_eager` where there is no graph), and on
+        a captured graph the tracer's DeviceStages time each replay's
+        stages on the device. Read them with tracer.read(), write them with
+        tracer.chrome_trace(path). Off, both calls test one attribute and
+        record nothing."""
+        if on and self._graph is not None and self.tracer.stages is None:
+            self.tracer.stages = DeviceStages(self.device)
+        self._tracing = bool(on)
+
+    def _set_up(self, batch_values, capture: bool) -> None:
+        """The set-up, phase by phase (phase_ms), with the program's tracer
+        activated: what the library builds meanwhile records into it."""
+        factory, compiled, mesh = self.factory, self.compiled, self.mesh
+        input_ast, output_ast = self.input_ast, self.output_ast
+        ctx = factory.context
+        tracer = self.tracer
+        if capture:
             torch.cuda.synchronize(self.device)
             allocated0 = torch.cuda.memory_allocated(self.device)
-        _t0 = time.perf_counter()
-
-        def _mark(phase):
-            nonlocal _t0
-            if on_card:
-                torch.cuda.synchronize(self.device)
-            now = time.perf_counter()
-            self.phase_ms[phase] = self.phase_ms.get(phase, 0.0) + \
-                (now - _t0) * 1e3
-            _t0 = now
 
         # scheme tables built at first use (BFV's BEHZ context) and the
         # kernel library, outside any capture
+        tracer.phase("eval_ready")
         ctx.ensure_eval_ready()
-        _mark("eval_ready")
+        tracer.phase("encrypt")
 
         # input preparation: evaluate declarations, encrypt all secrets in
         # one batched device pass
@@ -215,7 +249,7 @@ class JittedProgram:
             self.secret_inputs = self._encrypt_batch(
                 {name: batch_values.get(name) or [list(ctext.values)] * B
                  for name, _, ctext in secret_decls})
-        _mark("encrypt")
+        tracer.phase("key_census")
 
         tainted = compiled.secret_tainted
         self._out_meta: Dict[str, object] = {}
@@ -249,9 +283,9 @@ class JittedProgram:
         # tensors. Which keys the program needs is answered by a run on the
         # dummy backend; a key the census missed is built by the warm-up run.
         requests = self._census_key_ids(compiled, input_ast, output_ast)
-        _mark("key_census")
+        tracer.phase("key_build")
         ctx.materialize_keys(sorted(requests or ()))
-        _mark("key_build")
+        tracer.phase("setup_other")
         self._limb_ok = mesh is not None and \
             isinstance(factory, BfvCiphertextFactory)
         if self._limb_ok:
@@ -275,11 +309,10 @@ class JittedProgram:
 
         self._graph = None
         if not capture:
-            _mark("setup_other")
             return
         self._static_in = {name: t.clone()
                            for name, t in self.secret_inputs.items()}
-        _mark("setup_other")
+        tracer.phase("warmup")
 
         # eager warm-up on a side stream: builds what is built lazily (Galois
         # tables, keys the census missed), loads every kernel the program
@@ -290,7 +323,7 @@ class JittedProgram:
             with torch.cuda.stream(side):
                 self.run_eager(self._static_in)
             torch.cuda.current_stream(self.device).wait_stream(side)
-            _mark("warmup")
+            tracer.phase("capture")
 
             # torch.cuda.graph empties the allocator's cache as it starts; do
             # it here, so that the reserved bytes read before it are the
@@ -302,7 +335,7 @@ class JittedProgram:
             with capture_graph(self._graph):
                 self._static_out = self.run_eager(self._static_in)
             self._graph.instantiate()
-            _mark("capture")
+            tracer.phase(None)
         self.device_bytes = {
             "total": torch.cuda.memory_allocated(self.device) - allocated0,
             "graph_pool": torch.cuda.memory_reserved(self.device) - reserved0}
@@ -421,6 +454,14 @@ class JittedProgram:
         values: {input_name: value-vector} (on a mesh: {input_name: [B
         value-vectors]}); names omitted reuse the originally encrypted
         inputs. Returns a dict accepted by run_raw."""
+        if self._tracing:
+            with self.tracer.activated(), \
+                    self.tracer.span("encrypt_inputs", request=True):
+                return self._encrypt_inputs(values)
+        return self._encrypt_inputs(values)
+
+    def _encrypt_inputs(self, values: Dict[str, object]
+                        ) -> Dict[str, torch.Tensor]:
         unknown = set(values) - set(self.secret_inputs)
         if unknown:
             raise RuntimeExecutionError(
@@ -454,6 +495,48 @@ class JittedProgram:
         named). On a CUDA device, but for a DistComm rank:
         copies into the graph's inputs, one replay, fresh clones of its
         outputs. Cleartext outputs are the constants fixed at capture."""
+        if self._tracing:
+            return self._run_raw_traced(secret_tensors)
+        self._check_raw(secret_tensors)
+        if self._graph is None:
+            return self.run_eager(secret_tensors)
+        for name, t in secret_tensors.items():
+            self._static_in[name].copy_(t)
+        self._graph.replay()
+        return {name: v.clone() if self._out_is_ct[name] else list(v)
+                for name, v in self._static_out.items()}
+
+    def _run_raw_traced(self, secret_tensors: Dict[str, torch.Tensor]
+                        ) -> Dict[str, object]:
+        """run_raw in spans, its device stages between four events."""
+        tracer = self.tracer
+        with tracer.span("run_raw", request=True) as call:
+            with tracer.span("checks"):
+                self._check_raw(secret_tensors)
+            if self._graph is None:
+                with tracer.span("run_eager"):
+                    return self.run_eager(secret_tensors)
+            events, stream = tracer.stages.start(call.request_id,
+                                                 call.start_ns)
+            try:
+                with tracer.span("copy_in"):
+                    for name, t in secret_tensors.items():
+                        self._static_in[name].copy_(t)
+                events[1].record(stream)
+                with tracer.span("launch"):
+                    self._graph.replay()
+                events[2].record(stream)
+                with tracer.span("clone_out"):
+                    out = {name: v.clone() if self._out_is_ct[name]
+                           else list(v)
+                           for name, v in self._static_out.items()}
+                tracer.stages.end(events, stream)
+            except BaseException:
+                tracer.stages.drop(events)
+                raise
+            return out
+
+    def _check_raw(self, secret_tensors: Dict[str, torch.Tensor]) -> None:
         if set(secret_tensors) != set(self.secret_inputs):
             raise RuntimeExecutionError(
                 f"run_raw takes exactly the secret inputs "
@@ -466,13 +549,6 @@ class JittedProgram:
                     f"input {name!r}: expected {tuple(want.shape)} "
                     f"{want.dtype} on {want.device}, got {tuple(t.shape)} "
                     f"{t.dtype} on {t.device}")
-        if self._graph is None:
-            return self.run_eager(secret_tensors)
-        for name, t in secret_tensors.items():
-            self._static_in[name].copy_(t)
-        self._graph.replay()
-        return {name: v.clone() if self._out_is_ct[name] else list(v)
-                for name, v in self._static_out.items()}
 
     def run(self) -> Dict[str, List]:
         """Execute and decrypt all outputs (host-side decrypt boundary)."""
@@ -536,7 +612,7 @@ def jit_compile_program(program_src: str, inputs_src: str, output_src: str,
     from abc_tpu_torch.parser import Parser
     from abc_tpu_torch.passes.pipeline import Compiler, input_types_from_ast
 
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     input_ast = Parser.parse(inputs_src)
     output_ast = Parser.parse(output_src)
     compiled = Compiler(options).compile_source(
@@ -569,9 +645,9 @@ def jit_compile_program(program_src: str, inputs_src: str, output_src: str,
     elif factory is None:
         raise RuntimeExecutionError(
             "pass a factory or set auto_params=True")
-    compile_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter_ns()
     jp = JittedProgram(compiled, factory, input_ast, output_ast,
                        mesh=mesh, batch_values=batch_values)
-    jp.phase_ms["parse_compile"] = compile_ms
+    jp.tracer.add("parse_compile", t0, t1)
     jp.auto_params = compiled.auto_params
     return jp

@@ -6,6 +6,7 @@ the reference's ops (tests/test_profiling.py's programs); circuits.py emits
 the reference's sources.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -20,8 +21,8 @@ from abc_tpu.runtime.dummy import DummyCiphertextFactory as RefDummy
 from abc_tpu.utils.profiling import ProfilingFactory as RefProfilingFactory
 from abc_tpu_torch import cli
 from abc_tpu_torch.runtime.dummy import DummyCiphertextFactory
-from abc_tpu_torch.utils.profiling import (OpRecorder, PhaseTimer,
-                                           ProfilingFactory, device_trace)
+from abc_tpu_torch.utils.profiling import (OpRecorder, ProfilingFactory,
+                                           SpanRecorder, device_trace)
 from helpers import run_program
 from test_torch_slice import _run_program_port
 
@@ -117,6 +118,10 @@ def test_cli_profile_writes_a_chrome_trace(tmp_path):
                      str(tmp_path / "trace")]) == 0
     trace = tmp_path / "trace" / "trace.json"
     assert trace.exists() and "traceEvents" in trace.read_text()[:4096]
+    spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    names = [e["name"] for e in spans["traceEvents"] if e["ph"] == "X"]
+    assert {"keygen", "input_encryption", "computation", "decryption",
+            "draws", "build_keys"} <= set(names)
 
 
 def test_cuda_is_the_default_device_and_needs_a_gpu(monkeypatch):
@@ -179,11 +184,13 @@ def test_profiling_factory_counts_ops():
 
 
 def test_phase_timer_and_op_recorder():
-    t = PhaseTimer()
+    """The span recorder (which took PhaseTimer's place) and OpRecorder."""
+    t = SpanRecorder()
     for _ in range(2):
-        with t.phase("compute"):
+        with t.span("compute"):
             sum(range(1000))
-    assert t.as_millis()["compute"] >= 0 and len(t.phases) == 1
+    assert t.phase_ms()["compute"] >= 0 and len(t.phase_ms()) == 1
+    assert len(t.spans) == 2
     rec = OpRecorder()
     rec.record("add", 0.001)
     rec.record("add", 0.002)
