@@ -64,8 +64,12 @@ _SLOT_MAP_CACHE: Dict[int, np.ndarray] = {}
 @dataclass
 class Plaintext:
     """Batched plaintext: polynomial coefficients mod t, an [n] int32 tensor
-    on the context's device."""
+    on the context's device. `scalar` is c where every one of the n slots
+    holds the residue c (set by `encode`, from the host values): the
+    polynomial is then the constant c, and a product by it needs no
+    transform (`multiply_plain`)."""
     coeffs: torch.Tensor
+    scalar: Optional[int] = None
 
 
 @dataclass
@@ -97,7 +101,8 @@ class BfvContext(RlweKeys):
                                "is available")
         self.counters: Dict[str, int] = {
             "relin": 0, "galois": 0, "decomp": 0, "decomp_hit": 0,
-            "mult": 0, "op_ntt": 0, "op_ntt_hit": 0}
+            "mult": 0, "op_ntt": 0, "op_ntt_hit": 0,
+            "plain_scalar": 0, "plain_product": 0}
         n, moduli = params.n, params.coeff_modulus
         if len({q.bit_length() for q in moduli}) != 1:
             raise ValueError("uniform coeff-prime sizes required "
@@ -160,17 +165,20 @@ class BfvContext(RlweKeys):
     # -------------------------------------------------------------- encoding
     def encode(self, values: Sequence[int]) -> Plaintext:
         """Batch-encode up to n integers into slots (zero-padded here;
-        last-element padding is applied by the runtime factory layer)."""
+        last-element padding is applied by the runtime factory layer). The
+        plaintext is marked `scalar` where every slot holds one residue:
+        n values of one residue, or none but zeros."""
         n, t = self.params.n, self.params.plain_modulus
         if len(values) > n:
             raise RuntimeExecutionError(
                 f"too many values to encode: {len(values)}")
+        res = [int(v) % t for v in values]
         slots = torch.zeros(n, dtype=torch.int32, device=self.device)
-        if len(values):
-            vals = torch.tensor([int(v) % t for v in values],
-                                dtype=torch.int32, device=self.device)
-            slots[self._slot_to_pos[:len(values)]] = vals
-        return Plaintext(self.ntt_t.inv(slots.reshape(1, n))[0])
+        if res:
+            vals = torch.tensor(res, dtype=torch.int32, device=self.device)
+            slots[self._slot_to_pos[:len(res)]] = vals
+        return Plaintext(self.ntt_t.inv(slots.reshape(1, n))[0],
+                         _constant_residue(res, n))
 
     def decode(self, pt: Plaintext, signed: bool = True) -> List[int]:
         n, t = self.params.n, self.params.plain_modulus
@@ -344,6 +352,15 @@ class BfvContext(RlweKeys):
                                     w=self._tab["delta_mod_q"]))
 
     def multiply_plain(self, a: BfvCiphertext, pt: Plaintext) -> BfvCiphertext:
+        """a·m. By a scalar plaintext (its polynomial the constant c < t <
+        q_j, held in coeffs[0]) one product of every word by c, the [1]
+        view read as a column; otherwise a product of the transforms. The
+        words are the same either way (the negacyclic product is exact)."""
+        if pt.scalar is not None:
+            self.counters["plain_scalar"] += 1
+            return BfvCiphertext(ew.mul(a.data, pt.coeffs[:1], self.q_q,
+                                        self.ntt_q.ratio))
+        self.counters["plain_product"] += 1
         m_ntt = self.ntt_q.fwd(self._plain_m(pt))
         prod = ew.mul(self.ntt_q.fwd(a.data), m_ntt, self.q_q,
                       self.ntt_q.ratio)
@@ -613,3 +630,13 @@ def _build_slot_map(n: int) -> np.ndarray:
         g = g * 3 % m
     _SLOT_MAP_CACHE[n] = pos
     return pos
+
+
+def _constant_residue(res: Sequence[int], n: int) -> Optional[int]:
+    """c where all n slots of an encoding of the residues `res` (slots past
+    them zero) hold c, else None; stops at the first slot that differs."""
+    c = res[0] if len(res) == n else 0
+    for r in res:
+        if r != c:
+            return None
+    return c

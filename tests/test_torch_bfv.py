@@ -16,6 +16,7 @@ from abc_tpu.crypto.params import BfvParams as RefBfvParams
 from abc_tpu_torch.crypto import ntt as port_ntt
 from abc_tpu_torch.crypto.bfv import BfvContext
 from abc_tpu_torch.crypto.params import BfvParams
+from abc_tpu_torch.ops import elementwise_kernels as ew
 from abc_tpu_torch.ops import ntt_kernels as nk
 from abc_tpu_torch.ops.modarith import to_host
 
@@ -23,6 +24,7 @@ pytestmark = pytest.mark.filterwarnings(
     "ignore:.*HE-standard 128-bit-security budget:UserWarning")
 
 VALS_A, VALS_B = [1, -2, 3000, 4], [9, 8, -7, 6]
+SCALAR = -8             # a constant of LaplaceSharpening's weights
 
 
 @pytest.fixture
@@ -57,6 +59,11 @@ CASES = {
     "add_mult_rotate": lambda c, a, b, pt: [
         c.rotate_rows(c.multiply(c.add(a, b), b), 2)],
     "multiply_plain": lambda c, a, b, pt: [c.multiply_plain(a, pt)],
+    # every slot one value: the port's one elementwise pass against the
+    # reference's transforms, of a size-2 and of a size-3 ciphertext
+    "multiply_plain_scalar": lambda c, a, b, pt: [
+        c.multiply_plain(x, c.encode([SCALAR] * c.params.n))
+        for x in (a, c.multiply(a, b, relinearize=False))],
     "rotate_columns": lambda c, a, b, pt: [c.rotate_columns(a)],
     "hoisted_rotations": _hoisted,
     "plain_ops": lambda c, a, b, pt: [
@@ -83,6 +90,53 @@ def test_ops_bit_exact_vs_jx32(pair, case):
     if case == "add_mult_rotate":
         expected = [(x + y) * y for x, y in zip(VALS_A, VALS_B)][2:]
         assert port.decode(port.decrypt(got[0]))[:2] == expected
+    if case == "multiply_plain_scalar":
+        n = port.params.n
+        assert port.decode(port.decrypt(got[0])) == \
+            _centred([SCALAR * x for x in VALS_A] + [0] * (n - 4), port)
+        assert port.decode(port.decrypt(got[1])) == _centred(
+            [SCALAR * x * y for x, y in zip(VALS_A, VALS_B)] + [0] * (n - 4),
+            port)
+
+
+def _centred(values, ctx):
+    """Residues mod t as decode gives them: in (−t/2, t/2]."""
+    t = ctx.params.plain_modulus
+    return [v % t - t if v % t > t // 2 else v % t for v in values]
+
+
+@pytest.fixture(scope="module")
+def port1024():
+    return BfvContext(BfvParams.create(1024, seed=5), "cpu")
+
+
+@pytest.mark.parametrize("c", [0, 1, -1, 2, -8, "drawn"])
+def test_encode_of_a_constant_is_the_constant_polynomial(port1024, c):
+    """The premise of the scalar product: under batching the slot vector
+    that holds c everywhere encodes to the polynomial c mod t, and encode
+    marks it."""
+    n, t = port1024.params.n, port1024.params.plain_modulus
+    if c == "drawn":
+        c = int(np.random.default_rng(5).integers(-t, t))
+    pt = port1024.encode([c] * n)
+    want = [c % t] + [0] * (n - 1)
+    assert to_host(pt.coeffs).tolist() == want
+    assert pt.scalar == c % t
+    assert port1024.decode(pt) == _centred([c] * n, port1024)
+
+
+@pytest.mark.parametrize("values,scalar", [
+    ("two_values", None), ("last_differs", None), ("short_non_zero", None),
+    ("short_zeros", 0)])
+def test_encode_of_other_vectors(port1024, values, scalar):
+    """Two distinct values, or a short vector whose zero padding differs
+    from its non-zero value, leave `scalar` None; zeros padded with zeros
+    are the constant 0."""
+    n = port1024.params.n
+    vals = {"two_values": [3, 4] * (n // 2),
+            "last_differs": [3] * (n - 1) + [4],
+            "short_non_zero": [7, 7], "short_zeros": [0, 0]}[values]
+    assert port1024.encode(vals).scalar == scalar
 
 
 def test_mult_relin_ntt_census():
@@ -112,6 +166,39 @@ def test_mult_relin_ntt_census():
     assert len(calls["fwd"]) == 5 and len(calls["inv"]) == 3
     assert sum(calls["fwd"]) == 4 * (2 * L + 2) + L * (L + 1)
     assert sum(calls["inv"]) == 3 * (2 * L + 2) + 2 * (L + 1)
+
+
+def test_plain_product_ntt_census():
+    """A product by a scalar plaintext is one elementwise product and no
+    transform; by a vector plaintext, 2 forward and 1 inverse transform
+    calls around it. Each moves its own counter by one."""
+    port = BfvContext(BfvParams.create(1024, seed=3), "cpu")
+    a = port.encrypt(port.encode([1, 2]))
+    n = port.params.n
+    calls = {"fwd": 0, "inv": 0, "mul": 0}
+
+    def counting(which, fn):
+        def wrapped(*args, **kw):
+            calls[which] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(port_ntt, "ntt_fwd", counting("fwd", nk.ntt_fwd))
+    mp.setattr(port_ntt, "ntt_inv", counting("inv", nk.ntt_inv))
+    mp.setattr(ew, "mul", counting("mul", ew.mul))
+    try:
+        for pt, fwd, inv in ((port.encode([5] * n), 0, 0),
+                             (port.encode([5, 6]), 2, 1)):
+            kind = "plain_product" if fwd else "plain_scalar"
+            before = dict(calls), dict(port.counters)
+            port.multiply_plain(a, pt)
+            assert {k: calls[k] - before[0][k] for k in calls} == \
+                {"fwd": fwd, "inv": inv, "mul": 1}
+            assert {k: v - before[1][k] for k, v in port.counters.items()
+                    if v != before[1][k]} == {kind: 1}
+    finally:
+        mp.undo()
 
 
 def _mult_relin_vs_np64(device, k):

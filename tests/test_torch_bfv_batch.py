@@ -18,6 +18,7 @@ from abc_tpu.crypto.bfv import BfvContext as RefBfvContext
 from abc_tpu.crypto.params import BfvParams as RefBfvParams
 from abc_tpu_torch.crypto.bfv import BfvCiphertext, BfvContext
 from abc_tpu_torch.crypto.params import BfvParams
+from abc_tpu_torch.ops import elementwise_kernels as ew
 from abc_tpu_torch.ops.modarith import to_host
 
 pytestmark = pytest.mark.filterwarnings(
@@ -139,6 +140,40 @@ def test_batch_rows_equal_separate_port_calls(world, op):
                            pt)
         assert got.size == want.size
         assert torch.equal(got.data[i], want.data), f"{op} row {i}"
+
+
+@pytest.mark.parametrize("size", [2, 3])
+def test_multiply_plain_scalar_batch(world, size):
+    """A batch [B, size, L, n] times a plaintext whose slots all hold one
+    value: row for row the words of separate calls, of the transform path
+    written out here, and of the reference's separate calls; each row
+    decrypts to c·x mod t slot by slot."""
+    port, ref, a, b, vals = world
+    n, t, L = N, port.params.plain_modulus, port.params.L
+    c = int(np.random.default_rng(SEED).integers(-t // 2, t // 2))
+    pt = port.encode([c] * n)
+    assert pt.scalar == c % t
+    data = a if size == 2 else port.multiply(
+        BfvCiphertext(a), BfvCiphertext(b), relinearize=False).data
+    got = port.multiply_plain(BfvCiphertext(data), pt).data
+    assert got.shape == data.shape
+    ntt = port.ntt_q
+    oracle = ntt.inv(ew.mul(ntt.fwd(data),
+                            ntt.fwd(pt.coeffs.expand(L, -1).contiguous()),
+                            port.q_q, ntt.ratio))
+    assert torch.equal(got, oracle)
+    for i in range(BMAX):
+        want = port.multiply_plain(BfvCiphertext(data[i]), pt)
+        assert torch.equal(got[i], want.data), f"row {i}"
+    _same(got, [ref.multiply_plain(_ref(data[i]), ref.encode([c] * n)).data
+                for i in range(BMAX)])
+    for i in range(BMAX):
+        x = vals[i] if size == 2 else [
+            u * v for u, v in zip(vals[i], vals[BMAX + i])]
+        want = [(c * v) % t for v in x + [0] * (n - len(x))]
+        got_slots = port.decode(port.decrypt(BfvCiphertext(got[i])),
+                                signed=False)
+        assert got_slots == want, f"row {i}"
 
 
 def test_two_leading_axes(world):

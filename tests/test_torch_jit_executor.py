@@ -22,13 +22,16 @@ from abc_tpu.runtime.bfv_backend import BfvCiphertextFactory as RefFactory
 from abc_tpu.runtime.jit_executor import (
     jit_compile_program as ref_jit_compile_program)
 from abc_tpu_torch import CompileOptions, JittedProgram, jit_compile_program
-from abc_tpu_torch.crypto.bfv import BfvCiphertext
+from abc_tpu_torch.benchsuite import LAPLACE_PROGRAM
+from abc_tpu_torch.crypto.bfv import BfvCiphertext, BfvContext, Plaintext
 from abc_tpu_torch.ops import ntt_kernels as nk
 from abc_tpu_torch.ops.modarith import to_host
 from abc_tpu_torch.runtime.bfv_backend import (BfvCiphertextFactory,
                                                TorchBfvCiphertext)
 from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
-from abc_tpu_torch.runtime.dummy import DummyCiphertextFactory
+from abc_tpu_torch.runtime.dummy import (DummyCiphertext,
+                                         DummyCiphertextFactory)
+from abc_tpu_torch.runtime.executor import RuntimeVisitor
 from abc_tpu_torch.runtime.host_constants import HostConstants
 from abc_tpu_torch.utils.errors import RuntimeExecutionError
 
@@ -281,6 +284,51 @@ def test_plain_operands_are_encoded_once():
     held = [value.coeffs for _, value in jp._tape.items]
     jp.run_raw(jp.secret_inputs)
     assert all(a is b.coeffs for a, (_, b) in zip(held, jp._tape.items))
+
+
+LAPLACE_IMG = ("secret int img = {" + ",".join(
+    str(v * 4093 % 65536) for v in range(16)) + "}; int imgSize = 4;")
+
+
+def _dummy_plain_products(jp):
+    """{"plain_scalar", "plain_product"}: the compiled program's
+    ciphertext-plaintext products on the dummy backend, a product by a
+    plaintext whose slots (padding included) all hold one value counted
+    apart."""
+    seen = {"plain_scalar": 0, "plain_product": 0}
+
+    class Counting(DummyCiphertext):
+        def multiply_plain(self, other):
+            one = len(set(self._plain(other).tolist())) == 1
+            seen["plain_scalar" if one else "plain_product"] += 1
+            return super().multiply_plain(other)
+
+    class Factory(DummyCiphertextFactory):
+        handle_cls = Counting
+
+    rv = RuntimeVisitor(Factory(slots=jp.factory.slot_count), jp.input_ast,
+                        jp.compiled.secret_tainted)
+    rv.execute_ast(jp.compiled.ast)
+    rv.get_output(jp.output_ast)
+    return seen
+
+
+@pytest.mark.parametrize("vectorize", [False, True])
+def test_plain_product_counters_equal_a_dummy_census(vectorize):
+    """LaplaceSharpening's products by scalar constants take the
+    elementwise path: one eager walk moves `plain_scalar` and
+    `plain_product` as a counting dummy backend counts the program's
+    products, 40 and 5 as at n=16384."""
+    jp = jit_compile_program(LAPLACE_PROGRAM, LAPLACE_IMG, "out = img2;",
+                             factory=_port(seed=9),
+                             options=CompileOptions(vectorize=vectorize))
+    counters = jp.factory.context.counters
+    before = dict(counters)
+    jp.run_eager(jp.secret_inputs)
+    moved = {k: counters[k] - before[k]
+             for k in ("plain_scalar", "plain_product")}
+    assert moved == _dummy_plain_products(jp)
+    assert moved == {"plain_scalar": 40, "plain_product": 5}
 
 
 def test_host_constants_tape_refuses_another_order():
@@ -567,3 +615,38 @@ def test_graph_replay_equals_eager_on_cuda(cuda):
     assert torch.equal(second, jp.run_eager(fresh)["y"])
     assert jp.decrypt_outputs({"y": second})["y"][:3] == [12, 14, 16]
     assert jp.decrypt_outputs({"y": first})["y"][:3] == [7, 4, 8]
+
+
+def _kernel_nodes(graph):
+    """Kernel nodes of a graph captured with keep_graph=True."""
+    import os
+    import re
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "g.dot")
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="DEBUG: calling")
+            graph.debug_dump(path)
+        with open(path) as f:
+            return len(re.findall(r'label="\{KERNEL', f.read()))
+
+
+@pytest.mark.gpu
+def test_scalar_products_leave_the_graph_four_nodes_each(cuda, monkeypatch):
+    """A captured program with k products by scalar constants has 4·k
+    fewer kernel nodes than with each taking the transform path (the
+    plaintext's copy and three transforms), and the same output words."""
+    args = dict(program_src=LAPLACE_PROGRAM, inputs_src=LAPLACE_IMG,
+                output_src="out = img2;")
+    jp = jit_compile_program(factory=_port(seed=9, device=cuda), **args)
+    k = _dummy_plain_products(jp)["plain_scalar"]
+    encode = BfvContext.encode
+    monkeypatch.setattr(BfvContext, "encode",
+                        lambda self, v: Plaintext(encode(self, v).coeffs))
+    whole = jit_compile_program(factory=_port(seed=9, device=cuda), **args)
+    assert k > 0
+    assert _kernel_nodes(whole._graph) - _kernel_nodes(jp._graph) == 4 * k
+    got = jp.run_raw(jp.secret_inputs)["out"]
+    assert torch.equal(got, whole.run_raw(whole.secret_inputs)["out"])
+    assert jp.decrypt_outputs({"out": got})["out"][:16] == \
+        whole.run()["out"][:16]

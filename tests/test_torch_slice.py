@@ -74,6 +74,14 @@ def _words(handle):
     return to_host(data) if isinstance(data, torch.Tensor) else data
 
 
+def _ref_counters(counters):
+    """The port's op counters under the reference's keys: the port also
+    counts its plaintext products by a scalar and by a vector
+    (`plain_scalar`, `plain_product`), which the reference does not."""
+    return {k: v for k, v in counters.items()
+            if k not in ("plain_scalar", "plain_product")}
+
+
 def test_hamming_matches_reference_factory():
     port = BfvCiphertextFactory(slots=1024, seed=5, device="cpu")
     ref = RefFactory(slots=1024, seed=5, engine="np64")
@@ -81,7 +89,7 @@ def test_hamming_matches_reference_factory():
     ref_ct, ref_hd = _hamming(ref, abc_tpu)
     assert hd == ref_hd == 2
     np.testing.assert_array_equal(_words(ct), _words(ref_ct))
-    assert port.context.counters == ref.context.counters
+    assert _ref_counters(port.context.counters) == ref.context.counters
 
 
 def test_laplace_sharpening_matches_oracle_and_reference():
@@ -103,7 +111,7 @@ def test_laplace_sharpening_matches_oracle_and_reference():
                                   _words(ref_pairs[0][1]))
     c = port.context.counters
     assert c["decomp_hit"] > c["decomp"]
-    assert c == ref.context.counters
+    assert _ref_counters(c) == ref.context.counters
 
 
 _JAX_FREE_SLICE = f"""
