@@ -1,5 +1,5 @@
-"""The least time of each FHE operation of a BFV program, split by layer
-and keyed by the operation: the work that a layer's roofline share is
+"""The least time of each FHE operation of a BFV or CKKS program, split by
+layer and keyed by the operation: the work that a layer's roofline share is
 measured against. Counted from the operation, not from the kernels that
 run it, so a later change that fuses or replaces kernels is charged the
 same work.
@@ -35,6 +35,23 @@ Operations (harness/census.py counts them in one walk of the program):
                 slots all hold one value is that constant polynomial):
                 one elementwise pass, the ciphertext read and written once
                 and each word multiplied by the constant; no transform.
+
+CKKS operations run at falling levels: the census keys them
+`<operation>@<level>`, and the level l takes L's place (R = l + k, A =
+ceil(l / k)); ckks.py's algorithm, at B = 1:
+  ckks_multiply       a ct x ct product: both operands read and
+                      transformed forward, the tensor product (behz_tensor,
+                      BEHZ's kernel) and the inverse transform of its three
+                      components, written;
+  ckks_plain_product  a ciphertext times a plaintext vector, as
+                      plain_product;
+  ckks_plain_scalar   a ciphertext times a scalar constant, as plain_scalar:
+                      one elementwise pass;
+  ckks_decompose      as decompose (a relinearization's or a rotation's);
+  ckks_key_switch     as key_switch;
+  ckks_rescale        the last data prime divided out of both components
+                      (ks_mod_down at k = 1: the key switch's layer), read
+                      at l primes and written at l - 1.
 """
 
 from __future__ import annotations
@@ -46,6 +63,8 @@ from fhebench.rooflines.bounds import BEHZ_IMAD, IMAD_PER_BUTTERFLY, \
 
 OPS = ("operand", "multiply", "decompose", "key_switch", "plain_product",
        "plain_scalar")
+CKKS_OPS = ("ckks_multiply", "ckks_plain_product", "ckks_plain_scalar",
+            "ckks_decompose", "ckks_key_switch", "ckks_rescale")
 
 
 def _ntt(n, table, rows, inverse, rows_bytes=0):
@@ -63,7 +82,10 @@ def _ntt(n, table, rows, inverse, rows_bytes=0):
 
 def launches(op: str, n: int, L: int, k: int, B: int
              ) -> List[Tuple[str, float]]:
-    """[(layer, least ms)] of the launches one `op` needs at this shape."""
+    """[(layer, least ms)] of the launches one `op` needs at this shape (a
+    CKKS `op` names its level: `ckks_multiply@7`)."""
+    if op.startswith("ckks_"):
+        return _ckks(op, n, k)
     K, R, A = L + 2, L + k, -(-L // k)
     words = B * L * n                      # one component of B ciphertexts
     if op == "operand":
@@ -106,6 +128,27 @@ def launches(op: str, n: int, L: int, k: int, B: int
         return [("elementwise", bound(4 * 2 * 2 * words,
                                       2 * words * BEHZ_IMAD["shoup"])[0])]
     raise ValueError(f"unknown FHE operation {op!r} (known: {OPS})")
+
+
+def _ckks(key: str, n: int, k: int) -> List[Tuple[str, float]]:
+    """launches() of a CKKS operation `<op>@<level>`."""
+    op, _, level = key.partition("@")
+    if op not in CKKS_OPS or not level.isdigit() or int(level) < 1:
+        raise ValueError(f"unknown FHE operation {key!r} (known: "
+                         f"{CKKS_OPS}, each @<level>)")
+    lv = int(level)
+    if op == "ckks_multiply":
+        words = lv * n
+        return [_ntt(n, lv, 4 * lv, False, rows_bytes=4 * 4 * words),
+                ("behz", bound(0, words * behz_imads("behz_tensor", 2,
+                                                     1))[0]),
+                _ntt(n, lv, 3 * lv, True, rows_bytes=4 * 3 * words)]
+    if op == "ckks_rescale":
+        return [("keyswitch", bound(4 * 2 * (2 * lv - 1) * n,
+                                    2 * n * ks_imads("ks_mod_down", lv, k=1,
+                                                     Lo=lv - 1))[0])]
+    # the others are the BFV operations' formulas at this level
+    return launches(op[len("ckks_"):], n, lv, k, 1)
 
 
 def least_ms(layer: str, census: Dict[str, int], n: int, L: int, k: int,

@@ -31,6 +31,7 @@ _T0 = time.perf_counter()
 import argparse  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -79,17 +80,41 @@ def card_settings() -> Dict[str, str]:
                     fields))
 
 
+SCHEMES = ("bfv", "ckks")
+
+
+def make_factory(config: Dict, seed: int, device):
+    """The configuration's ciphertext factory, its keys from the seed."""
+    if config["scheme"] == "ckks":
+        from abc_tpu_torch.crypto.ckks import CkksContext, CkksParams
+        from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
+        params = CkksParams.create(
+            config["n"], levels=config["data_primes"], seed=seed,
+            scale_bits=config["scale_bits"],
+            ks_digits=config["special_primes"])
+        return CkksCiphertextFactory(context=CkksContext(params, device),
+                                     device=device)
+    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
+    return BfvCiphertextFactory(
+        slots=config["n"], seed=seed, ks_digits=config["special_primes"],
+        device=device, plain_bits=config["plain_bits"])
+
+
 def _check_params(params, config: Dict) -> None:
     """The program's parameter set is the configuration's."""
     have = {"n": params.n, "data_primes": params.L,
             "special_primes": params.ks_digits,
             "prime_bits": sorted({q.bit_length()
-                                  for q in params.coeff_modulus}),
-            "plain_bits": params.plain_modulus.bit_length()}
+                                  for q in params.coeff_modulus})}
     want = {"n": config["n"], "data_primes": config["data_primes"],
             "special_primes": config["special_primes"],
-            "prime_bits": [config["prime_bits"]],
-            "plain_bits": config["plain_bits"]}
+            "prime_bits": [config["prime_bits"]]}
+    if config["scheme"] == "ckks":
+        have["scale_bits"] = math.log2(params.scale)
+        want["scale_bits"] = config["scale_bits"]
+    else:
+        have["plain_bits"] = params.plain_modulus.bit_length()
+        want["plain_bits"] = config["plain_bits"]
     if have != want:
         raise ValueError(f"the program's parameters {have} are not the "
                          f"configuration's {want}")
@@ -118,15 +143,15 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     import torch
     from abc_tpu_torch.parallel.sharding import make_mesh
     from abc_tpu_torch.passes.pipeline import CompileOptions
-    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
     from abc_tpu_torch.runtime.jit_executor import jit_compile_program
     from fhebench.harness import check, census, graph, readers, serve, \
         spec, trace as tracing, traffic as gen
 
     config, mix = cell.config, cell.traffic
-    if config.get("scheme") != "bfv":
-        raise spec.SpecError(f"{cell.name}: the harness drives BFV "
+    if config.get("scheme") not in SCHEMES:
+        raise spec.SpecError(f"{cell.name}: the harness drives {SCHEMES} "
                              f"configurations, not {config.get('scheme')!r}")
+    ckks = config["scheme"] == "ckks"
     on_card = device.type == "cuda"
     clock = time.perf_counter
 
@@ -148,23 +173,25 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         _build.load()
     part("library")
     t = clock()
-    factory = BfvCiphertextFactory(
-        slots=config["n"], seed=seed, ks_digits=config["special_primes"],
-        device=device, plain_bits=config["plain_bits"])
+    factory = make_factory(config, seed, device)
     sync()
     factory_ms = (clock() - t) * 1e3
     part("factory")
     _check_params(factory.params, config)
     batch, in_flight = int(mix["batch"]), int(mix["in_flight"])
     values = gen.draw_pool(config, mix, seed)
+    drawn = gen.draw_plain(config, seed)
     mesh = make_mesh(**mix["mesh"], device=device) if "mesh" in mix \
         else None
     if batch > 1 and mesh is None:
         raise spec.SpecError("a batch of requests a replay runs on the "
                              "program's mesh path: give the traffic a mesh")
+    if ckks and (batch > 1 or mesh is not None):
+        raise spec.SpecError("a CKKS program is walked once a row: its "
+                             "traffic sends one request a replay, no mesh")
     first = {name: rows[0] for name, rows in values[0].items()}
     jp = jit_compile_program(
-        cell.program_source(), gen.inputs_source(config, first),
+        cell.program_source(), gen.inputs_source(config, first, drawn),
         gen.output_source(config), factory=factory,
         options=CompileOptions(**config.get("compile", {})), mesh=mesh,
         batch_values=values[0] if mesh is not None else None)
@@ -216,24 +243,25 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     # the check: the kept answers decrypted by the program, the program's
     # state freed, then the plain reference
     reference = cell.reference()
-    queries = {j: values[w.pool_of[j]] for j in keep
+    # a query as the reference reads it: the request's rows and the model
+    # drawn from the seed
+    queries = {j: dict(values[w.pool_of[j]], **drawn) for j in keep
                if j < len(w.pool_of)}
     if control:
-        answers = {j: {name: [row[name] for row in reference.control(q)]
-                       for name in config["outputs"]}
-                   for j, q in queries.items()}
+        answers = _control_answers(reference, queries, config)
     else:
         answers = {j: _rows(jp.decrypt_outputs(out), mesh is not None)
                    for j, out in w.kept.items()}
-    t_mod = factory.params.plain_modulus
+    t_mod = getattr(factory.params, "plain_modulus", None)
     phase_ms = dict(jp.phase_ms, factory=factory_ms)
     del jp, pool, factory, w.kept
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     lengths = {name: int(o["length"]) for name, o in config["outputs"].items()}
+    tolerance = config.get("tolerance") if ckks else None
     readings = check.judge(answers, queries, reference.answers, lengths,
-                           t_mod)
+                           t_mod, tolerance)
     table, correct = check.verdict(readings)
     correct = correct and not w.failed
 
@@ -276,8 +304,32 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
                      "setup_parts_s": parts,
                      "phase_ms": phase_ms,
                      "error": w.error or None}
+    if "max_abs_error" in readings:
+        result["run"]["max_abs_error"] = readings["max_abs_error"]
     result["checks"] = table
     return result, table
+
+
+def _control_answers(reference, queries: Dict[int, Dict], config: Dict
+                     ) -> Dict[int, Dict]:
+    """The reference's control in the program's place: the kept requests
+    answered as one batch, in request order, so that a control that answers
+    a row from another row's query reaches across requests of one row."""
+    order = sorted(queries)
+    if not order:
+        return {}
+    inputs = sorted(config["inputs"])
+    joint = dict(queries[order[0]])        # the model, which every query holds
+    joint.update({name: [row for j in order for row in queries[j][name]]
+                  for name in inputs})
+    rows = reference.control(joint)
+    answers, at = {}, 0
+    for j in order:
+        size = len(queries[j][inputs[0]])
+        answers[j] = {name: [row[name] for row in rows[at:at + size]]
+                      for name in config["outputs"]}
+        at += size
+    return answers
 
 
 def parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -314,6 +366,9 @@ def main(argv: Optional[List[str]] = None) -> int:
               "no result", file=sys.stderr)
         return 4
     print(json.dumps(result), flush=True)
+    if "max_abs_error" in result["run"]:
+        print(f"reading max_abs_error {result['run']['max_abs_error']} "
+              f"tolerance {cell.config['tolerance']}", file=sys.stderr)
     for line in check.lines(table):
         print(line, file=sys.stderr)
     sys.stderr.flush()

@@ -82,3 +82,45 @@ def test_key_switch_charges_its_key():
     assert ks >= key_ms
     with pytest.raises(ValueError):
         fhe_ops.launches("bootstrap", n, L, k, B)
+
+
+CKKS = (32768, 8, 2, 1)
+
+
+@pytest.mark.parametrize("op", fhe_ops.CKKS_OPS)
+@pytest.mark.parametrize("level", [1, 5, 8])
+def test_ckks_operations_by_level(op, level):
+    if op == "ckks_rescale" and level == 1:
+        return
+    key = f"{op}@{level}"
+    assert all(ms > 0 for _, ms in fhe_ops.launches(key, *CKKS))
+    # at the top level a CKKS operation that BFV shares costs BFV's (a
+    # CKKS product has no base conversion)
+    bfv = op[len("ckks_"):]
+    if bfv in fhe_ops.OPS and bfv != "multiply" and level == CKKS[1]:
+        assert fhe_ops.launches(key, *CKKS) == \
+            fhe_ops.launches(bfv, *CKKS)
+
+
+def test_ckks_work_falls_with_the_level():
+    for op in fhe_ops.CKKS_OPS:
+        ms = [sum(t for _, t in fhe_ops.launches(f"{op}@{lv}", *CKKS))
+              for lv in (2, 5, 8)]
+        assert ms[0] < ms[1] < ms[2], op
+
+
+def test_ckks_rescale_is_one_division_in_the_key_switch_layer():
+    n, L, k, B = CKKS
+    # both components read at 8 primes and written at 7
+    want = 4 * 2 * (8 + 7) * n / bounds.HBM_BYTES_S * 1e3
+    assert fhe_ops.least_ms("keyswitch", {"ckks_rescale@8": 1}, *CKKS) \
+        == pytest.approx(want)
+    assert fhe_ops.least_ms("ntt", {"ckks_rescale@8": 1}, *CKKS) == 0
+    assert fhe_ops.least_ms("ntt", {"ckks_plain_scalar@8": 1}, *CKKS) == 0
+
+
+@pytest.mark.parametrize("key", ["ckks_multiply", "ckks_multiply@0",
+                                 "ckks_bootstrap@3", "ckks_rescale@x"])
+def test_unknown_ckks_operation(key):
+    with pytest.raises(ValueError):
+        fhe_ops.launches(key, *CKKS)

@@ -1,10 +1,12 @@
 """The check of outputs at work, on the CPU at n=1024 (the chip's look
-skipped): a sound run is correct; the control put in the program's place
-is not; and a run whose timed path is broken underneath is not, once for
-each fault the cell can have (a step that returns its state unchanged,
-half of the batch left out, an answer altered where it is produced; one
+skipped), in the committed cells and the CKKS cell that the tests keep
+(_tiny.py): a sound run is correct; the control put in the program's place
+is not, nor a CKKS program at a scale 2^10 lower; and a run whose timed
+path is broken underneath is not, once for each fault the cell can have (a
+step that returns its state unchanged, half of the batch left out, an
+answer altered where it is produced, an answer from another request; one
 chip, so no exchange between chips to leave out). The op census of one
-walk is the programs' known one."""
+walk is the programs' known one, a CKKS program's by level."""
 
 import pytest
 import torch
@@ -15,11 +17,23 @@ from fhebench.run import run_cell
 
 SEED = 2 ** 31 + 11
 SMALL = {"laplace.single": dict(pool=3, keep=3),
-         "hamming.batch64": dict(pool=2, batch=4, keep=2)}
+         "hamming.batch64": dict(pool=2, batch=4, keep=2),
+         "hamming.stream": dict(pool=4, keep=4),
+         "logreg.single": dict(pool=2, keep=2)}
+CKKS_CENSUS = {"ckks_decompose@6": 1, "ckks_decompose@7": 1,
+               "ckks_decompose@8": 3, "ckks_key_switch@6": 1,
+               "ckks_key_switch@7": 1, "ckks_key_switch@8": 3,
+               "ckks_multiply@6": 1, "ckks_multiply@7": 1,
+               "ckks_plain_scalar@5": 1, "ckks_plain_scalar@7": 1,
+               "ckks_plain_scalar@8": 18, "ckks_rescale@6": 1,
+               "ckks_rescale@7": 1, "ckks_rescale@8": 3}
+SUFFIX = {"laplace.single": "single", "hamming.batch64": "batch",
+          "hamming.stream": "stream", "logreg.single": "logreg"}
 
 
-def one_run(tmp_path, name, control=False):
+def one_run(tmp_path, name, control=False, **config):
     cell = tiny_cell(tmp_path, name, **SMALL[name])
+    cell.config = dict(cell.config, **config)
     result, table = run_cell(cell, SEED, 0.5, False, torch.device("cpu"),
                              control=control)
     return result, table
@@ -31,7 +45,7 @@ def test_sound_run_is_correct(tmp_path, name):
     assert result["correct"], table
     assert table["checked_slots"]["value"] > 0
     assert list(result)[-1] == "checks"
-    suffix = {"laplace.single": "single", "hamming.batch64": "batch"}[name]
+    suffix = SUFFIX[name]
     assert set(result["metrics"]) == {f"programs_per_s.{suffix}",
                                       f"latency_p95_ms.{suffix}", "setup_s"}
 
@@ -43,9 +57,37 @@ def test_control_is_not_correct(tmp_path, name):
     assert table["wrong_slots"]["value"] > 0
 
 
+def test_control_reaches_across_requests_of_one_row(tmp_path):
+    """hamming's control (rows shifted by one) runs over the kept requests
+    as one batch, so that in hamming.stream, one row a request, a row is
+    answered from another request's query."""
+    result, table = one_run(tmp_path, "hamming.stream", control=True)
+    assert not result["correct"], table
+    assert table["wrong_slots"]["value"] > 0
+
+
+def test_ckks_program_at_a_lower_scale_is_not_correct(tmp_path):
+    cell = tiny_cell(tmp_path, "logreg.single", **SMALL["logreg.single"])
+    result, table = one_run(tmp_path, "logreg.single",
+                            scale_bits=cell.config["scale_bits"] - 10)
+    assert not result["correct"]
+    assert "max_abs_error" not in table
+    assert result["run"]["max_abs_error"] > 10 * cell.config["tolerance"]
+
+
 def unchanged(jp, inputs, out):
+    """The first input in each output's place, cut or padded with zeros to
+    the output's components and primes (a CKKS answer has fewer)."""
     first = next(iter(inputs.values()))
-    return {name: first.clone() for name in out}
+
+    def like(t):
+        same = torch.zeros_like(t)
+        c, lv = min(t.shape[-3], first.shape[-3]), min(t.shape[-2],
+                                                        first.shape[-2])
+        same[..., :c, :lv, :] = first[..., :c, :lv, :]
+        return same
+
+    return {name: like(t) for name, t in out.items()}
 
 
 def half_left_out(jp, inputs, out):
@@ -59,14 +101,35 @@ def half_left_out(jp, inputs, out):
 
 def altered(jp, inputs, out):
     from abc_tpu_torch.crypto.bfv import BfvCiphertext
+    from abc_tpu_torch.runtime.ckks_backend import CkksCiphertextFactory
     ctx = jp.factory.context
+    if isinstance(jp.factory, CkksCiphertextFactory):
+        # every residue negated: each slot's value negated
+        return {name: ((q - t) % q).to(t.dtype) for name, t in out.items()
+                for q in [ctx.q_q[:t.shape[-2]].to(torch.int64)]}
     return {name: ctx.negate(BfvCiphertext(t)).data
             for name, t in out.items()}
 
 
+class FromAnotherRequest:
+    """Each request answered with the previous request's answer."""
+
+    def __init__(self):
+        self.last = None
+
+    def __call__(self, jp, inputs, out):
+        previous, self.last = self.last or out, out
+        return previous
+
+
 FAULTS = [("laplace.single", unchanged), ("laplace.single", altered),
+          ("laplace.single", FromAnotherRequest),
           ("hamming.batch64", unchanged), ("hamming.batch64", half_left_out),
-          ("hamming.batch64", altered)]
+          ("hamming.batch64", altered),
+          ("hamming.stream", unchanged), ("hamming.stream", altered),
+          ("hamming.stream", FromAnotherRequest),
+          ("logreg.single", unchanged), ("logreg.single", half_left_out),
+          ("logreg.single", altered), ("logreg.single", FromAnotherRequest)]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS,
@@ -74,6 +137,8 @@ FAULTS = [("laplace.single", unchanged), ("laplace.single", altered),
 def test_broken_path_is_not_correct(tmp_path, monkeypatch, name, fault):
     from abc_tpu_torch.runtime.jit_executor import JittedProgram
     real = JittedProgram.run_raw
+    if isinstance(fault, type):
+        fault = fault()
 
     def broken(self, inputs):
         return fault(self, inputs, real(self, inputs))
@@ -100,13 +165,19 @@ def test_verdict_limits():
                         "plain_scalar": 40}),
     ("hamming.batch64", {"operand": 2, "multiply": 1, "decompose": 4,
                          "key_switch": 4, "plain_product": 0,
-                         "plain_scalar": 0})])
+                         "plain_scalar": 0}),
+    ("hamming.stream", {"operand": 2, "multiply": 1, "decompose": 4,
+                        "key_switch": 4, "plain_product": 0,
+                        "plain_scalar": 0}),
+    # 18 weights and c1, c3 by scalars; u relinearized and rescaled at
+    # each of its three uses, u^2 and u^3 once each
+    ("logreg.single", CKKS_CENSUS)])
 def test_op_census(tmp_path, name, want):
     from abc_tpu_torch.parallel.sharding import make_mesh
     from abc_tpu_torch.passes.pipeline import CompileOptions
-    from abc_tpu_torch.runtime.bfv_backend import BfvCiphertextFactory
     from abc_tpu_torch.runtime.jit_executor import jit_compile_program
     from fhebench.harness import census, traffic as gen
+    from fhebench.run import make_factory
     cell = tiny_cell(tmp_path, name, **SMALL[name])
     c, mix = cell.config, cell.traffic
     values = gen.draw_pool(c, mix, SEED)
@@ -114,17 +185,27 @@ def test_op_census(tmp_path, name, want):
         else None
     jp = jit_compile_program(
         cell.program_source(),
-        gen.inputs_source(c, {k: v[0] for k, v in values[0].items()}),
-        gen.output_source(c),
-        factory=BfvCiphertextFactory(slots=c["n"], seed=SEED, device="cpu"),
+        gen.inputs_source(c, {k: v[0] for k, v in values[0].items()},
+                          gen.draw_plain(c, SEED)),
+        gen.output_source(c), factory=make_factory(c, SEED, "cpu"),
         options=CompileOptions(**c["compile"]), mesh=mesh,
         batch_values=values[0] if mesh else None)
     assert census.op_census(jp, jp.secret_inputs) == want
 
 
-def test_only_bfv_configurations(tmp_path):
+@pytest.mark.parametrize("scheme", ["bgv", None])
+def test_only_bfv_configurations(tmp_path, scheme):
+    """Only the schemes the harness drives (BFV, CKKS) are taken: any other
+    is refused before a key is made."""
     from fhebench.harness import spec
     cell = tiny_cell(tmp_path, "hamming.batch64", **SMALL["hamming.batch64"])
-    cell.config = dict(cell.config, scheme="ckks")
+    cell.config = dict(cell.config, scheme=scheme)
+    with pytest.raises(spec.SpecError):
+        run_cell(cell, SEED, 0.5, False, torch.device("cpu"))
+
+
+def test_ckks_takes_one_request_a_replay(tmp_path):
+    from fhebench.harness import spec
+    cell = tiny_cell(tmp_path, "logreg.single", batch=2, pool=1, keep=1)
     with pytest.raises(spec.SpecError):
         run_cell(cell, SEED, 0.5, False, torch.device("cpu"))

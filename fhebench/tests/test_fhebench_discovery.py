@@ -21,10 +21,10 @@ def test_new_files_found_by_name(tmp_path):
     cfg["name"] = "bfv-hamming-other"
     (bench_dir / "configs" / "bfv-hamming-other.json").write_text(
         json.dumps(cfg))
-    (bench_dir / "workloads" / "stream.json").write_text(json.dumps(
+    (bench_dir / "workloads" / "other.json").write_text(json.dumps(
         {"batch": 1, "in_flight": 4, "pool": 64,
          "keep": 16, "trace_requests": 200}))
-    (bench_dir / "metrics" / "replay_count.stream.py").write_text(
+    (bench_dir / "metrics" / "replay_count.other.py").write_text(
         "def read(run):\n    return 42\n")
     (bench_dir / "layers" / "extra.json").write_text(json.dumps(
         {"layer": "extra", "kernels": ["rns_ew_"]}))
@@ -32,28 +32,28 @@ def test_new_files_found_by_name(tmp_path):
                              "source": "x", "reduced": [], "why": "x",
                              "file": "fhebench/configs/"
                                      "bfv-hamming-other.json"})
-    bench["workloads"].append({"name": "hamming.stream",
+    bench["workloads"].append({"name": "hamming.other",
                                "config": "bfv-hamming-other",
-                               "traffic": "stream", "chips": 1, "why": "x"})
-    bench["per_layer"].append({"name": "replay_count.stream", "unit": "n",
+                               "traffic": "other", "chips": 1, "why": "x"})
+    bench["per_layer"].append({"name": "replay_count.other", "unit": "n",
                                "better": "lower", "source": "host_clock",
                                "layer": "extra", "moves": "setup_s",
-                               "workloads": ["hamming.stream"]})
+                               "workloads": ["hamming.other"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    cell = spec.load_cell("hamming.stream", root=str(tmp_path),
+    cell = spec.load_cell("hamming.other", root=str(tmp_path),
                           bench_dir=str(bench_dir))
     assert cell.config["name"] == "bfv-hamming-other"
     assert cell.traffic["in_flight"] == 4
     assert "extra" in cell.layers
     names = [m["name"] for m in cell.per_layer]
-    assert names == ["replay_count.stream"]
-    assert spec.reader(cell, "replay_count.stream")(None) == 42
+    assert names == ["replay_count.other"]
+    assert spec.reader(cell, "replay_count.other")(None) == 42
     assert cell.reference().answers({"x": [[1, 0, 0, 1]],
                                      "y": [[0, 0, 0, 1]]}) == [{"out": [1]}]
     # the committed cells see only their own metrics
     lap = spec.load_cell("laplace.single", root=str(tmp_path),
                          bench_dir=str(bench_dir))
-    assert "replay_count.stream" not in [m["name"] for m in lap.per_layer]
+    assert "replay_count.other" not in [m["name"] for m in lap.per_layer]
 
 
 def test_every_metric_has_its_reader():

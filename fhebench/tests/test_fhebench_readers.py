@@ -58,7 +58,11 @@ def test_roofline_share_is_least_time_over_device_time():
 
 @pytest.mark.parametrize("values,scalar", [([3], True), ([2, 2, 2], True),
                                            ([], True), ([0, 1], False),
-                                           ([1, 1, 0], False)])
+                                           ([1, 1, 0], False),
+                                           ([0.5, 0.5], True),
+                                           ([0.3, 0.7], False),
+                                           ([0.3, 0.30000000000000004],
+                                            False)])
 def test_a_plaintext_of_one_value_is_a_scalar(values, scalar):
     assert census.is_scalar(SimpleNamespace(values=values)) is scalar
 
@@ -78,6 +82,19 @@ def test_a_product_by_a_scalar_needs_no_transform(shape):
     assert vec >= bounds.ntt_bound(n, L, rows, False)[0] + \
         bounds.ntt_bound(n, L, rows, True)[0] - \
         2 * 4 * rows * n / bounds.HBM_BYTES_S * 1e3
+
+
+def test_ckks_roofline_reads_its_census_by_level():
+    counts = {"ckks_multiply@7": 1, "ckks_rescale@7": 1,
+              "ckks_plain_scalar@8": 18}
+    shape = {"n": 32768, "L": 8, "k": 2, "B": 1}
+    least = fhe_ops.least_ms("ntt", counts, **shape)
+    assert least == pytest.approx(fhe_ops.least_ms(
+        "ntt", {"ckks_multiply@7": 1}, **shape))
+    run = record(trace={"mean_s": {"ntt_fwd": 4 * least * 1e-3}},
+                 graph_kernels={"ntt_fwd_kernel<1>": 1}, census=counts,
+                 shape=shape)
+    assert readers.roofline_pct(run, "ntt") == pytest.approx(25.0)
 
 
 def test_a_quantity_split_by_suffix_has_one_reader():
